@@ -11,6 +11,7 @@ import torch
 EPSILON = 1e-5
 RAY_EPSILON = 1e-3
 SHADOW_EPSILON = 1e-3
+EDGE_EPSILON = 1e-5
 
 PI = 3.14159265358979323846
 INV_PI = 1.0 / PI

@@ -14,6 +14,14 @@
 // visited in ascending id and a hit must be strictly closer, so ties go to
 // the lowest id, as in the plain version's argmin.
 //
+// Rounding. The cross and dot products are fused multiply-adds placed
+// where the JAX package's CPU backend contracts the same expressions
+// (LLVM fuses a * b + c where it can), so the port's hits are those of the
+// reference bit for bit on the CPU; with plain multiply-adds about 10% of
+// the t and 68% of the u values differed by an ulp there, and grazing
+// self-intersection tests at RAY_EPSILON flipped on ~1% of the Cornell
+// box's shadow rays. The plain version writes the same fmas.
+//
 // Culling. The TPU tests a cluster's box once for a tile of 8192 rays; here
 // each ray tests it alone, which is stricter in two ways, and both are
 // handled so that culling changes no hit:
@@ -87,18 +95,18 @@ __device__ __forceinline__ Hit sweep(const float* __restrict__ tri,
                   e1z = tri[5 * f_pad + j];
       const float e2x = tri[6 * f_pad + j], e2y = tri[7 * f_pad + j],
                   e2z = tri[8 * f_pad + j];
-      const float hx = dy * e2z - dz * e2y;
-      const float hy = dz * e2x - dx * e2z;
-      const float hz = dx * e2y - dy * e2x;
-      const float a = e1x * hx + e1y * hy + e1z * hz;
+      const float hx = fmaf(dy, e2z, -(dz * e2y));
+      const float hy = fmaf(dz, e2x, -(dx * e2z));
+      const float hz = fmaf(dx, e2y, -(dy * e2x));
+      const float a = fmaf(e1z, hz, fmaf(e1x, hx, e1y * hy));
       const float f = 1.0f / a;  // inf at a = 0; masked by the test below
       const float sx = ox - p0x, sy = oy - p0y, sz = oz - p0z;
-      const float u = f * (sx * hx + sy * hy + sz * hz);
-      const float qx = sy * e1z - sz * e1y;
-      const float qy = sz * e1x - sx * e1z;
-      const float qz = sx * e1y - sy * e1x;
-      const float v = f * (dx * qx + dy * qy + dz * qz);
-      const float t = f * (e2x * qx + e2y * qy + e2z * qz);
+      const float u = f * fmaf(sz, hz, fmaf(sy, hy, sx * hx));
+      const float qx = fmaf(sy, e1z, -(sz * e1y));
+      const float qy = fmaf(sz, e1x, -(sx * e1z));
+      const float qz = fmaf(sx, e1y, -(sy * e1x));
+      const float v = f * fmaf(dz, qz, fmaf(dx, qx, dy * qy));
+      const float t = f * fmaf(e2z, qz, fmaf(e2x, qx, e2y * qy));
       if (fabsf(a) > 1e-12f && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
           t > kRayEpsilon && t < h.t) {
         h.t = t;

@@ -16,10 +16,19 @@ class AreaLight(Emitter):
     """Constant-radiance emitter bound to a mesh."""
 
     def __init__(self, radiance=(1.0, 1.0, 1.0)):
-        self.radiance = torch.as_tensor(radiance,
-                                        dtype=torch.float32).reshape(3)
+        self.radiance = radiance
         self.mesh_index = -1  # assigned by Scene.add_Mesh
         self.id = ""
+
+    @property
+    def radiance(self) -> torch.Tensor:
+        """RGB radiance, ``(3,)`` float32; a tensor set here keeps its
+        autograd graph."""
+        return self._radiance
+
+    @radiance.setter
+    def radiance(self, value):
+        self._radiance = torch.as_tensor(value, dtype=torch.float32).reshape(3)
 
     def __repr__(self) -> str:
         return f"AreaLight[radiance={self.radiance.tolist()}]"

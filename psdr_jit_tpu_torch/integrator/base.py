@@ -1,16 +1,20 @@
-"""Integrator base: the interior render loop (counterpart of
-``psdr_jit_tpu/integrator/base.py``, primal ``renderC`` only)."""
+"""Integrator base (counterpart of ``psdr_jit_tpu/integrator/base.py``):
+the interior render loop of ``renderC``, the primary-edge boundary term
+and the ``loss_and_grad`` entry of the training step
+(``integrator/fused.py``)."""
 
 from __future__ import annotations
 
 import torch
 
 from ..core.sampler import Sampler
-from ..core.math import scrub_nonfinite
-from ..ops.image import interior_average
+from ..core.math import safe_div, scrub_nonfinite
+from ..ops.image import interior_average, splat_add_derivative_only
+from ..sensor.sensor import sample_primary_edge
 
 # Sampler stream salts of the three estimators (reference scene.cpp:52).
 STREAM_INTERIOR = 0
+STREAM_PRIMARY = 1
 
 # Sample lanes per chunk of the pixel loop: one chunk holds a whole 512x512
 # spp-32 frame. The PyTorch set-up around K2 (sampler hash, primary rays)
@@ -19,6 +23,13 @@ STREAM_INTERIOR = 0
 # 2^20 / 2^21 / 2^22 / 2^23 lanes per chunk, for a peak of 0.1 / 0.2 /
 # 0.4 / 0.8 GB (PERF.md). Larger frames loop over 2^23-lane chunks.
 CHUNK_LANES = 1 << 23
+# Sample lanes per chunk of the training step's interior pass (one chunk's
+# attached graph, K2-stash payload, rays and K4's cotangents, is held at a
+# time) and of its primary-edge pass. On an H100 the 512x512 spp-32
+# sppe-32 step took 140 / 119 / 99 / 94 ms at 2^20 / 2^21 / 2^22 / 2^23
+# lanes per chunk of both, for a peak of 0.27 / 0.52 / 1.03 / 1.87 GB
+# (PERF.md): 2^22 is within 5% of the fastest at half its memory.
+TRAIN_CHUNK_LANES = 1 << 22
 
 _NOT_PORTED = ("is not ported to psdr_jit_tpu_torch yet: it follows in a "
                "later slice of the port (ROADMAP.md, port queue)")
@@ -45,14 +56,48 @@ def interior_lane_setup(width: int, height: int, spp: int, seed: int,
 
 
 def interior_chunk(integrator, sd, opts, sensor_id: int, seed: int,
-                   spp: int, pix_chunk):
-    """Render one pixel chunk of the interior estimator -> (m, 3)."""
+                   spp: int, diff: bool, pix_chunk):
+    """Render one pixel chunk of the interior estimator -> (m, 3); with
+    ``diff`` the rows are attached to ``sd`` (the camera pose and every
+    table the attached Li reads)."""
     m, sampler, samples = interior_lane_setup(opts.width, opts.height, spp,
                                               seed, pix_chunk)
-    ray = sd.sensors[sensor_id].sample_primary_ray(samples)
+    ray = sd.sensors[sensor_id].sample_primary_ray(samples, diff=diff)
     active = torch.ones(m * spp, dtype=torch.bool, device=pix_chunk.device)
-    value = scrub_nonfinite(integrator.Li(sd, sampler, ray, active))
+    value = scrub_nonfinite(integrator.Li(sd, sampler, ray, active, diff))
     return interior_average(value, m, spp)
+
+
+def pad_pixel_chunks(pix, spp: int, chunk_lanes: int):
+    """Split ``pix`` into chunks of ``chunk_lanes // spp`` pixels (or one
+    chunk of all of them), the last padded with pixel 0: ``(pix_chunks (k,
+    max_pix), row_valid (k, max_pix))``. Pad rows must be masked out of
+    the caller's loss."""
+    n_pix = pix.shape[0]
+    max_pix = max(min(chunk_lanes // max(spp, 1), n_pix), 1)
+    k = -(-n_pix // max_pix)
+    n_pad = k * max_pix
+    pix_chunks = torch.cat([pix, pix.new_zeros(n_pad - n_pix)]).reshape(
+        k, max_pix)
+    row_valid = (torch.arange(n_pad, device=pix.device) < n_pix).reshape(
+        k, max_pix)
+    return pix_chunks, row_valid
+
+
+def _chunked_splat_sum(chunk_vals, n_samples: int, n_pix: int,
+                       chunk_lanes: int, device, ct):
+    """Pull the image cotangent ``ct`` (n_pix, 3) back through the splat
+    of edge-sample chunks into a derivative-only image, chunk by chunk as
+    each is built, so one chunk's graph is held at a time.
+    ``chunk_vals(lane)`` -> ``(values (chunk, 3), idx (chunk,))`` with
+    ``idx = -1`` for dropped lanes."""
+    for s in range(0, n_samples, chunk_lanes):
+        lane = torch.arange(s, min(s + chunk_lanes, n_samples),
+                            dtype=torch.int64, device=device)
+        values, idx = chunk_vals(lane)
+        part = splat_add_derivative_only(values, idx, n_pix)
+        if part.requires_grad:
+            part.backward(ct)
 
 
 class Integrator:
@@ -88,10 +133,17 @@ class Integrator:
                                   "primary and secondary edge terms) "
                                   + _NOT_PORTED)
 
-    def loss_and_grad(self, scene, *args, **kwargs):
-        raise NotImplementedError("loss_and_grad (the fused training step "
-                                  "with K2's stash mode, K3 and K4) "
-                                  + _NOT_PORTED)
+    def loss_and_grad(self, scene, params, apply_params, pixel_loss,
+                      sensor_id: int = 0, seed: int = -1):
+        """One training step for a pixel-local loss: ``(loss, grads,
+        image)`` with one forward and one adjoint (integrator/fused.py).
+        ``params`` is a dict of tensors, ``apply_params(params)`` sets them
+        on the scene objects, ``pixel_loss(rows (m, 3), pix (m,)) -> (m,)``;
+        ``grads`` has the keys of ``params``."""
+        from .fused import loss_and_grad as _fused
+
+        return _fused(self, scene, params, apply_params, pixel_loss,
+                      sensor_id, seed)
 
     def _render_interior(self, sd, opts, sensor_id, seed, pix_id):
         dev = sd.tri.p0.device
@@ -107,5 +159,33 @@ class Integrator:
         step = max(CHUNK_LANES // spp, 1)
         for s in range(0, n_pix, step):
             out[s:s + step] = interior_chunk(self, sd, opts, sensor_id, seed,
-                                             spp, pix[s:s + step])
+                                             spp, False, pix[s:s + step])
         return out
+
+    # primary-edge boundary term (integrator.cpp:179-198)
+    def _render_primary_edges(self, sd, opts, sensor_id: int, seed: int, ct):
+        """Pull the image cotangent ``ct`` through the derivative-only
+        primary-edge image into ``sd``'s attached tables (the edge
+        endpoints). Stream ``seed + STREAM_PRIMARY``: one draw for the edge
+        sample, then ``Li_pair`` from ``sampler.cnt``."""
+        sensor = sd.sensors[sensor_id]
+        if sensor.edge_info is None:
+            raise ValueError("no primary edges configured: set sppe > 0 "
+                             "before the scene compile")
+        n_samples = opts.num_pixels * opts.sppe
+
+        def chunk_vals(lane):
+            sampler = Sampler(seed + STREAM_PRIMARY, lane)
+            es = sample_primary_edge(sensor, sampler.next_1d())
+            valid = es.idx >= 0
+            with torch.no_grad():
+                delta = self.Li_pair(sd, sampler, es.ray_n, es.ray_p, valid)
+            value = es.x_dot_n[..., None] * safe_div(delta, es.pdf[..., None])
+            value = scrub_nonfinite(value)
+            if opts.sppe > 1:
+                value = value / float(opts.sppe)
+            value = torch.where(valid[..., None], value, 0.0)
+            return value, torch.where(valid, es.idx, -1)
+
+        _chunked_splat_sum(chunk_vals, n_samples, opts.num_pixels,
+                           TRAIN_CHUNK_LANES, sd.tri.p0.device, ct)

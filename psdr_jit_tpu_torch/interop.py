@@ -6,7 +6,9 @@ and cameras. :func:`scene_to_arrays` reads them off a ``psdr_jit_tpu``
 arrays convert themselves), and :func:`scene_from_arrays` rebuilds the
 same scene in this package through the normal ``add_*`` calls. The dict
 saves to and loads from ``.npz`` as it is, so a machine without JAX can
-render a scene that was built with it.
+render a scene that was built with it. :func:`params_to_torch` does the
+same for a training step's parameters, so both packages can take the same
+step.
 
 Scope: the slice's scene class (constant ``DiffuseBSDF``s, ``AreaLight``s
 and field-of-view ``PerspectiveCamera``s); anything else raises.
@@ -66,6 +68,7 @@ def scene_to_arrays(scene) -> dict:
         for name in _TRANSFORMS:
             out[f"mesh.{i}.{name}"] = _f32(getattr(m, name))
         out[f"mesh.{i}.use_face_normals"] = np.asarray(bool(m.use_face_normals))
+        out[f"mesh.{i}.enable_edges"] = np.asarray(bool(m.enable_edges))
         out[f"mesh.{i}.bsdf_id"] = np.asarray(int(m.bsdf_id), np.int64)
         out[f"mesh.{i}.emitter_id"] = np.asarray(int(m.emitter_id), np.int64)
     for s, cam in enumerate(scene.sensors):
@@ -103,8 +106,10 @@ def scene_from_arrays(arrays, device="cpu"):
                     str(a["bsdf_ids"][j]),
                     twoSide=bool(a[f"bsdf.{j}.twoSide"]))
     for i in range(n_meshes):
-        mesh = Mesh().load_raw(_tensor(a[f"mesh.{i}.vertex_positions_raw"]),
-                               torch.tensor(a[f"mesh.{i}.face_indices"]))
+        mesh = Mesh()
+        mesh.enable_edges = bool(a[f"mesh.{i}.enable_edges"])
+        mesh.load_raw(_tensor(a[f"mesh.{i}.vertex_positions_raw"]),
+                      torch.tensor(a[f"mesh.{i}.face_indices"]))
         for name in _TRANSFORMS:
             setattr(mesh, name, _tensor(a[f"mesh.{i}.{name}"]))
         mesh.use_face_normals = bool(a[f"mesh.{i}.use_face_normals"])
@@ -120,3 +125,11 @@ def scene_from_arrays(arrays, device="cpu"):
         raise ValueError(f"{n_emitters} emitters listed, "
                          f"{len(sc.emitters)} attached to meshes")
     return sc
+
+
+def params_to_torch(np_params, device="cpu") -> dict:
+    """A training step's parameters, ``{name: array}`` (numpy, or anything
+    ``np.asarray`` takes, such as the JAX package's arrays), as float32
+    tensors on ``device``."""
+    return {k: torch.tensor(np.asarray(v, np.float32), device=device)
+            for k, v in np_params.items()}

@@ -16,9 +16,11 @@ contraction, 0.4% of K1's check rays changed their hit beyond an f32 tie
 on the H100 (rays grazing or lying in a triangle's plane; PERF.md). Where a
 kernel wants a fused multiply-add it writes ``fmaf`` explicitly.
 
-``LAUNCHES`` counts the launches of each kernel (``K1``: closest hit,
-``K2``: detached Li); each wrapper adds one where it launches its kernel
-and nowhere else, so a run can show that it went through the kernels.
+``LAUNCHES`` counts the launches of each kernel (``K1``: closest hit;
+``K2``, ``K2-pair``, ``K2-stash``: the detached Li in its three modes;
+``K3``: the attached shade; ``K4``: its adjoint); each wrapper adds one
+where it launches its kernel and nowhere else, so a run can show that it
+went through the kernels.
 """
 
 from __future__ import annotations
@@ -36,13 +38,14 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "build"
-SOURCES = ("sweep.cuh", "intersect.cu", "megakernel.cu")
+SOURCES = ("common.cuh", "sweep.cuh", "shade.cuh", "intersect.cu",
+           "megakernel.cu", "shade.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libpsdr_kernels.so"
 
-LAUNCHES = {"K1": 0, "K2": 0}
+LAUNCHES = {"K1": 0, "K2": 0, "K2-pair": 0, "K2-stash": 0, "K3": 0,
+            "K4": 0}
 
 
 def reset_launches():
@@ -62,7 +65,9 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile the kernels (once per source hash); returns the library
-    path. ``ptxas.txt`` beside it holds ptxas's register and spill report."""
+    path. Each ``.cu`` is compiled by its own ``nvcc``, all at once, then
+    linked. ``ptxas.txt`` beside the library holds ptxas's register and
+    spill report."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES:
         h.update(name.encode())
@@ -72,14 +77,34 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES if s.endswith(".cu"))]
+    nvcc = _nvcc()
+    tag = os.getpid()
+    jobs = []
+    for name in SOURCES:
+        if name.endswith(".cu"):
+            obj = out_dir / f"{name}.{tag}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / name)]
+            jobs.append((obj, cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+    report, failed = [], []
+    for obj, cmd, proc in jobs:
+        out = proc.communicate()[0]
+        report.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+    cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+           *(str(obj) for obj, _, _ in jobs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    (out_dir / "ptxas.txt").write_text(proc.stdout + proc.stderr)
+    for obj, _, _ in jobs:
+        obj.unlink()
+    (out_dir / "ptxas.txt").write_text("".join(report))
     os.replace(tmp, lib)
     return lib
 
@@ -96,8 +121,15 @@ def library() -> ctypes.CDLL:
     lib.psdr_intersect.argtypes = [_P, _P, _I, _P, _P, _LL, _P, _P, _P, _P]
     lib.psdr_intersect.restype = _I
     lib.psdr_li_mega.argtypes = [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
-                                 ctypes.c_uint, _LL, _I, _I, _I, _P, _P]
+                                 _P, _P, ctypes.c_uint, _LL, _I, _I, _I, _I,
+                                 _P, _P, _P, _P, _P]
     lib.psdr_li_mega.restype = _I
+    shade = [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, ctypes.c_uint,
+             _LL, _I, _I, _I]
+    lib.psdr_shade_fwd.argtypes = shade + [_P, _P]
+    lib.psdr_shade_fwd.restype = _I
+    lib.psdr_shade_bwd.argtypes = shade + [_P, _P, _P, _P, _P, _P, _P]
+    lib.psdr_shade_bwd.restype = _I
     lib.psdr_error_string.argtypes = [_I]
     lib.psdr_error_string.restype = ctypes.c_char_p
     return lib

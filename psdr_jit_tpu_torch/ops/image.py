@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import torch
+
 
 def interior_average(values, n_pix: int, spp: int):
     """``(n_pix * spp, C)`` pixel-major samples -> ``(n_pix, C)`` means.
@@ -13,3 +15,29 @@ def interior_average(values, n_pix: int, spp: int):
     for s in range(1, spp):
         acc = acc + v[:, s]
     return acc * (1.0 / spp)
+
+
+class _SplatDerivativeOnly(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, values, idx, n_pix):
+        ctx.save_for_backward(idx)
+        ctx.n_pix = n_pix
+        return values.new_zeros((n_pix, values.shape[-1]))
+
+    @staticmethod
+    def backward(ctx, ct):
+        (idx,) = ctx.saved_tensors
+        ok = (idx >= 0) & (idx < ctx.n_pix)
+        rows = ct[torch.where(ok, idx, 0).long()]
+        return torch.where(ok[..., None], rows, 0.0), None, None
+
+
+def splat_add_derivative_only(values, idx, n_pix: int):
+    """Splat of a derivative-only estimator (the boundary terms): ``values``
+    ``(N, 3)`` at pixel ids ``idx`` ``(N,)`` (-1 = dropped) into an
+    ``(n_pix, 3)`` image whose value is zero and whose derivative is the
+    splat's (JAX ``splat_add_derivative_only``). The forward scatters
+    nothing; the backward gathers the image cotangent ``ct[idx]`` in
+    float32 (the JAX package's default bf16 table, ``rows_bf16``, is a TPU
+    bandwidth measure and is not ported)."""
+    return _SplatDerivativeOnly.apply(values, idx, n_pix)

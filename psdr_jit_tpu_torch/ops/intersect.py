@@ -62,24 +62,29 @@ def pack_triangles(p0, e1, e2):
     return tri, box
 
 
+def _fma(a, b, c):
+    """a * b + c rounded once (the product of two f32 is exact in f64)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
 def _sweep_block(tri, ox, oy, oz, dx, dy, dz):
     rows = [tri[k][None, :] for k in range(9)]
     p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z = rows
     ox, oy, oz, dx, dy, dz = (c[:, None] for c in (ox, oy, oz, dx, dy, dz))
-    hx = dy * e2z - dz * e2y
-    hy = dz * e2x - dx * e2z
-    hz = dx * e2y - dy * e2x
-    a = e1x * hx + e1y * hy + e1z * hz
+    hx = _fma(dy, e2z, -(dz * e2y))
+    hy = _fma(dz, e2x, -(dx * e2z))
+    hz = _fma(dx, e2y, -(dy * e2x))
+    a = _fma(e1z, hz, _fma(e1x, hx, e1y * hy))
     f = 1.0 / a
     sx = ox - p0x
     sy = oy - p0y
     sz = oz - p0z
-    u = f * (sx * hx + sy * hy + sz * hz)
-    qx = sy * e1z - sz * e1y
-    qy = sz * e1x - sx * e1z
-    qz = sx * e1y - sy * e1x
-    v = f * (dx * qx + dy * qy + dz * qz)
-    t = f * (e2x * qx + e2y * qy + e2z * qz)
+    u = f * _fma(sz, hz, _fma(sy, hy, sx * hx))
+    qx = _fma(sy, e1z, -(sz * e1y))
+    qy = _fma(sz, e1x, -(sx * e1z))
+    qz = _fma(sx, e1y, -(sy * e1x))
+    v = f * _fma(dz, qz, _fma(dx, qx, dy * qy))
+    t = f * _fma(e2z, qz, _fma(e2x, qx, e2y * qy))
     hit = ((a.abs() > 1e-12) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
            & (t > RAY_EPSILON) & (t < INF))
     t = torch.where(hit, t, INF)

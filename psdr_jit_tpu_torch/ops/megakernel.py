@@ -1,5 +1,6 @@
 """Detached PathTracer Li in one launch (counterpart of
-``psdr_jit_tpu/ops/megakernel.py``, single-ray mode).
+``psdr_jit_tpu/ops/megakernel.py``: ``li_mega``, ``li_mega_pair`` and
+``li_mega_stash``).
 
 Kernel K2 (``csrc/megakernel.cu``) evaluates, per lane: the closest-hit
 sweep, the hit attributes, area-light next-event estimation with MIS, the
@@ -8,11 +9,23 @@ the sampler's: ``pcg4d(lane, cnt, seed, 0x9E3779B9)`` with one draw for each
 NEE and one for each bounce, starting at ``cnt0``, so a render through it
 is sample for sample the JAX package's estimator.
 
+K2 has three modes, one kernel (a runtime argument picks the mode):
+
+* single (:func:`li_mega`): Li of one ray per lane;
+* pair (:func:`li_mega_pair`): ``Li(ray_n) - Li(ray_p)`` for the
+  primary-edge pass, ray_n with draws ``cnt0 .. cnt0 + 2 depth - 1`` and
+  ray_p with the next ``2 depth``, so it equals two sequential calls;
+* stash (:func:`li_mega_stash`): Li plus the ``(tri_id, u, v)`` payload of
+  all ``1 + 2 depth`` hits (camera, then NEE and bounce of each depth) for
+  the attached shade (``ops/shade_mega.py``). Its bounce origins are the
+  bilinear points ``p0 + e1 u + e2 v`` of the path-space formulation, not
+  ``o + d t``; the camera hit keeps ``o + d t``.
+
 Scope (:func:`applicable`): every BSDF a one-sided constant
 ``DiffuseBSDF``, exactly one emitter (an ``AreaLight``) and at most
-``MEGA_MAX_TRIS`` triangles. :func:`li_mega` launches K2 on CUDA tensors
-and runs :func:`li_mega_plain`, the plain PyTorch transcription of the
-same per-lane program, on CPU tensors.
+``MEGA_MAX_TRIS`` triangles. Each entry launches K2 on CUDA tensors and
+runs its plain PyTorch version (``*_plain``, one transcription of the
+same per-lane program) on CPU tensors.
 """
 
 from __future__ import annotations
@@ -26,7 +39,7 @@ from ..core.math import mis_weight, normalize, safe_div, safe_sqrt
 from ..bsdf.diffuse import DiffuseBSDF
 from ..emitter.area import AreaLightData
 from . import _cuda
-from .intersect import CLUSTER, pack_triangles, sweep_plain
+from .intersect import CLUSTER, _fma, pack_triangles, sweep_plain
 
 _TINY = 1e-20
 # K2 stages all tables in shared memory: at 192 triangles (and at most as
@@ -123,29 +136,36 @@ def _cosine_hemisphere(u0, u1):
     return px, py, safe_sqrt(1.0 - px * px - py * py)
 
 
-def _fma(a, b, c):
-    """a * b + c rounded once, as a fused multiply-add: the product of two
-    f32 is exact in f64. K2 computes the hit point with ``fmaf`` and the
-    JAX package's CPU backend contracts it the same way; rounding it
-    twice moves secondary-ray origins by an ulp, which flips grazing
-    self-intersection tests (RAY_EPSILON) on about 1% of cbox lanes."""
-    return (a.double() * b.double() + c.double()).float()
+def _bilinear_point(tri, bi, bu, bv):
+    """``p0 + e1 u + e2 v`` of hit ``bi`` with two fused multiply-adds,
+    rounded as the JAX package's CPU backend contracts the expression."""
+    j = torch.clamp(bi, min=0).long()
+    return tuple(torch.where(bi >= 0, _fma(tri[6 + k, j], bv,
+                                           _fma(tri[3 + k, j], bu,
+                                                tri[k, j])), 0.0)
+                 for k in range(3))
 
 
-def li_mega_plain(tri, box, attr, light, misc, ray_o, ray_d, active, lane,
-                  seed: int, depth: int, cnt0: int,
-                  hide_emitters: bool = False):
-    """Plain PyTorch K2: the same per-lane program with index gathers in
-    place of shared-memory table reads and the unculled sweep (``box`` is
-    unused). Returns ``(N, 3)`` radiance, 0 for inactive lanes."""
-    del box
+def _li_plain(tri, attr, light, misc, ray_o, ray_d, active, lane,
+              seed: int, depth: int, cnt0: int, hide_emitters: bool,
+              stash: bool):
+    """The per-lane program of K2: ``(radiance (N, 3), hits)``, where
+    ``hits`` is ``(ids, u, v)``, each ``(1 + 2 depth, N)``, in stash mode
+    and ``None`` otherwise."""
     n_light = light.shape[1]
     total_mass, inv_area = misc[0], misc[1]
     lane = lane.to(torch.int64) & 0xFFFFFFFF
     seed = int(seed) & 0xFFFFFFFF
+    hits = []
 
     def draw(cnt):
         return [u32_to_unit_float(x) for x in pcg4d(lane, cnt, seed, SALT)]
+
+    def closest_hit(o, d):
+        t, bi, bu, bv = sweep_plain(tri, o, d)
+        if stash:
+            hits.append((bi, bu, bv))
+        return t, bi, bu, bv
 
     def resolve(bi, bu, bv):
         """Hit attributes: shading normal, face normal, albedo, emission
@@ -188,7 +208,7 @@ def li_mega_plain(tri, box, attr, light, misc, ray_o, ray_d, active, lane,
     o = tuple(ray_o[:, k] for k in range(3))
     d = tuple(ray_d[:, k] for k in range(3))
     cnt = cnt0
-    t, bi, bu, bv = sweep_plain(tri, o, d)
+    t, bi, bu, bv = closest_hit(o, d)
     active = active & (bi >= 0)
     ns, fn, alb, emit, is_em = resolve(bi, bu, bv)
     zero = torch.zeros_like(t)
@@ -197,6 +217,10 @@ def li_mega_plain(tri, box, attr, light, misc, ray_o, ray_d, active, lane,
         ok = active & is_em & (-_dot3(ns, d) > 0.0)
         res = [torch.where(ok, emit[k], res[k]) for k in range(3)]
     thr = [torch.ones_like(t)] * 3
+    # the hit point with one rounding, as K2's fmaf and the JAX package's
+    # CPU backend compute it: rounding twice moves secondary-ray origins by
+    # an ulp, which flips grazing self-intersection tests (RAY_EPSILON) on
+    # about 1% of cbox lanes
     p = tuple(_fma(d[k], t, o[k]) for k in range(3))
     for _ in range(depth):
         wiz_cam = -_dot3(ns, d)
@@ -210,7 +234,7 @@ def li_mega_plain(tri, box, attr, light, misc, ray_o, ray_d, active, lane,
         dist = safe_sqrt(dist_sqr)
         inv_dist = safe_div(torch.ones_like(dist), dist)
         wod = tuple(w * inv_dist for w in wod)
-        t1, bi1, bu1, bv1 = sweep_plain(tri, p, wod)
+        t1, bi1, bu1, bv1 = closest_hit(p, wod)
         ns1, fn1, _, emit1, is_em1 = resolve(bi1, bu1, bv1)
         hit_light = (active_direct & (bi1 >= 0)
                      & (t1 > dist - SHADOW_EPSILON) & is_em1)
@@ -235,7 +259,7 @@ def li_mega_plain(tri, box, attr, light, misc, ray_o, ray_d, active, lane,
                     for x in coordinate_system(torch.stack(ns, dim=-1)))
         wo = tuple(s_f[k] * lx + t_f[k] * ly + ns[k] * lz for k in range(3))
         bs_valid = active & (wiz_cam > 0.0)
-        t2, bi2, bu2, bv2 = sweep_plain(tri, p, wo)
+        t2, bi2, bu2, bv2 = closest_hit(p, wo)
         valid2 = bi2 >= 0
         active = bs_valid & valid2
         ns2, fn2, alb2, emit2, is_em2 = resolve(bi2, bu2, bv2)
@@ -250,18 +274,66 @@ def li_mega_plain(tri, box, attr, light, misc, ray_o, ray_d, active, lane,
         lscale = torch.where(active & is_em2 & (-_dot3(ns2, wo) > 0.0),
                              weight2, 0.0)
         res = [res[k] + thr[k] * emit2[k] * lscale for k in range(3)]
-        p = tuple(_fma(wo[k], t2, p[k]) for k in range(3))
+        if stash:
+            p = _bilinear_point(tri, bi2, bu2, bv2)
+        else:
+            p = tuple(_fma(wo[k], t2, p[k]) for k in range(3))
         d = wo
         ns, fn, alb, emit, is_em = ns2, fn2, alb2, emit2, is_em2
-    return torch.stack(res, dim=-1)
+    out = torch.stack(res, dim=-1)
+    if not stash:
+        return out, None
+    return out, tuple(torch.stack(x) for x in zip(*hits))
+
+
+def li_mega_plain(tri, box, attr, light, misc, ray_o, ray_d, active, lane,
+                  seed: int, depth: int, cnt0: int,
+                  hide_emitters: bool = False):
+    """Plain PyTorch K2, single mode: the same per-lane program with index
+    gathers in place of shared-memory table reads and the unculled sweep
+    (``box`` is unused). Returns ``(N, 3)`` radiance, 0 for inactive
+    lanes."""
+    del box
+    return _li_plain(tri, attr, light, misc, ray_o, ray_d, active, lane,
+                     seed, depth, cnt0, hide_emitters, False)[0]
+
+
+def li_mega_pair_plain(tri, box, attr, light, misc, ray_o_n, ray_d_n,
+                       ray_o_p, ray_d_p, active, lane, seed: int,
+                       depth: int, cnt0: int, hide_emitters: bool = False):
+    """Plain K2, pair mode: ``Li(ray_n) - Li(ray_p)``, ray_p drawing from
+    ``cnt0 + 2 depth``."""
+    del box
+    li_n = _li_plain(tri, attr, light, misc, ray_o_n, ray_d_n, active, lane,
+                     seed, depth, cnt0, hide_emitters, False)[0]
+    li_p = _li_plain(tri, attr, light, misc, ray_o_p, ray_d_p, active, lane,
+                     seed, depth, cnt0 + 2 * depth, hide_emitters, False)[0]
+    return li_n - li_p
+
+
+def li_mega_stash_plain(tri, box, attr, light, misc, ray_o, ray_d, active,
+                        lane, seed: int, depth: int, cnt0: int,
+                        hide_emitters: bool = False):
+    """Plain K2, stash mode: ``(radiance (N, 3), (ids, u, v))`` with
+    ``(1 + 2 depth, N)`` int32 ids (-1 = miss) and float32
+    barycentrics."""
+    del box
+    return _li_plain(tri, attr, light, misc, ray_o, ray_d, active, lane,
+                     seed, depth, cnt0, hide_emitters, True)
 
 
 # ---- the kernel -------------------------------------------------------------
 
-def li_mega_cuda(tri, box, attr, light, misc, ray_o, ray_d, active, lane,
-                 seed: int, depth: int, cnt0: int,
-                 hide_emitters: bool = False):
-    """Launch K2. ``lane`` holds u32 values in any integer dtype."""
+def _lane_i32(lane):
+    """The u32 bit pattern of ``lane`` as int32."""
+    lane = lane.to(torch.int64) & 0xFFFFFFFF
+    return torch.where(lane >= 1 << 31, lane - (1 << 32), lane).to(
+        torch.int32).contiguous()
+
+
+def _launch_k2(mode: str, tri, box, attr, light, misc, ray_o, ray_d, ray2,
+               active, lane, seed: int, depth: int, cnt0: int,
+               hide_emitters: bool):
     dev = ray_o.device
     f_pad = tri.shape[1]
     n_light = light.shape[1]
@@ -281,28 +353,65 @@ def li_mega_cuda(tri, box, attr, light, misc, ray_o, ray_d, active, lane,
     n = ray_o.shape[0]
     _cuda.require(ray_o, "ray_o", torch.float32, (n, 3), dev)
     _cuda.require(ray_d, "ray_d", torch.float32, (n, 3), dev)
+    o2, d2 = ray2 if ray2 is not None else (ray_o, ray_d)
+    _cuda.require(o2, "ray_o_p", torch.float32, (n, 3), dev)
+    _cuda.require(d2, "ray_d_p", torch.float32, (n, 3), dev)
     _cuda.require(active, "active", torch.bool, (n,), dev)
     if lane.shape != (n,) or lane.device != dev or lane.is_floating_point():
         raise ValueError("lane: expected (N,) integer tensor on the rays' "
                          "device")
-    # the u32 bit pattern as int32
-    lane32 = lane.to(torch.int64) & 0xFFFFFFFF
-    lane32 = torch.where(lane32 >= 1 << 31, lane32 - (1 << 32),
-                         lane32).to(torch.int32)
+    lane32 = _lane_i32(lane)
     out = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    if n == 0:
-        return out
-    lib = _cuda.library()
-    with torch.cuda.device(dev):
-        err = lib.psdr_li_mega(
-            tri.data_ptr(), box.data_ptr(), attr.data_ptr(),
-            light.data_ptr(), misc.data_ptr(), f_pad, n_light,
-            ray_o.data_ptr(), ray_d.data_ptr(), active.data_ptr(),
-            lane32.data_ptr(), int(seed) & 0xFFFFFFFF, n, depth, cnt0,
-            int(hide_emitters), out.data_ptr(), _cuda.stream_of(dev))
-    _cuda.check(err, "K2 launch")
-    _cuda.LAUNCHES["K2"] += 1
-    return out
+    n_hits = 1 + 2 * depth
+    stash = mode == "K2-stash"
+    ids = torch.empty((n_hits, n) if stash else (0,), dtype=torch.int32,
+                      device=dev)
+    su = torch.empty((n_hits, n) if stash else (0,), dtype=torch.float32,
+                     device=dev)
+    sv = torch.empty_like(su)
+    if n > 0:
+        lib = _cuda.library()
+        with torch.cuda.device(dev):
+            err = lib.psdr_li_mega(
+                tri.data_ptr(), box.data_ptr(), attr.data_ptr(),
+                light.data_ptr(), misc.data_ptr(), f_pad, n_light,
+                ray_o.data_ptr(), ray_d.data_ptr(), o2.data_ptr(),
+                d2.data_ptr(), active.data_ptr(), lane32.data_ptr(),
+                int(seed) & 0xFFFFFFFF, n, depth, cnt0, int(hide_emitters),
+                _K2_MODES[mode], out.data_ptr(), ids.data_ptr(),
+                su.data_ptr(), sv.data_ptr(), _cuda.stream_of(dev))
+        _cuda.check(err, f"{mode} launch")
+        _cuda.LAUNCHES[mode] += 1
+    return out, ((ids, su, sv) if stash else None)
+
+
+_K2_MODES = {"K2": 0, "K2-pair": 1, "K2-stash": 2}
+
+
+def li_mega_cuda(tri, box, attr, light, misc, ray_o, ray_d, active, lane,
+                 seed: int, depth: int, cnt0: int,
+                 hide_emitters: bool = False):
+    """Launch K2 in single mode. ``lane`` holds u32 values in any integer
+    dtype."""
+    return _launch_k2("K2", tri, box, attr, light, misc, ray_o, ray_d, None,
+                      active, lane, seed, depth, cnt0, hide_emitters)[0]
+
+
+def li_mega_pair_cuda(tri, box, attr, light, misc, ray_o_n, ray_d_n,
+                      ray_o_p, ray_d_p, active, lane, seed: int, depth: int,
+                      cnt0: int, hide_emitters: bool = False):
+    """Launch K2 in pair mode: ``Li(ray_n) - Li(ray_p)``."""
+    return _launch_k2("K2-pair", tri, box, attr, light, misc, ray_o_n,
+                      ray_d_n, (ray_o_p, ray_d_p), active, lane, seed, depth,
+                      cnt0, hide_emitters)[0]
+
+
+def li_mega_stash_cuda(tri, box, attr, light, misc, ray_o, ray_d, active,
+                       lane, seed: int, depth: int, cnt0: int,
+                       hide_emitters: bool = False):
+    """Launch K2 in stash mode: ``(radiance, (ids, u, v))``."""
+    return _launch_k2("K2-stash", tri, box, attr, light, misc, ray_o, ray_d,
+                      None, active, lane, seed, depth, cnt0, hide_emitters)
 
 
 def li_mega(tri, box, attr, light, misc, ray_o, ray_d, active, lane,
@@ -310,8 +419,30 @@ def li_mega(tri, box, attr, light, misc, ray_o, ray_d, active, lane,
     """Detached PathTracer Li for (N, 3) rays: K2 on CUDA tensors, the
     plain version on CPU tensors. ``lane``/``seed``/``cnt0`` give the
     sampler schedule; returns ``(N, 3)`` radiance, 0 for inactive lanes."""
-    args = (tri, box, attr, light, misc, ray_o, ray_d, active, lane, seed,
-            depth, cnt0, hide_emitters)
-    if ray_o.device.type == "cpu":
-        return li_mega_plain(*args)
-    return li_mega_cuda(*args)
+    fn = li_mega_plain if ray_o.device.type == "cpu" else li_mega_cuda
+    return fn(tri, box, attr, light, misc, ray_o, ray_d, active, lane, seed,
+              depth, cnt0, hide_emitters)
+
+
+def li_mega_pair(tri, box, attr, light, misc, ray_o_n, ray_d_n, ray_o_p,
+                 ray_d_p, active, lane, seed: int, depth: int, cnt0: int,
+                 hide_emitters: bool = False):
+    """``Li(ray_n) - Li(ray_p)`` for (N, 3) ray pairs, both sides drawing
+    as two sequential :func:`li_mega` calls would: K2 pair mode on CUDA
+    tensors, the plain version on CPU tensors."""
+    fn = (li_mega_pair_plain if ray_o_n.device.type == "cpu"
+          else li_mega_pair_cuda)
+    return fn(tri, box, attr, light, misc, ray_o_n, ray_d_n, ray_o_p,
+              ray_d_p, active, lane, seed, depth, cnt0, hide_emitters)
+
+
+def li_mega_stash(tri, box, attr, light, misc, ray_o, ray_d, active, lane,
+                  seed: int, depth: int, cnt0: int,
+                  hide_emitters: bool = False):
+    """Detached Li and the hit payloads ``(ids, u, v)``, each
+    ``(1 + 2 depth, N)``: K2 stash mode on CUDA tensors, the plain version
+    on CPU tensors."""
+    fn = (li_mega_stash_plain if ray_o.device.type == "cpu"
+          else li_mega_stash_cuda)
+    return fn(tri, box, attr, light, misc, ray_o, ray_d, active, lane, seed,
+              depth, cnt0, hide_emitters)

@@ -4,17 +4,25 @@
 :class:`Scene` is the user-facing container (``add_Sensor``, ``add_BSDF``,
 ``add_Mesh``, ``configure``). :meth:`Scene.configure_data` packs the
 world-space triangle SoA, the per-mesh BSDF and emitter slots, the emitter
-weights and the cameras into a :class:`SceneData` on ``Scene.device``.
-The compile runs in float32 on the CPU, then moves to the device, so a
-scene's tables are the same bits whichever device renders it.
+weights, the cameras and (when ``sppe > 0``) the primary-edge tables into
+a :class:`SceneData` on ``Scene.device``.
 
-Not ported yet: edges (``sppe``/``sppse`` are stored but build nothing),
-environment maps, and the Morton triangle order that the JAX package
-applies above 256 faces.
+The compile runs in float32 on the CPU and then moves to the device, so a
+scene's tables are the same bits whichever device renders it. It is
+differentiable: the parameters a training step sets on the scene objects
+(vertex positions, transforms, reflectances, radiances; on any device)
+are copied to the CPU inside the autograd graph, and the final ``.to``
+copy to the device is in the graph too, so gradients on the device's
+tables flow back to them.
+
+Not ported yet: secondary edges (``sppse`` builds nothing), environment
+maps, and the Morton triangle order that the JAX package applies above 256
+faces.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Optional
 
@@ -23,7 +31,8 @@ import torch
 from ..core.types import RenderOption, Ray, Frame, Intersection
 from ..core.math import bilinear, norm, normalize, safe_div
 from ..core.distribution import DiscreteDistribution
-from ..shape.mesh import Mesh, TriangleInfo
+from ..shape.mesh import Mesh, TriangleInfo, cpu_f32
+from ..bsdf.bsdf import BSDF
 from ..emitter.area import AreaLight, AreaLightData, area_light_weight
 from ..ops.intersect import ray_intersect_detached
 
@@ -32,15 +41,21 @@ from ..ops.intersect import ray_intersect_detached
 MAX_UNORDERED_FACES = 256
 
 
-def _to_device(x, device):
+def tree_map(fn, x):
+    """Apply ``fn`` to every tensor of a SceneData (dataclasses, tuples and
+    configured BSDFs), rebuilding the containers."""
     if isinstance(x, torch.Tensor):
-        return x.to(device)
+        return fn(x)
     if dataclasses.is_dataclass(x) and not isinstance(x, type):
         return dataclasses.replace(x, **{
-            f.name: _to_device(getattr(x, f.name), device)
+            f.name: tree_map(fn, getattr(x, f.name))
             for f in dataclasses.fields(x)})
     if isinstance(x, tuple):
-        return tuple(_to_device(v, device) for v in x)
+        return tuple(tree_map(fn, v) for v in x)
+    if isinstance(x, BSDF):
+        y = copy.copy(x)
+        y.reflectance = fn(x.reflectance)
+        return y
     return x
 
 
@@ -167,9 +182,9 @@ class Scene:
                 "(it comes with the large-scene kernels, ROADMAP.md)")
         opts = self.opts
         mesh_datas = [m.configure_data() for m in self.meshes]
-        lower = torch.stack([md.vertex_positions.amin(0)
+        lower = torch.stack([md.vertex_positions.detach().amin(0)
                              for md in mesh_datas]).amin(0)
-        upper = torch.stack([md.vertex_positions.amax(0)
+        upper = torch.stack([md.vertex_positions.detach().amax(0)
                              for md in mesh_datas]).amax(0)
         tri = TriangleInfo(*(
             torch.cat([getattr(md.tri, f.name) for md in mesh_datas])
@@ -185,19 +200,26 @@ class Scene:
         mesh_emitter_slot = torch.tensor([m.emitter_id for m in self.meshes],
                                          dtype=torch.int32)
 
-        # emitter weights (scene.cpp:489-515)
+        # emitter weights (scene.cpp:489-515); the normalized weight is
+        # detached, as in the JAX package
         emitter_datas, emitters_distrb = [], None
         if self.emitters:
-            weights = [area_light_weight(em.radiance, mesh_datas[em.mesh_index])
-                       for em in self.emitters]
+            radiances = [cpu_f32(em.radiance) for em in self.emitters]
+            weights = [area_light_weight(r, mesh_datas[em.mesh_index])
+                       for em, r in zip(self.emitters, radiances)]
             wsum = sum(weights)
             emitters_distrb = DiscreteDistribution.init(torch.stack(weights))
             emitter_datas = [
-                AreaLightData(radiance=em.radiance,
-                              sampling_weight=safe_div(w, wsum),
+                AreaLightData(radiance=r,
+                              sampling_weight=safe_div(w, wsum).detach(),
                               mesh_data=mesh_datas[em.mesh_index],
                               mesh_index=em.mesh_index)
-                for em, w in zip(self.emitters, weights)]
+                for em, r, w in zip(self.emitters, radiances, weights)]
+        bsdfs = []
+        for b in self.bsdfs:
+            b = copy.copy(b)
+            b.reflectance = cpu_f32(b.reflectance)
+            bsdfs.append(b)
 
         sd = SceneData(
             tri=tri,
@@ -205,15 +227,17 @@ class Scene:
             face_mesh_id=face_mesh_id,
             mesh_bsdf_slot=mesh_bsdf_slot,
             mesh_emitter_slot=mesh_emitter_slot,
-            bsdfs=tuple(self.bsdfs),
+            bsdfs=tuple(bsdfs),
             emitters=tuple(emitter_datas),
             emitters_distrb=emitters_distrb,
-            sensors=tuple(s.configure_data(opts.width, opts.height)
+            sensors=tuple(s.configure_data(opts.width, opts.height,
+                                           self.meshes, mesh_datas,
+                                           with_edges=opts.sppe > 0)
                           for s in self.sensors),
             lower=lower,
             upper=upper,
         )
-        return _to_device(sd, self.device)
+        return tree_map(lambda x: x.to(self.device), sd)
 
     def configure(self) -> SceneData:
         """(Re)build and cache the scene data (reference sc.configure())."""

@@ -7,7 +7,8 @@ import torch
 
 from ..core import transform as xf
 from ..core.math import norm, squared_norm
-from .sensor import Sensor, SensorData
+from ..shape.mesh import cpu_f32
+from .sensor import Sensor, SensorData, build_primary_edges
 
 
 class PerspectiveCamera(Sensor):
@@ -34,11 +35,15 @@ class PerspectiveCamera(Sensor):
                 @ xf.translate([-1.0, -1.0 / aspect, 0.0])
                 @ xf.perspective(self.fov, self.near_clip, self.far_clip))
 
-    def configure_data(self, width: int, height: int) -> SensorData:
-        """Camera compile (perspective.cpp:10-152) without primary edges."""
+    def configure_data(self, width: int, height: int, mesh_list=(),
+                       mesh_datas=(), with_edges: bool = False) -> SensorData:
+        """Camera compile on the CPU (perspective.cpp:10-152); with
+        ``with_edges`` it projects the meshes' edges for the primary-edge
+        pass."""
         camera_to_sample = self._camera_to_sample(float(width) / float(height))
         sample_to_camera = torch.linalg.inv(camera_to_sample)
-        to_world = self.to_world_left @ self.to_world_raw @ self.to_world_right
+        to_world = (cpu_f32(self.to_world_left) @ cpu_f32(self.to_world_raw)
+                    @ cpu_f32(self.to_world_right))
         world_to_sample = camera_to_sample @ torch.linalg.inv(to_world)
         camera_pos = xf.transform_pos(to_world, torch.zeros(3))
         camera_dir = xf.transform_dir(to_world, torch.tensor([0.0, 0.0, 1.0]))
@@ -49,6 +54,9 @@ class PerspectiveCamera(Sensor):
         v00, v10, v11, vc = (corner(0.0, 0.0), corner(1.0, 0.0),
                              corner(1.0, 1.0), corner(0.5, 0.5))
         inv_area = squared_norm(vc) / (norm(v00 - v10) * norm(v11 - v10))
+        edge_info = (build_primary_edges(camera_pos, world_to_sample,
+                                         mesh_list, mesh_datas)
+                     if with_edges else None)
         return SensorData(
             sample_to_camera=sample_to_camera,
             to_world=to_world,
@@ -56,6 +64,7 @@ class PerspectiveCamera(Sensor):
             camera_pos=camera_pos,
             camera_dir=camera_dir,
             inv_area=inv_area,
+            edge_info=edge_info,
             width=width,
             height=height,
         )

@@ -1,20 +1,31 @@
 """Triangle meshes (counterpart of ``psdr_jit_tpu/shape/mesh.py``).
 
-The slice needs world-space triangles only: ``load_raw``, the
+World-space triangles from ``load_raw`` and the
 ``to_world_left @ to_world_raw @ to_world_right`` stack, per-face
-:class:`TriangleInfo` and area-weighted vertex normals. Edge topology,
-OBJ loading and texture coordinates come with the edge passes.
+:class:`TriangleInfo`, area-weighted vertex normals, and the edge topology
+that the primary-edge pass classifies (:func:`build_edge_list`).
+:meth:`Mesh.configure_data` is differentiable: autograd flows from every
+world-space table back to ``vertex_positions_raw`` and the transforms.
+OBJ loading, texture coordinates and the secondary-edge tables are not
+ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ..core import transform as xf
 from ..core.math import cross, norm, normalize, safe_div
 from ..core.distribution import DiscreteDistribution
+
+
+def cpu_f32(x) -> torch.Tensor:
+    """``x`` as a float32 CPU tensor, inside the autograd graph: the scene
+    compile runs on the CPU whatever device its parameters live on."""
+    return torch.as_tensor(x, dtype=torch.float32).cpu()
 
 
 @dataclasses.dataclass
@@ -42,18 +53,49 @@ class MeshData:
     face_distrb: DiscreteDistribution
 
 
+def build_edge_list(faces) -> np.ndarray:
+    """Edge map of a triangle list -> ``(E, 5)`` int32 rows
+    ``[v_lo, v_hi, face0, face1 (-1 on a boundary), third vertex of
+    face0]``, sorted by ``(v_lo, v_hi)``; face0 is the lowest-index face
+    holding the edge (reference mesh.cpp:112-149)."""
+    f = np.asarray(faces, np.int64).reshape(-1, 3)
+    if f.shape[0] == 0:
+        return np.zeros((0, 5), np.int32)
+    v0 = np.concatenate([f[:, 0], f[:, 1], f[:, 2]])
+    v1 = np.concatenate([f[:, 1], f[:, 2], f[:, 0]])
+    v2 = np.concatenate([f[:, 2], f[:, 0], f[:, 1]])
+    fid = np.tile(np.arange(f.shape[0], dtype=np.int64), 3)
+    lo, hi = np.minimum(v0, v1), np.maximum(v0, v1)
+    order = np.lexsort((fid, hi, lo))
+    lo, hi, fid, v2 = lo[order], hi[order], fid[order], v2[order]
+    key = lo * (f.max() + 1) + hi
+    first = np.ones(key.shape[0], bool)
+    first[1:] = key[1:] != key[:-1]
+    starts = np.nonzero(first)[0]
+    counts = np.diff(np.append(starts, key.shape[0]))
+    out = np.full((starts.shape[0], 5), -1, np.int32)
+    out[:, 0] = lo[starts]
+    out[:, 1] = hi[starts]
+    out[:, 2] = fid[starts]
+    has2 = counts >= 2
+    out[has2, 3] = fid[starts[has2] + 1]
+    out[:, 4] = v2[starts]
+    return out
+
+
 def process_mesh(vertex_positions, face_indices):
-    """TriangleInfo and area-weighted vertex normals (mesh.cpp:23-62)."""
+    """TriangleInfo and area-weighted vertex normals (mesh.cpp:23-62),
+    differentiable with respect to ``vertex_positions``."""
     fi = face_indices.long()
     p0 = vertex_positions[fi[:, 0]]
     e1 = vertex_positions[fi[:, 1]] - p0
     e2 = vertex_positions[fi[:, 2]] - p0
     fn = cross(e1, e2)
     fa = norm(fn)
-    acc = torch.zeros((vertex_positions.shape[0], 4), dtype=torch.float32)
     vals = torch.cat([fn, fa[:, None]], dim=1)
+    acc = vertex_positions.new_zeros((vertex_positions.shape[0], 4))
     for k in range(3):
-        acc.index_add_(0, fi[:, k], vals)
+        acc = acc.index_add(0, fi[:, k], vals)
     vertex_normals = normalize(safe_div(acc[:, :3], acc[:, 3:4]))
     tri = TriangleInfo(
         p0=p0, e1=e1, e2=e2,
@@ -68,15 +110,18 @@ def process_mesh(vertex_positions, face_indices):
 
 
 class Mesh:
-    """User-facing mesh: vertex positions, faces and the transform stack."""
+    """User-facing mesh: vertex positions, faces, edge topology and the
+    transform stack."""
 
     def __init__(self):
         self.vertex_positions_raw = torch.zeros((0, 3), dtype=torch.float32)
         self.face_indices = torch.zeros((0, 3), dtype=torch.int32)
+        self._edge_rows = np.zeros((0, 5), np.int32)
         self.to_world_raw = torch.eye(4, dtype=torch.float32)
         self.to_world_left = torch.eye(4, dtype=torch.float32)
         self.to_world_right = torch.eye(4, dtype=torch.float32)
         self.use_face_normals = False
+        self.enable_edges = True
         self.bsdf_id = -1
         self.emitter_id = -1
         self.id = ""
@@ -97,19 +142,29 @@ class Mesh:
     def num_faces(self) -> int:
         return int(self.face_indices.shape[0])
 
+    @property
+    def num_edges(self) -> int:
+        return int(self._edge_rows.shape[0])
+
     def load_raw(self, vertices, faces):
-        """Load from arrays (mesh.cpp:74-162)."""
+        """Load from arrays (mesh.cpp:74-162); builds the edge list when
+        ``enable_edges`` is set."""
         self.vertex_positions_raw = torch.as_tensor(
             vertices, dtype=torch.float32).reshape(-1, 3)
         self.face_indices = torch.as_tensor(
             faces, dtype=torch.int32).reshape(-1, 3)
+        self._edge_rows = (build_edge_list(self.face_indices.numpy())
+                           if self.enable_edges
+                           else np.zeros((0, 5), np.int32))
         return self
 
     def configure_data(self) -> MeshData:
-        """Raw parameters -> world-space MeshData (mesh.cpp:317-382)."""
-        to_world = self.to_world_left @ self.to_world_raw @ self.to_world_right
-        vertex_positions = xf.transform_pos(to_world,
-                                            self.vertex_positions_raw)
+        """Raw parameters -> world-space MeshData on the CPU
+        (mesh.cpp:317-382)."""
+        to_world = (cpu_f32(self.to_world_left) @ cpu_f32(self.to_world_raw)
+                    @ cpu_f32(self.to_world_right))
+        vertex_positions = xf.transform_pos(
+            to_world, cpu_f32(self.vertex_positions_raw))
         tri, _ = process_mesh(vertex_positions, self.face_indices)
         return MeshData(
             vertex_positions=vertex_positions,

@@ -5,11 +5,14 @@ imports no JAX (the card's machine has none): run it there with
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_kernels.py
 
-The kernels are built without FMA contraction, so K1 must equal its plain
-version bit for bit and K2 must agree with its plain version to f32
-rounding. The unmarked tests check, on any machine, that the CPU path is
-the plain version and that the kernel launchers refuse what they cannot
-run instead of falling back.
+The kernels are built without FMA contraction (their fmas are explicit and
+the plain versions write the same ones), so K1 must equal its plain version
+bit for bit and K2 in all three modes and K3 must agree with theirs to f32
+rounding; K4 sums its table cotangents with float atomics in no fixed
+order, so it agrees with autograd of the plain K3 to a reordered sum. The
+unmarked tests check, on any machine, that the CPU path is the plain
+version and that the kernel launchers refuse what they cannot run instead
+of falling back.
 """
 
 import os
@@ -19,11 +22,13 @@ import pytest
 import torch
 
 import psdr_jit_tpu_torch as pt
+from chip_smoke import train_setup
 from psdr_jit_tpu_torch.integrator import base
 from psdr_jit_tpu_torch.integrator.base import interior_lane_setup
 from psdr_jit_tpu_torch.ops import _cuda
 from psdr_jit_tpu_torch.ops import intersect as ix
 from psdr_jit_tpu_torch.ops import megakernel as mk
+from psdr_jit_tpu_torch.ops import shade_mega as sm
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 NPZ = os.path.join(HERE, "data", "cbox_scene.npz")
@@ -42,6 +47,18 @@ def _camera_rays(sd, spp, seed, pix):
         sd.sensors[0].width, sd.sensors[0].height, spp, seed, pix)
     ray = sd.sensors[0].sample_primary_ray(samples)
     return ray.o.contiguous(), ray.d.contiguous(), sampler
+
+
+def _train(sc, depth, seed=3):
+    """One training step with gradients to the four parameters of the
+    JAX package's tests (``chip_smoke.train_setup``)."""
+    return pt.PathTracer(depth).loss_and_grad(sc, *train_setup(sc),
+                                              seed=seed)
+
+
+def _rel(a, b):
+    a, b = a.detach(), b.detach()
+    return float((a - b).abs().sum() / b.abs().sum().clamp_min(1e-30))
 
 
 def _on_plane_rays(box, n, device):
@@ -71,7 +88,13 @@ def test_cpu_path_is_plain_and_launches_nothing():
     assert torch.equal(mk.li_mega(*args), mk.li_mega_plain(*args))
     pt.PathTracer(2).renderC(sc)
     sc.unit_ray_intersect(o, d)
-    assert _cuda.LAUNCHES == {"K1": 0, "K2": 0}
+    sc.opts = pt.RenderOption(8, 8, 2, 2, 0)
+    loss, grads, _ = _train(sc, 2)
+    assert torch.isfinite(loss) and all(g.abs().sum() > 0
+                                        for g in grads.values())
+    assert set(_cuda.LAUNCHES) == {"K1", "K2", "K2-pair", "K2-stash", "K3",
+                                   "K4"}
+    assert not any(_cuda.LAUNCHES.values())
 
 
 def test_cuda_launchers_refuse_cpu_tensors():
@@ -80,9 +103,25 @@ def test_cuda_launchers_refuse_cpu_tensors():
     o, d, sampler = _camera_rays(sd, 1, 0, torch.arange(16))
     with pytest.raises(ValueError, match="CUDA"):
         ix.intersect_cuda(tables[0], tables[1], o, d)
+    act = torch.ones(16, dtype=torch.bool)
     with pytest.raises(ValueError, match="CUDA"):
-        mk.li_mega_cuda(*tables, o, d, torch.ones(16, dtype=torch.bool),
-                        sampler.lane, 0, 1, sampler.cnt)
+        mk.li_mega_cuda(*tables, o, d, act, sampler.lane, 0, 1, sampler.cnt)
+    with pytest.raises(ValueError, match="CUDA"):
+        mk.li_mega_pair_cuda(*tables, o, d, o, d, act, sampler.lane, 0, 1,
+                             sampler.cnt)
+    with pytest.raises(ValueError, match="CUDA"):
+        mk.li_mega_stash_cuda(*tables, o, d, act, sampler.lane, 0, 1,
+                              sampler.cnt)
+    table, light, misc = sm.attached_tables(sd)
+    _, (ids, us, vs) = mk.li_mega_stash(*tables, o, d, act, sampler.lane, 0,
+                                        1, sampler.cnt)
+    lane = mk._lane_i32(sampler.lane)
+    with pytest.raises(ValueError, match="CUDA"):
+        sm.shade_cuda(table, light, misc, ids, us, vs, o, d, act, lane, 0, 1,
+                      sampler.cnt)
+    with pytest.raises(ValueError, match="CUDA"):
+        sm.shade_adjoint_cuda(table, light, misc, ids, us, vs, o, d, act,
+                              lane, 0, 1, sampler.cnt, False, o)
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
@@ -169,3 +208,90 @@ def test_render_on_card(cuda, monkeypatch):
     assert (diff.max(-1) > 1e-3).mean() < 0.1
     crop = torch.arange(100, 700, 3, device=cuda)
     assert torch.equal(integ.renderC(sc, 0, seed=0, pix_id=crop), img[crop])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [1, 3])
+def test_k2_pair_and_stash_match_plain(cuda, depth):
+    sd = _scene(cuda).data
+    tables = mk.build_tables(sd)
+    o, d, sampler = _camera_rays(sd, 16, 5, torch.arange(32 * 32,
+                                                         device=cuda))
+    act = torch.ones(o.shape[0], dtype=torch.bool, device=cuda)
+    act[::5] = False
+    o2, d2 = o.flip(0).contiguous(), d.flip(0).contiguous()
+    pair = (*tables, o, d, o2, d2, act, sampler.lane, 5, depth, sampler.cnt)
+    before = dict(_cuda.LAUNCHES)
+    out = mk.li_mega_pair(*pair)
+    ref = mk.li_mega_pair_plain(*pair)
+    assert _cuda.LAUNCHES["K2-pair"] == before["K2-pair"] + 1
+    assert torch.isfinite(out).all() and (out[::5] == 0).all()
+    assert _rel(out, ref) < 1e-3
+    stash = (*tables, o, d, act, sampler.lane, 5, depth, sampler.cnt)
+    li, (ids, us, vs) = mk.li_mega_stash(*stash)
+    li_p, (ids_p, us_p, vs_p) = mk.li_mega_stash_plain(*stash)
+    assert _cuda.LAUNCHES["K2-stash"] == before["K2-stash"] + 1
+    assert ids.shape == (1 + 2 * depth, o.shape[0])
+    assert _rel(li, li_p) < 1e-3
+    same = ids == ids_p
+    assert same.float().mean() > 0.999
+    assert torch.equal(us[same], us_p[same]) and torch.equal(vs[same],
+                                                             vs_p[same])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [0, 1, 2, 3])
+def test_k3_k4_match_plain(cuda, depth):
+    """K3 against li_attached_plain, K4 against its autograd."""
+    sd = _scene(cuda).data
+    tables = mk.build_tables(sd)
+    o, d, sampler = _camera_rays(sd, 16, 7, torch.arange(32 * 32,
+                                                         device=cuda))
+    act = torch.ones(o.shape[0], dtype=torch.bool, device=cuda)
+    act[::13] = False
+    _, hits = mk.li_mega_stash(*tables, o, d, act, sampler.lane, 7, depth,
+                               sampler.cnt)
+    tabs = [t.detach().contiguous() for t in sm.attached_tables(sd)]
+    before = dict(_cuda.LAUNCHES)
+    leaves = [x.clone().requires_grad_() for x in (*tabs, o, d)]
+    out = sm.li_attached(*leaves[:3], *hits, leaves[3], leaves[4], act,
+                         sampler.lane, 7, depth, sampler.cnt)
+    ref_in = [x.clone().requires_grad_() for x in (*tabs, o, d)]
+    ref = sm.li_attached_plain(*ref_in[:3], *hits, ref_in[3], ref_in[4],
+                               act, sampler.lane, 7, depth, sampler.cnt)
+    assert _cuda.LAUNCHES["K3"] == before["K3"] + 1
+    assert torch.isfinite(out).all()
+    assert _rel(out, ref) < 1e-5
+    ct = torch.randn(out.shape, device=cuda, generator=torch.Generator(
+        cuda).manual_seed(depth))
+    out.backward(ct)
+    ref.backward(ct)
+    assert _cuda.LAUNCHES["K4"] == before["K4"] + 1
+    for name, a, b in zip(("table", "light", "misc", "o", "d"), leaves,
+                          ref_in):
+        if b.grad is None:
+            assert a.grad is None or not a.grad.any(), name
+            continue
+        assert torch.isfinite(a.grad).all(), name
+        assert _rel(a.grad, b.grad) < 1e-4, name
+
+
+@pytest.mark.gpu
+def test_training_step_on_card(cuda):
+    """loss_and_grad through the kernels against the same step on the CPU
+    (the plain versions), with every kernel of the step launched."""
+    sc = _scene(cuda, 32, 32, 4)
+    sc.opts = pt.RenderOption(32, 32, 4, 4, 0)
+    _cuda.reset_launches()
+    loss, grads, img = _train(sc, 2)
+    launches = dict(_cuda.LAUNCHES)
+    for k in ("K2-stash", "K3", "K4", "K2-pair"):
+        assert launches[k] > 0, k
+    cpu = _scene("cpu", 32, 32, 4)
+    cpu.opts = pt.RenderOption(32, 32, 4, 4, 0)
+    loss_p, grads_p, img_p = _train(cpu, 2)
+    assert abs(float(loss) - float(loss_p)) < 1e-4 * abs(float(loss_p))
+    assert _rel(img.cpu(), img_p) < 1e-4
+    for k, g in grads_p.items():
+        assert grads[k].device == g.device
+        assert _rel(grads[k], g) < 1e-3, k

@@ -82,12 +82,18 @@ def test_seed_and_batch_pix_conventions(scenes):
 
 
 def test_later_slices_raise(scenes):
+    """renderD and the secondary-edge term of the training step come in
+    later slices: they raise, never drop the term."""
     _, sc = scenes
     integ = pt.PathTracer(2)
     with pytest.raises(NotImplementedError, match="renderD"):
         integ.renderD(sc)
-    with pytest.raises(NotImplementedError, match="loss_and_grad"):
-        integ.loss_and_grad(sc, {}, None, None)
+    sc.opts.sppse = 1
+    try:
+        with pytest.raises(NotImplementedError, match="secondary-edge"):
+            integ.loss_and_grad(sc, {}, lambda p: None, None)
+    finally:
+        sc.opts.sppse = 0
 
 
 def test_port_imports_without_jax():
