@@ -5,25 +5,31 @@
 
 Builds the port's kernels from ``psdr_jit_tpu_torch/csrc`` with ``nvcc``,
 holds each kernel against its plain PyTorch version on the card (K1; K2 in
-its single, pair and stash modes; K3, the attached shade; K4, its adjoint),
-checks a 32x32 render against ``tests/golden_cbox32.npy``, then drives the
-two main paths at full size on the Cornell box of
-``tests/data/cbox_scene.npz``, as a user would, each with the launch
-counts set to 0 just before it and read just after:
+its single, pair and stash modes; K3, the attached shade; K4, its adjoint;
+K5, the streamed super-block sweep; K6, the block-culled sweep), checks a
+32x32 render against ``tests/golden_cbox32.npy``, then drives three main
+paths at full size as a user would, each with the launch counts set to 0
+just before it and read just after:
 
-* serving: a picking query (``Scene.unit_ray_intersect``, K1) and a frame
-  (``renderC``, K2) at 512x512, spp 32, ``PathTracer(3)``;
-* training: one step of ``PathTracer(3).loss_and_grad`` at 512x512, spp
-  32, sppe 32 (interior term through K2 stash, K3 and K4; primary-edge term
-  through K2 pair), with gradients to a light translation, the tall
-  block's vertex offsets, a reflectance and the radiance.
+* serving the Cornell box of ``tests/data/cbox_scene.npz``: a picking
+  query (``Scene.unit_ray_intersect``, K1) and a frame (``renderC``, K2)
+  at 512x512, spp 32, ``PathTracer(3)``;
+* training on it: one step of ``PathTracer(3).loss_and_grad`` at 512x512,
+  spp 32, sppe 32 (interior term through K2 stash, K3 and K4; primary-edge
+  term through K2 pair), with gradients to a light translation, the tall
+  block's vertex offsets, a reflectance and the radiance;
+* serving a large scene, the procedural gallery of ``gallery_arrays``
+  (102,412 triangles): a picking query and a frame at 256x256, spp 4,
+  ``PathTracer(2)``, through the general Li and K6; and the same frame of
+  the 1,292-triangle gallery through K5.
 
-A 64x64 training step runs through the kernels and, on the CPU, through
-the plain versions, and the two must agree. Before the full-size step is
-counted, one step runs with every K2-stash, K3, K4 and K2-pair launch
-recorded, and each launch is held against its plain version on the inputs
-the step gave it (K4 with the step's own loss cotangent). Kernels, frame
-and step are timed against their plain versions.
+A 64x64 training step of the box and a 64x64 frame of the 5,132-triangle
+gallery run through the kernels and, on the CPU, through the plain
+versions, and the two must agree. One training step and one gallery frame
+run with every launch recorded, and each launch is held against its plain
+version on the inputs it was given. Kernels, frames and step are timed
+against their plain versions, and each kernel's least possible time on an
+H100 (its bound) is computed from its inputs.
 
 Every phase prints one line; any failure exits non-zero without the final
 line. The last two lines are the card (``nvidia-smi`` name and power limit)
@@ -48,6 +54,12 @@ FRAME = (512, 512, 32)  # width, height, spp of cbox_scene.npz
 SPPE = 32  # edge samples per pixel of the training step
 SEED = 0
 DEPTH = 3
+# the large-scene path: gallery_arrays() at 256x256, spp 4, PathTracer(2)
+LARGE = (256, 256, 4)
+LARGE_DEPTH = 2
+WIDE = (512, 512, 8)  # the same scene's larger frame, timed only
+CHECK_RAYS = 1 << 18  # rays of the [K5] and [K6] checks
+PLAIN_RAYS = 1 << 16  # of them, the rays [K6] holds against the plain K6
 
 
 def log(phase: str, **kv):
@@ -138,6 +150,67 @@ def rel_l1(a, b) -> float:
     return float((a - b).abs().sum() / b.abs().sum().clamp_min(1e-30))
 
 
+# Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at the 700 W
+# limit): memory 3.35 TB/s, float32 outside the tensor cores 67 TFLOP/s.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+# float32 operations of THE hit test (csrc/sweep.cuh hit_test), a fused
+# multiply-add counted as two as the peak counts it: three cross products
+# (27), three dot products (15), the reciprocal, three differences and
+# u + v, less the shared terms: 46.
+TEST_FLOPS = 46
+# float32 operations of one depth of a lane's shading outside its sweeps
+# (hit attributes, the light sample, MIS, the cosine bounce): a lower
+# estimate, for the megakernels' bounds; the adjoint counts three times it.
+SHADE_FLOPS = 200
+# bytes a ray moves through an intersection kernel: origin and direction
+# in, (t, id, u, v) out
+RAY_BYTES = 24 + 16
+
+
+def bound(nbytes: float, flops: float):
+    """``(ms, "bytes" | "operations")``: the least time the card could take
+    to move ``nbytes`` and do ``flops``, and which of the two sets it."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / F32_FLOP_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                            "operations")
+
+
+def needed_tests(lo, hi, size: int, o, d, t, active=None,
+                 chunk: int = 1 << 13) -> int:
+    """The (ray, triangle) tests these rays need: for each ray the
+    clusters (widened boxes ``lo``, ``hi`` (nc, 3), ``size`` triangles
+    each) that its slab test enters before its closest hit ``t``, as a
+    culling sweep that knew the answer would still test them. The kernels'
+    culling, which only knows the hit found so far, tests at least these;
+    the plain K1 and K5 test every triangle."""
+    import torch
+    from psdr_jit_tpu_torch.ops.intersect import box_visit
+
+    inv = 1.0 / d
+    total = 0
+    for s in range(0, o.shape[0], chunk):
+        e = s + chunk
+        v = box_visit(lo[None], hi[None], o[s:e, None], inv[s:e, None],
+                      t[s:e, None])
+        if active is not None:
+            v = v & active[s:e, None]
+        total += int(v.sum())
+    return total * size
+
+
+def camera_tests(tab, box, o, d, active=None) -> int:
+    """``needed_tests`` of rays against a packed table of at most 512
+    triangles and its 16-triangle cluster boxes (``pack_triangles``), their
+    closest hits found by K1 outside any counted run."""
+    from psdr_jit_tpu_torch.ops import intersect as ix
+
+    t, _, _ = ix.intersect_cuda(tab, box, o.contiguous(), d.contiguous())
+    lo, hi = ix.widen_boxes(box[:3].T, box[3:].T)
+    return needed_tests(lo, hi, ix.CLUSTER, o, d, t, active)
+
+
 def render_plain(sd, opts, seed, depth, chunk_lanes):
     """The main path with K2 replaced by its plain version: the same lane
     setup, primary rays, tables, chunking and average as renderC."""
@@ -196,6 +269,118 @@ def train_setup(scene, seed: int = SEED):
     return params, apply_params, pixel_loss
 
 
+_EYE4 = [[1.0, 0.0, 0.0, 0.0], [0.0, 1.0, 0.0, 0.0], [0.0, 0.0, 1.0, 0.0],
+         [0.0, 0.0, 0.0, 1.0]]
+
+
+def _icosphere(subdiv: int):
+    """Unit icosphere: the icosahedron subdivided ``subdiv`` times (20 *
+    4^subdiv faces); numpy copy of ``tests/scenes.py`` ``_icosphere``."""
+    import numpy as np
+
+    t = (1.0 + np.sqrt(5.0)) / 2.0
+    v = np.asarray([
+        [-1, t, 0], [1, t, 0], [-1, -t, 0], [1, -t, 0],
+        [0, -1, t], [0, 1, t], [0, -1, -t], [0, 1, -t],
+        [t, 0, -1], [t, 0, 1], [-t, 0, -1], [-t, 0, 1],
+    ], np.float64)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    f = np.asarray([
+        [0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11],
+        [1, 5, 9], [5, 11, 4], [11, 10, 2], [10, 7, 6], [7, 1, 8],
+        [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8], [3, 8, 9],
+        [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1],
+    ], np.int64)
+    for _ in range(subdiv):
+        edges, verts, nf = {}, list(v), []
+
+        def mid(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in edges:
+                m = verts[a] + verts[b]
+                verts.append(m / np.linalg.norm(m))
+                edges[key] = len(verts) - 1
+            return edges[key]
+
+        for a, b, c in f:
+            ab, bc, ca = mid(a, b), mid(b, c), mid(c, a)
+            nf += [[a, ab, ca], [b, bc, ab], [c, ca, bc], [ab, bc, ca]]
+        v = np.asarray(verts)
+        f = np.asarray(nf, np.int64)
+    return v.astype(np.float32), f.astype(np.int32)
+
+
+def gallery_arrays(width=256, height=256, spp=4, n_spheres=80, subdiv=3,
+                   seed=0) -> dict:
+    """The large-scene gallery of ``tests/scenes.py`` ``make_gallery`` as
+    the dict ``interop.scene_to_arrays`` makes of it, built with numpy: a
+    lit box room [0, 10]^3 (open front) holding a jittered grid of
+    ``n_spheres`` smooth icospheres, ``n_spheres * 20 * 4^subdiv + 12``
+    triangles (102,412 by default). The card's machine has no JAX."""
+    import numpy as np
+
+    out = {"opts": np.asarray([width, height, spp, 0, 0], np.int64),
+           "seed": np.asarray(0, np.int64)}
+    eye = np.asarray(_EYE4, np.float32)
+    ids = ["light", "wall"] + [f"m{i}" for i in range(6)]
+    refl = [[0.0, 0.0, 0.0], [0.75, 0.73, 0.70]] + [
+        [0.2 + 0.12 * (i % 3), 0.25 + 0.1 * ((i + 1) % 3),
+         0.3 + 0.11 * ((i + 2) % 3)] for i in range(6)]
+    out["bsdf_ids"] = np.asarray(ids)
+    for j, r in enumerate(refl):
+        out[f"bsdf.{j}.reflectance"] = np.asarray(r, np.float32)
+        out[f"bsdf.{j}.twoSide"] = np.asarray(False)
+    out["emitter.0.radiance"] = np.asarray((40.0, 38.0, 34.0), np.float32)
+    out["emitter.0.mesh_index"] = np.asarray(0, np.int64)
+    meshes = []  # (vertices, faces, use_face_normals, enable_edges, bsdf)
+
+    def quad(q):
+        return (np.asarray(q, np.float32), np.asarray([[0, 1, 2], [0, 2, 3]],
+                                                       np.int32), True, True)
+
+    meshes.append(quad([(3.5, 9.98, 3.5), (6.5, 9.98, 3.5),
+                        (6.5, 9.98, 6.5), (3.5, 9.98, 6.5)]) + ("light",))
+    for q in ([(0, 0, 0), (0, 0, 10), (10, 0, 10), (10, 0, 0)],
+              [(0, 10, 0), (10, 10, 0), (10, 10, 10), (0, 10, 10)],
+              [(0, 0, 10), (0, 10, 10), (10, 10, 10), (10, 0, 10)],
+              [(0, 0, 0), (0, 10, 0), (0, 10, 10), (0, 0, 10)],
+              [(10, 0, 0), (10, 0, 10), (10, 10, 10), (10, 10, 0)]):
+        meshes.append(quad(q) + ("wall",))
+    rng = np.random.default_rng(seed)
+    sv, sf = _icosphere(subdiv)
+    side = int(np.ceil(n_spheres ** (1.0 / 3.0)))
+    placed = 0
+    for ix in range(side):
+        for iy in range(side):
+            for iz in range(side):
+                if placed >= n_spheres:
+                    break
+                c = (np.asarray([ix, iy, iz]) + 0.5) / side * 8.0 + 1.0
+                c += rng.uniform(-0.3, 0.3, 3)
+                r = rng.uniform(0.35, 0.6)
+                meshes.append(((sv * r + c[None, :]).astype(np.float32), sf,
+                               False, False, f"m{placed % 6}"))
+                placed += 1
+    for i, (v, f, fn, edges, bsdf) in enumerate(meshes):
+        out[f"mesh.{i}.vertex_positions_raw"] = v
+        out[f"mesh.{i}.face_indices"] = f
+        for name in ("to_world_left", "to_world_raw", "to_world_right"):
+            out[f"mesh.{i}.{name}"] = eye
+        out[f"mesh.{i}.use_face_normals"] = np.asarray(fn)
+        out[f"mesh.{i}.enable_edges"] = np.asarray(edges)
+        out[f"mesh.{i}.bsdf_id"] = np.asarray(ids.index(bsdf), np.int64)
+        out[f"mesh.{i}.emitter_id"] = np.asarray(0 if i == 0 else -1,
+                                                 np.int64)
+    out["counts"] = np.asarray([len(meshes), len(ids), 1, 1], np.int64)
+    out["sensor.0.fov_near_far"] = np.asarray([55.0, 1e-4, 1e5], np.float64)
+    out["sensor.0.to_world_left"] = eye
+    out["sensor.0.to_world_raw"] = np.asarray(
+        [[1.0, 0, 0, 5.0], [0, 1.0, 0, 5.0], [0, 0, 1.0, -9.0],
+         [0, 0, 0, 1.0]], np.float32)
+    out["sensor.0.to_world_right"] = eye
+    return out
+
+
 class PlainCalls:
     """Counts calls of the plain versions while active (by wrapping the
     module globals their dispatchers call), so a run can show that it
@@ -206,8 +391,11 @@ class PlainCalls:
         from psdr_jit_tpu_torch.ops import megakernel as mk
         from psdr_jit_tpu_torch.ops import shade_mega as sm
 
+        from psdr_jit_tpu_torch.ops import bvh
+
         self.sites = [(ix, "ray_intersect_brute"), (mk, "_li_plain"),
-                      (sm, "li_attached_plain")]
+                      (sm, "li_attached_plain"),
+                      (bvh, "ray_intersect_bvh_plain")]
         self.count = 0
 
     def __enter__(self):
@@ -263,8 +451,8 @@ def train_kernel_phases(sd, sd_edges, tables, dev, gen, kernels):
     kernels["K2-pair"] = dict(
         name="K2 pair mode: Li(ray_n) - Li(ray_p)", route="cuda",
         source="psdr_jit_tpu_torch/csrc/megakernel.cu",
-        replaces="psdr_jit_tpu/ops/megakernel.py:138", max_abs_err=err,
-        ms=ms, plain_ms=plain_ms)
+        replaces="psdr_jit_tpu/ops/megakernel.py:591", max_abs_err=err,
+        ms=ms, plain_ms=plain_ms, library_ms=None)
 
     # K2 stash: the camera lanes of a 4096-pixel crop (131,072 lanes)
     crop = torch.arange(H // 2 * W, (H // 2 + 8) * W, device=dev)
@@ -293,8 +481,8 @@ def train_kernel_phases(sd, sd_edges, tables, dev, gen, kernels):
     kernels["K2-stash"] = dict(
         name="K2 stash mode: detached Li and the hits of every path",
         route="cuda", source="psdr_jit_tpu_torch/csrc/megakernel.cu",
-        replaces="psdr_jit_tpu/ops/megakernel.py:138", max_abs_err=err,
-        ms=ms, plain_ms=plain_ms)
+        replaces="psdr_jit_tpu/ops/megakernel.py:591", max_abs_err=err,
+        ms=ms, plain_ms=plain_ms, library_ms=None)
 
     # K3 and K4 on the kernel's own stash
     tabs = [t.detach().contiguous() for t in sm.attached_tables(sd)]
@@ -321,8 +509,8 @@ def train_kernel_phases(sd, sd_edges, tables, dev, gen, kernels):
     kernels["K3"] = dict(
         name="K3 attached interior shade", route="cuda",
         source="psdr_jit_tpu_torch/csrc/shade.cu",
-        replaces="psdr_jit_tpu/ops/shade_mega.py:390", max_abs_err=err,
-        ms=ms, plain_ms=plain_ms)
+        replaces="psdr_jit_tpu/ops/shade_mega.py:476", max_abs_err=err,
+        ms=ms, plain_ms=plain_ms, library_ms=None)
 
     ct = torch.randn(out.shape, device=dev, generator=gen)
     grads = sm.shade_adjoint_cuda(*shade_args, False, ct)
@@ -353,24 +541,25 @@ def train_kernel_phases(sd, sd_edges, tables, dev, gen, kernels):
     kernels["K4"] = dict(
         name="K4 adjoint of K3, written by hand", route="cuda",
         source="psdr_jit_tpu_torch/csrc/shade.cu",
-        replaces="psdr_jit_tpu/ops/shade_mega.py:450", max_abs_err=max(errs),
-        ms=ms, plain_ms=plain_ms)
+        replaces="psdr_jit_tpu/ops/shade_mega.py:476", max_abs_err=max(errs),
+        ms=ms, plain_ms=plain_ms, library_ms=None)
 
 
 class KernelCalls:
-    """Records the inputs and outputs of every K2-stash, K3, K4 and K2-pair
-    launch while active (by wrapping the module globals their dispatchers
-    call), so each launch of a step can be held against its plain version
-    on exactly the inputs the step gave it."""
+    """Records the inputs and outputs of every launch of the kernels in
+    ``sites`` (``{name: (module, wrapper name)}``; by default K2-stash, K3,
+    K4 and K2-pair) while active, by wrapping the module globals their
+    dispatchers call, so each launch of a run can be held against its plain
+    version on exactly the inputs the run gave it."""
 
-    def __init__(self):
+    def __init__(self, sites=None):
         from psdr_jit_tpu_torch.ops import megakernel as mk
         from psdr_jit_tpu_torch.ops import shade_mega as sm
 
-        self.sites = {"K2-stash": (mk, "li_mega_stash_cuda"),
-                      "K3": (sm, "shade_cuda"),
-                      "K4": (sm, "shade_adjoint_cuda"),
-                      "K2-pair": (mk, "li_mega_pair_cuda")}
+        self.sites = sites or {"K2-stash": (mk, "li_mega_stash_cuda"),
+                               "K3": (sm, "shade_cuda"),
+                               "K4": (sm, "shade_adjoint_cuda"),
+                               "K2-pair": (mk, "li_mega_pair_cuda")}
         self.calls = {k: [] for k in self.sites}
 
     def __enter__(self):
@@ -461,7 +650,8 @@ def train_frame_phase(step, kernels):
     def note(kernel, err, diff, ref, ms, plain_ms, **extra):
         s = stats.setdefault(kernel, dict(launches=0, lanes=0, err=0.0,
                                           diff=0.0, ref=0.0, ms=0.0,
-                                          plain_ms=0.0))
+                                          plain_ms=0.0, nbytes=0,
+                                          flops=0))
         s["launches"] += 1
         s["err"] = max(s["err"], err)
         s["diff"] += diff
@@ -474,6 +664,7 @@ def train_frame_phase(step, kernels):
     for fn, args, (li, hits) in rec.calls["K2-stash"]:
         (li_p, hits_p), plain_ms = _synced_ms(
             lambda: mk.li_mega_stash_plain(*args))
+        n, n_hits = li.shape[0], hits[0].shape[0]
         same = hits[0] == hits_p[0]
         uv_off = sum(int((a[same] != b[same]).sum())
                      for a, b in zip(hits[1:], hits_p[1:]))
@@ -481,7 +672,10 @@ def train_frame_phase(step, kernels):
         note("K2-stash", float(diff.max()), float(diff.sum()),
              float(li_p.abs().sum()), cuda_ms(lambda: fn(*args), 3), plain_ms,
              lanes=li.shape[0], hits=same.numel(),
-             ids_off=int((~same).sum()), uv_off=uv_off)
+             ids_off=int((~same).sum()), uv_off=uv_off,
+             nbytes=n * (29 + 12 + 12 * n_hits),
+             flops=camera_tests(*args[:2], *args[5:8]) * TEST_FLOPS
+             + n * DEPTH * SHADE_FLOPS)
     k4_calls = rec.calls["K4"]
     require(len(k4_calls) == len(rec.calls["K3"]),
             "train-frame: K3 and K4 launches differ")
@@ -496,9 +690,12 @@ def train_frame_phase(step, kernels):
                 "train-frame: K4 ran on other inputs than K3")
         ref, ref_grads, fwd_ms, bwd_ms = _plain_shade(args, ct)
         diff = (out - ref).abs()
+        n, n_hits = out.shape[0], args[3].shape[0]
+        table_bytes = sum(4 * a.numel() for a in args[:3])
         note("K3", float(diff.max()), float(diff.sum()),
              float(ref.abs().sum()), cuda_ms(lambda: fn3(*args), 3), fwd_ms,
-             lanes=out.shape[0])
+             lanes=n, nbytes=n * (29 + 12 + 12 * n_hits) + table_bytes,
+             flops=n * DEPTH * SHADE_FLOPS)
         again = fn4(*args4)
         spread = max(float((a - b).abs().max()
                            / a.abs().max().clamp_min(1e-30))
@@ -509,14 +706,20 @@ def train_frame_phase(step, kernels):
             k4[g][1] += float(r.abs().sum())
             err = max(err, float((a - r).abs().max()))
         note("K4", err, 0.0, 0.0, cuda_ms(lambda: fn4(*args4), 3), bwd_ms,
-             lanes=out.shape[0])
+             lanes=n, nbytes=n * (29 + 12 + 12 * n_hits + 24)
+             + 2 * table_bytes, flops=3 * n * DEPTH * SHADE_FLOPS)
         stats["K4"]["spread"] = max(stats["K4"].get("spread", 0.0), spread)
     for fn, args, out in rec.calls["K2-pair"]:
         ref, plain_ms = _synced_ms(lambda: mk.li_mega_pair_plain(*args))
         diff = (out - ref).abs()
+        n, valid = out.shape[0], args[9]
         note("K2-pair", float(diff.max()), float(diff.sum()),
              float(ref.abs().sum()), cuda_ms(lambda: fn(*args), 3), plain_ms,
-             lanes=out.shape[0], valid=int(args[9].sum()))
+             lanes=n, valid=int(valid.sum()), nbytes=n * (53 + 12),
+             flops=(camera_tests(*args[:2], args[5], args[6], valid)
+                    + camera_tests(*args[:2], args[7], args[8], valid))
+             * TEST_FLOPS
+             + 2 * n * DEPTH * SHADE_FLOPS)
     for k in ("K2-stash", "K3", "K4", "K2-pair"):
         require(k in stats, f"train-frame: the step launched no {k}")
 
@@ -545,9 +748,347 @@ def train_frame_phase(step, kernels):
     require(all(v < 1e-4 for v in k4_rel.values()),
             "train-frame: a K4 cotangent group's rel L1 vs autograd >= 1e-4")
     for k, s in stats.items():
+        bound_ms, bound_by = bound(s["nbytes"], s["flops"])
         kernels[k].update(max_abs_err=max(kernels[k]["max_abs_err"],
                                           s["err"]),
-                          ms=s["ms"], plain_ms=s["plain_ms"])
+                          ms=s["ms"], plain_ms=s["plain_ms"],
+                          bound_ms=bound_ms, bound_by=bound_by)
+
+
+def mixed_rays(sd, n: int, gen, device):
+    """``(o, d, active)`` of ``n`` rays against scene data ``sd``: a quarter
+    camera rays of its frame (jittered as renderC's), a quarter leaving
+    points on triangles in random directions (as NEE and bounce rays
+    leave surfaces), a quarter from random points inside the scene's box
+    in random directions, the rest axis-aligned on cluster-box planes
+    (``on_plane_rays``); every seventh lane inactive."""
+    import torch
+    from psdr_jit_tpu_torch.integrator.base import interior_lane_setup
+    from psdr_jit_tpu_torch.ops import intersect as ix
+
+    q = n // 4
+    sensor = sd.sensors[0]
+    pix = torch.arange(q, device=device) % (sensor.width * sensor.height)
+    _, _, samples = interior_lane_setup(sensor.width, sensor.height, 1,
+                                        SEED, pix)
+    cam = sensor.sample_primary_ray(samples, diff=False)
+    tri = sd.tri
+    j = torch.randint(0, tri.p0.shape[0], (q,), generator=gen, device=device)
+    b = torch.rand((q, 2), generator=gen, device=device) * 0.5
+    so = tri.p0[j] + tri.e1[j] * b[:, :1] + tri.e2[j] * b[:, 1:]
+    lo, hi = sd.lower, sd.upper
+    ro = lo + (hi - lo) * torch.rand((q, 3), generator=gen, device=device)
+    dirs = torch.nn.functional.normalize(
+        torch.randn((2 * q, 3), generator=gen, device=device), dim=-1)
+    _, box = ix.pack_triangles(tri.p0, tri.e1, tri.e2)
+    po, pd = on_plane_rays(box, n - 3 * q, gen, device)
+    o = torch.cat([cam.o, so, ro, po]).contiguous()
+    d = torch.cat([cam.d, dirs, pd]).contiguous()
+    active = torch.ones(n, dtype=torch.bool, device=device)
+    active[::7] = False
+    return o, d, active
+
+
+def hit_agreement(k, p) -> dict:
+    """A kernel's hits ``k = (t, id, uv)`` against its plain version's
+    ``p``: bitwise equality, the id match, and whether every mismatch is an
+    f32 tie (both hit, at distances within 1e-5 relative)."""
+    import torch
+
+    (t_k, id_k, uv_k), (t_p, id_p, uv_p) = k, p
+    same = id_k == id_p
+    ties = ~same
+    both = same & (id_k >= 0)
+    t_rel = float(((t_k - t_p).abs()[both]
+                   / t_p[both].abs().clamp_min(1e-30)).max()) if bool(
+        both.any()) else 0.0
+    return dict(
+        bitwise=(torch.equal(t_k, t_p) and torch.equal(id_k, id_p)
+                 and torch.equal(uv_k, uv_p)),
+        id_match=float(same.float().mean()), mismatches=int(ties.sum()),
+        ties_ok=bool(((id_k[ties] >= 0) & (id_p[ties] >= 0)
+                      & ((t_k[ties] - t_p[ties]).abs()
+                         <= 1e-5 * t_p[ties].abs())).all()),
+        t_max_rel=t_rel)
+
+
+def require_agreement(what: str, a: dict):
+    require(a["bitwise"] or (a["id_match"] >= 0.999 and a["ties_ok"]
+                             and a["t_max_rel"] <= 1e-5),
+            f"{what}: hits differ from the plain version beyond f32 ties")
+
+
+def k5_plain(tri, box, o, d, active):
+    """K5's plain version with K5's signature: the unculled sweep."""
+    import torch
+    from psdr_jit_tpu_torch.ops import intersect as ix
+
+    t, ids, u, v = ix.sweep_plain(tri, o.unbind(-1), d.unbind(-1))
+    t, ids, u, v = (torch.where(active, x, m)
+                    for x, m in zip((t, ids, u, v), ix.miss_like(t)))
+    return t, ids, torch.stack([u, v], dim=-1)
+
+
+def k6_plain(h, o, d, active, stats=None):
+    """K6's plain version with K6's signature."""
+    from psdr_jit_tpu_torch.ops import bvh
+
+    ids, _, uv, t = bvh.ray_intersect_bvh_plain(h, o, d, active, stats)
+    return t, ids, uv
+
+
+class PlainRoute:
+    """Sends K5's and K6's launches to their plain versions, on the card's
+    tensors, while active (by replacing the module globals the routing
+    calls), so a render can be repeated with only the kernels swapped."""
+
+    def __enter__(self):
+        from psdr_jit_tpu_torch.ops import bvh
+        from psdr_jit_tpu_torch.ops import intersect as ix
+
+        self.saved = [(ix, "intersect_super_cuda", ix.intersect_super_cuda),
+                      (bvh, "bvh_cuda", bvh.bvh_cuda)]
+        ix.intersect_super_cuda = k5_plain
+        bvh.bvh_cuda = k6_plain
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, fn in self.saved:
+            setattr(m, n, fn)
+
+
+def intersect_record(name, source, replaces, calls, plain, tests_of,
+                     table_bytes):
+    """Hold each recorded launch ``(fn, args, (t, id, uv))`` of an
+    intersection kernel against its plain version on the same inputs and
+    time both: ``(record for the kernels' JSON, agreement, needed tests,
+    each launch's ms)``. ``tests_of(args, t)`` counts a launch's needed
+    tests, ``table_bytes(args)`` the bytes of its tables."""
+    ms = plain_ms = 0.0
+    launch_ms = []
+    nbytes = flops = 0
+    agree = dict(bitwise=True, id_match=1.0, mismatches=0, ties_ok=True,
+                 t_max_rel=0.0)
+    err = 0.0
+    for fn, args, out in calls:
+        ref, p_ms = _synced_ms(lambda: plain(*args))
+        a = hit_agreement(out, ref)
+        agree = dict(bitwise=agree["bitwise"] and a["bitwise"],
+                     id_match=min(agree["id_match"], a["id_match"]),
+                     mismatches=agree["mismatches"] + a["mismatches"],
+                     ties_ok=agree["ties_ok"] and a["ties_ok"],
+                     t_max_rel=max(agree["t_max_rel"], a["t_max_rel"]))
+        same = (out[1] == ref[1]) & (out[1] >= 0)
+        if bool(same.any()):
+            err = max(err, float((out[0] - ref[0]).abs()[same].max()))
+        launch_ms.append(cuda_ms(lambda: fn(*args), 3))
+        ms += launch_ms[-1]
+        plain_ms += p_ms
+        nbytes += out[0].shape[0] * (RAY_BYTES + 1) + table_bytes(args)
+        flops += tests_of(args, out[0]) * TEST_FLOPS
+    bound_ms, bound_by = bound(nbytes, flops)
+    rec = dict(name=name, route="cuda", source=source, replaces=replaces,
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=None)
+    return rec, agree, flops / TEST_FLOPS, launch_ms
+
+
+def large_scene_phases(kernels, dev, gen) -> dict:
+    """[K5], [K6], [large-64], [main-path-large], [large-frame] and
+    [K5-frame]: the large-scene path (renderC of the gallery through the
+    general Li, K5 and K6). Returns the K5 and K6 launches of their main
+    paths."""
+    import torch
+    import psdr_jit_tpu_torch as pt
+    from psdr_jit_tpu_torch.integrator import base
+    from psdr_jit_tpu_torch.ops import _cuda, bvh
+    from psdr_jit_tpu_torch.ops import intersect as ix
+
+    W, H, SPP = LARGE
+    n_pix = W * H
+    lanes = n_pix * SPP
+    integ = pt.PathTracer(LARGE_DEPTH)
+    k5_src, k6_src = ("psdr_jit_tpu_torch/csrc/intersect_super.cu",
+                      "psdr_jit_tpu_torch/csrc/bvh.cu")
+    k5_rep, k6_rep = ("psdr_jit_tpu/ops/intersect_pallas.py:234",
+                      "psdr_jit_tpu/ops/bvh.py:309")
+
+    def k5_tests(args, t):
+        tab, box, o, d, act = args
+        lo, hi = ix.widen_boxes(box[:3].T, box[3:].T)
+        return needed_tests(lo, hi, ix.CLUSTER, o, d, t, act)
+
+    def k6_tests(args, t):
+        h, o, d, act = args
+        return needed_tests(h.cbox[:, 0:3], h.cbox[:, 4:7], bvh.BVH_CLUSTER,
+                            o, d, t, act)
+
+    def k5_bytes(args):
+        return 4 * (args[0].numel() + args[1].numel())
+
+    def k6_bytes(args):
+        h = args[0]
+        return 4 * (h.tri4.numel() + h.cbox.numel() + h.bbox.numel())
+
+    # ---- [K5]: the 1,292-triangle gallery ----------------------------------
+    mid = pt.Scene.from_arrays(gallery_arrays(W, H, SPP, 4, 2), device=dev)
+    sd5 = mid.configure()
+    f5 = sd5.tri.p0.shape[0]
+    require(ix.K1_MAX_TRIS < f5 <= ix.K5_MAX_TRIS, "K5 scene out of range")
+    o, d, act = mixed_rays(sd5, CHECK_RAYS, gen, dev)
+    tab, box = ix.pack_triangles(sd5.tri.p0, sd5.tri.e1, sd5.tri.e2, ix.SUPER)
+    args = (tab, box, o, d, act)
+    rec, a, tests, _ = intersect_record(
+        "K5", k5_src, k5_rep,
+        [(ix.intersect_super_cuda, args, ix.intersect_super_cuda(*args))],
+        k5_plain, k5_tests, k5_bytes)
+    log("K5", rays=o.shape[0], triangles=f5, bitwise_equal_to_plain=a[
+        "bitwise"], id_match=f"{a['id_match']:.6f}",
+        mismatches=a["mismatches"], mismatches_are_ties=a["ties_ok"],
+        t_max_rel=f"{a['t_max_rel']:.3e}", ms=f"{rec['ms']:.4f}",
+        plain_ms=f"{rec['plain_ms']:.4f}",
+        tests_per_ray=f"{tests / o.shape[0]:.1f}",
+        bound_ms=f"{rec['bound_ms']:.4f}")
+    require_agreement("K5", a)
+
+    # ---- [K6]: the 102,412-triangle gallery ----------------------------------
+    big = pt.Scene.from_arrays(gallery_arrays(W, H, SPP), device=dev)
+    sd6 = big.configure()
+    f6 = sd6.tri.p0.shape[0]
+    require(f6 > ix.K5_MAX_TRIS, "K6 scene out of range")
+    o, d, act = mixed_rays(sd6, CHECK_RAYS, gen, dev)
+    h = bvh.build_bvh(sd6.tri.p0, sd6.tri.e1, sd6.tri.e2)
+    out = bvh.bvh_cuda(h, o, d, act)
+    sub = torch.randperm(o.shape[0], generator=gen, device=dev)[:PLAIN_RAYS]
+    sub_args = (h, o[sub].contiguous(), d[sub].contiguous(), act[sub])
+    stats = {}
+    ref, plain_ms = _synced_ms(lambda: k6_plain(*sub_args, stats))
+    a = hit_agreement(tuple(x[sub] for x in out), ref)
+    k6_ms = cuda_ms(lambda: bvh.bvh_cuda(h, o, d, act), 10)
+    k6_sub_ms = cuda_ms(lambda: bvh.bvh_cuda(*sub_args), 10)
+    tests = k6_tests((h, o, d, act), out[0])
+    log("K6", rays=o.shape[0], triangles=f6, blocks=h.n_blocks,
+        plain_rays=sub.shape[0], bitwise_equal_to_plain=a["bitwise"],
+        id_match=f"{a['id_match']:.6f}", mismatches=a["mismatches"],
+        mismatches_are_ties=a["ties_ok"], t_max_rel=f"{a['t_max_rel']:.3e}",
+        ms=f"{k6_ms:.4f}", ms_plain_rays=f"{k6_sub_ms:.4f}",
+        plain_ms=f"{plain_ms:.1f}",
+        tests_per_ray=f"{tests / o.shape[0]:.1f}",
+        plain_tests_per_ray=f"{stats['tri_tests'] / sub.shape[0]:.1f}")
+    require_agreement("K6", a)
+
+    # ---- [large-64]: the kernels against the CPU's plain path ----------------
+    imgs = {}
+    for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        sc = pt.Scene.from_arrays(gallery_arrays(64, 64, 2, 4, 3),
+                                  device=device)
+        t0 = time.perf_counter()
+        imgs[name] = integ.renderC(sc, 0, seed=SEED).cpu()
+        imgs[name + "_ms"] = (time.perf_counter() - t0) * 1e3
+    rel64 = rel_l1(imgs["card"], imgs["cpu"])
+    log("large-64", triangles=sc.data.tri.p0.shape[0], spp=2,
+        depth=LARGE_DEPTH, image_rel_l1=f"{rel64:.3e}",
+        bitwise=torch.equal(imgs["card"], imgs["cpu"]),
+        ms=f"{imgs['card_ms']:.1f}", plain_cpu_ms=f"{imgs['cpu_ms']:.1f}")
+    require(rel64 < 1e-3, "large-64: image differs from the CPU plain path")
+
+    # ---- [main-path-large]: picking and renderC of the headline gallery ------
+    chunks = -(-n_pix // max(base.GENERAL_CHUNK_LANES // SPP, 1))
+    picks = pixel_center_rays(sd6, W, H, dev)
+    torch.cuda.synchronize()
+    with PlainCalls() as plain:
+        _cuda.reset_launches()
+        its = big.unit_ray_intersect(picks.o, picks.d)
+        img = integ.renderC(big, 0, seed=SEED)
+        torch.cuda.synchronize()
+        launches = dict(_cuda.LAUNCHES)
+    log("main-path-large", **{f"{k}_LAUNCHES": v for k, v in
+                              launches.items()}, chunks=chunks,
+        picks_hit=f"{its.valid.float().mean().item():.4f}",
+        plain_calls=plain.count)
+    require(launches["K6"] == (1 + 2 * LARGE_DEPTH) * chunks + 1,
+            "large main path: K6 launches != 5 a chunk + 1")
+    require(all(v == 0 for k, v in launches.items() if k != "K6"),
+            "large main path: another kernel ran")
+    require(plain.count == 0, "large main path: a plain version ran")
+    require(tuple(img.shape) == (n_pix, 3), "large renderC: wrong shape")
+    require(bool(torch.isfinite(img).all()), "large renderC: non-finite")
+    require(float(img.abs().sum()) > 0, "large renderC: black image")
+    rows = torch.arange(H // 2 * W, (H // 2 + 2) * W, device=dev)
+    crop_exact = torch.equal(integ.renderC(big, 0, seed=SEED, pix_id=rows),
+                             img[rows])
+    require(crop_exact, "large renderC: crop rows differ from the frame")
+
+    # ---- [large-frame]: every K6 launch of a frame against its plain version -
+    with KernelCalls({"K6": (bvh, "bvh_cuda")}) as rec_calls:
+        integ.renderC(big, 0, seed=SEED)
+        torch.cuda.synchronize()
+    calls = rec_calls.calls["K6"]
+    require(len(calls) == (1 + 2 * LARGE_DEPTH) * chunks,
+            "large-frame: K6 launches != 5 a chunk")
+    k6, a, tests, k6_launch_ms = intersect_record(
+        "K6 block-culled sweep", k6_src, k6_rep, calls, k6_plain, k6_tests,
+        k6_bytes)
+    require_agreement("large-frame", a)
+    frame_ms = wall_ms(lambda: integ.renderC(big, 0, seed=SEED), 3)
+    torch.cuda.reset_peak_memory_stats(dev)
+    integ.renderC(big, 0, seed=SEED)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    wide = pt.Scene.from_arrays(gallery_arrays(*WIDE), device=dev)
+    wide.configure()
+    wide_ms = wall_ms(lambda: integ.renderC(wide, 0, seed=SEED), 3)
+    torch.cuda.reset_peak_memory_stats(dev)
+    integ.renderC(wide, 0, seed=SEED)
+    wide_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    rays = lanes * (1 + 2 * LARGE_DEPTH)
+    log("large-frame", size=f"{W}x{H}", spp=SPP, depth=LARGE_DEPTH,
+        K6_launches=len(calls), bitwise_equal_to_plain=a["bitwise"],
+        mismatches=a["mismatches"], mismatches_are_ties=a["ties_ok"],
+        K6_ms=f"{k6['ms']:.3f}",
+        K6_launch_ms=",".join(f"{x:.3f}" for x in k6_launch_ms),
+        K6_plain_ms=f"{k6['plain_ms']:.1f}",
+        K6_bound_ms=f"{k6['bound_ms']:.4f}", K6_bound_by=k6["bound_by"],
+        tests_per_ray=f"{tests / max(sum(c[2][0].shape[0] for c in calls), 1):.1f}",
+        ms=f"{frame_ms:.2f}", mrays_per_s=f"{rays / frame_ms / 1e3:.1f}",
+        peak_gb=f"{peak_gb:.3f}", mean=f"{img.mean().item():.6f}",
+        wide=f"{WIDE[0]}x{WIDE[1]}spp{WIDE[2]}", wide_ms=f"{wide_ms:.2f}",
+        wide_peak_gb=f"{wide_peak:.3f}")
+    kernels["K6"] = k6
+
+    # ---- [K5-frame]: renderC of the 1,292-triangle gallery through K5 --------
+    torch.cuda.synchronize()
+    with PlainCalls() as plain, KernelCalls(
+            {"K5": (ix, "intersect_super_cuda")}) as rec_calls:
+        _cuda.reset_launches()
+        img5 = integ.renderC(mid, 0, seed=SEED)
+        torch.cuda.synchronize()
+        launches5 = dict(_cuda.LAUNCHES)
+    with PlainRoute():
+        img5_plain = integ.renderC(mid, 0, seed=SEED)
+    k5, a, tests, _ = intersect_record(
+        "K5 streamed super-block sweep", k5_src, k5_rep,
+        rec_calls.calls["K5"], k5_plain, k5_tests, k5_bytes)
+    k5_frame_ms = wall_ms(lambda: integ.renderC(mid, 0, seed=SEED), 3)
+    log("K5-frame", triangles=f5, K5_LAUNCHES=launches5["K5"],
+        chunks=chunks, plain_calls=plain.count,
+        bitwise_equal_to_plain_render=torch.equal(img5, img5_plain),
+        image_rel_l1_vs_plain=f"{rel_l1(img5, img5_plain):.3e}",
+        launches_bitwise=a["bitwise"], K5_ms=f"{k5['ms']:.3f}",
+        K5_plain_ms=f"{k5['plain_ms']:.1f}",
+        K5_bound_ms=f"{k5['bound_ms']:.4f}", K5_bound_by=k5["bound_by"],
+        ms=f"{k5_frame_ms:.2f}")
+    require(launches5["K5"] == (1 + 2 * LARGE_DEPTH) * chunks,
+            "K5-frame: K5 launches != 5 a chunk")
+    require(all(v == 0 for k, v in launches5.items() if k != "K5"),
+            "K5-frame: another kernel ran")
+    require(plain.count == 0, "K5-frame: a plain version ran")
+    require(bool(torch.isfinite(img5).all()) and float(img5.sum()) > 0,
+            "K5-frame: non-finite or black image")
+    require(rel_l1(img5, img5_plain) < 1e-6,
+            "K5-frame: the render differs from its plain-version render")
+    require_agreement("K5-frame", a)
+    kernels["K5"] = k5
+    return {"K5": launches5["K5"], "K6": launches["K6"]}
 
 
 def train_step_fn(integrator, scene):
@@ -655,12 +1196,17 @@ def main() -> int:
         ms_pick_rays=f"{k1_ms_main:.4f}")
     require(match >= 0.999 and tie_ok, "K1: ids differ beyond f32 ties")
     require(t_rel <= 1e-5, "K1: t differs beyond rtol 1e-5")
+    lo, hi = ix.widen_boxes(box_tab[:3].T, box_tab[3:].T)
+    k1_bound = bound(n1 * RAY_BYTES + 4 * (tri_tab.numel() + box_tab.numel()),
+                     needed_tests(lo, hi, ix.CLUSTER, o1, d1, t_c)
+                     * TEST_FLOPS)
     kernels["K1"] = dict(
         name="K1 closest-hit sweep", route="cuda",
         source="psdr_jit_tpu_torch/csrc/intersect.cu",
-        replaces="psdr_jit_tpu/ops/intersect_pallas.py:174",
+        replaces="psdr_jit_tpu/ops/intersect_pallas.py:267",
         max_abs_err=float(t_err.max()) if t_err.numel() else 0.0,
-        ms=k1_ms, plain_ms=k1_plain_ms)
+        ms=k1_ms, plain_ms=k1_plain_ms, bound_ms=k1_bound[0],
+        bound_by=k1_bound[1], library_ms=None)
 
     # ---- 3. K2 vs plain on a 4096-pixel crop of the frame ------------------
     crop = torch.arange(H // 2 * W, (H // 2 + 8) * W, device=dev)
@@ -688,6 +1234,7 @@ def main() -> int:
     step = CHUNK_LANES // SPP
     k2_frame_ms = k2_frame_plain_ms = 0.0
     frame_err = frame_diff = frame_ref = 0.0
+    k2_bytes = k2_flops = 0
     for s in range(0, n_pix, step):
         m, sampler, samples = interior_lane_setup(
             W, H, SPP, SEED, torch.arange(s, min(s + step, n_pix),
@@ -703,17 +1250,24 @@ def main() -> int:
         frame_ref += float(li_p.abs().sum())
         k2_frame_ms += cuda_ms(lambda: mk.li_mega_cuda(*args), 5)
         k2_frame_plain_ms += cuda_ms(lambda: mk.li_mega_plain(*args), 1)
+        # the camera sweep's tests; the 2 DEPTH inner sweeps' rays are the
+        # kernel's own and are not counted
+        k2_bytes += m * SPP * (29 + 12)
+        k2_flops += (camera_tests(*tables[:2], *args[5:8]) * TEST_FLOPS
+                     + m * SPP * DEPTH * SHADE_FLOPS)
     frame_rel = frame_diff / max(frame_ref, 1e-30)
     log("K2-frame", lanes=n_pix * SPP, rel_l1=f"{frame_rel:.3e}",
         max_abs_err=f"{frame_err:.3e}", ms=f"{k2_frame_ms:.3f}",
         plain_ms=f"{k2_frame_plain_ms:.3f}")
     require(frame_rel < 1e-3, "K2: rel L1 vs plain >= 1e-3 on the frame")
+    k2_bound = bound(k2_bytes, k2_flops)
     kernels["K2"] = dict(
         name="K2 detached Li megakernel", route="cuda",
         source="psdr_jit_tpu_torch/csrc/megakernel.cu",
-        replaces="psdr_jit_tpu/ops/megakernel.py:138",
+        replaces="psdr_jit_tpu/ops/megakernel.py:591",
         max_abs_err=max(k2_err, frame_err), ms=k2_frame_ms,
-        plain_ms=k2_frame_plain_ms)
+        plain_ms=k2_frame_plain_ms, bound_ms=k2_bound[0],
+        bound_by=k2_bound[1], library_ms=None)
 
     # ---- 3b. K2 pair and stash, K3, K4 vs plain on 131,072-lane crops ------
     edge_scene = pt.Scene.from_arrays(arrays, device=dev)
@@ -835,10 +1389,14 @@ def main() -> int:
         image_rel_l1_vs_frame=f"{t_rel:.3e}", step_ms=f"{step_ms:.2f}",
         peak_gb=f"{peak_gb:.3f}")
 
+    # ---- 8. the large-scene path --------------------------------------------
+    launches_l = large_scene_phases(kernels, dev, gen)
+
     record = {"kernels": (
         [{**kernels[k], "launches": launches[k]} for k in ("K1", "K2")]
         + [{**kernels[k], "launches": launches_t[k]}
-           for k in ("K2-pair", "K2-stash", "K3", "K4")])}
+           for k in ("K2-pair", "K2-stash", "K3", "K4")]
+        + [{**kernels[k], "launches": launches_l[k]} for k in ("K5", "K6")])}
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,19 @@
 """psdr_jit_tpu_torch: the PyTorch and CUDA port of psdr_jit_tpu.
 
 The JAX package ``psdr_jit_tpu`` is the reference; this package mirrors
-its layout and names. It holds, for the megakernel's scene class (constant
-one-sided diffuse materials lit by one area light), the primal render
-``PathTracer(max_depth).renderC`` and the training step
+its layout and names. It holds the primal render
+``PathTracer(max_depth).renderC`` of scenes of constant diffuse materials
+lit by area lights, from the Cornell box to 10^5 triangles, and, for the
+megakernel's scene class (constant one-sided diffuse materials lit by one
+area light, at most 192 triangles), the training step
 ``PathTracer(max_depth).loss_and_grad`` with the interior and primary-edge
-terms, through hand-written Hopper kernels (``csrc/``): K1, the closest-hit
-sweep; K2, the detached path-traced Li in its single, pair and stash
-modes; K3, the attached interior shade; and K4, K3's adjoint. On CPU
-tensors every kernel entry runs its plain PyTorch version instead; on CUDA
-tensors it launches the kernel or raises.
+terms. Hand-written Hopper kernels (``csrc/``) carry them: K1, K5 and K6,
+the closest-hit sweeps of small, mid-size and large scenes; K2, the
+detached path-traced Li in its single, pair and stash modes; K3, the
+attached interior shade; and K4, K3's adjoint. On CPU tensors every kernel
+entry runs its plain PyTorch version instead; on CUDA tensors it launches
+the kernel or raises. The entry points build scenes on the card unless
+the caller asks for the CPU (``device="cpu"``).
 
 Importing the package needs neither CUDA nor ``nvcc``: the kernels are
 built at their first launch (``ops/_cuda.py``).

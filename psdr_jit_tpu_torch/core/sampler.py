@@ -25,9 +25,11 @@ def pcg4d(a, b, c, d):
     range."""
     device = next((x.device for x in (a, b, c, d)
                    if isinstance(x, torch.Tensor)), None)
+    # ints are filled on the device: a tensor copied from the host would
+    # make the host wait for the card at every draw
     a, b, c, d = torch.broadcast_tensors(
-        *(torch.as_tensor(x, device=device).to(torch.int64)
-          for x in (a, b, c, d)))
+        *(x.to(torch.int64) if isinstance(x, torch.Tensor) else torch.full(
+            (), x, dtype=torch.int64, device=device) for x in (a, b, c, d)))
     v0 = (a * 1664525 + 1013904223) & _MASK
     v1 = (b * 1664525 + 1013904223) & _MASK
     v2 = (c * 1664525 + 1013904223) & _MASK

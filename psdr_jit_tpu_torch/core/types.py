@@ -84,6 +84,10 @@ class Frame:
         return torch.stack([dot(v, self.s), dot(v, self.t), dot(v, self.n)],
                            dim=-1)
 
+    def to_world(self, v):
+        return (self.s * v[..., 0:1] + self.t * v[..., 1:2]
+                + self.n * v[..., 2:3])
+
 
 @dataclasses.dataclass
 class Intersection:

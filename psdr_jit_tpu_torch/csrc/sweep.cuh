@@ -1,5 +1,6 @@
-// The closest-hit sweep: THE ray/triangle hit test of the port, shared by
-// K1 (intersect.cu) and K2 (megakernel.cu) so that the epsilon and tie
+// The closest-hit sweep: THE ray/triangle hit test and THE box slab test
+// of the port, shared by K1 (intersect.cu), K2 (megakernel.cu), K5
+// (intersect_super.cu) and K6 (bvh.cu) so that the epsilon, culling and tie
 // policy cannot drift between them. Counterpart of sweep_block in
 // psdr_jit_tpu/ops/intersect_pallas.py; its plain PyTorch version is
 // sweep_plain in psdr_jit_tpu_torch/ops/intersect.py.
@@ -49,6 +50,13 @@ struct Hit {
   float v;
 };
 
+// Half-width added to each side of a box coordinate pair (lo, hi): the
+// widening of the "Culling" note above. The plain versions widen their
+// boxes with the same expression (ops/intersect.py widen_boxes).
+__device__ __forceinline__ float box_margin(float lo, float hi) {
+  return 1e-3f * (1.0f + fmaxf(fabsf(lo), fabsf(hi)));
+}
+
 // Cooperative copy of the triangle and (widened) box tables to shared
 // memory. The caller synchronises the block afterwards.
 __device__ __forceinline__ void stage_geometry(const float* __restrict__ tri_g,
@@ -60,9 +68,85 @@ __device__ __forceinline__ void stage_geometry(const float* __restrict__ tri_g,
   for (int k = threadIdx.x; k < 3 * nc; k += blockDim.x) {
     const float lo = box_g[k];
     const float hi = box_g[3 * nc + k];
-    const float m = 1e-3f * (1.0f + fmaxf(fabsf(lo), fabsf(hi)));
+    const float m = box_margin(lo, hi);
     s_box[k] = lo - m;
     s_box[3 * nc + k] = hi + m;
+  }
+}
+
+// THE slab test of a (widened) box: may a hit closer than `best` lie in
+// it? A NaN anywhere (origin on a slab plane of an axis-aligned ray)
+// means "visit". inv = 1 / d per component.
+__device__ __forceinline__ bool box_visit(float lox, float loy, float loz,
+                                          float hix, float hiy, float hiz,
+                                          float ox, float oy, float oz,
+                                          float ix, float iy, float iz,
+                                          float best) {
+  const float tx0 = (lox - ox) * ix;
+  const float tx1 = (hix - ox) * ix;
+  const float ty0 = (loy - oy) * iy;
+  const float ty1 = (hiy - oy) * iy;
+  const float tz0 = (loz - oz) * iz;
+  const float tz1 = (hiz - oz) * iz;
+  const bool undecided = isnan(tx0) || isnan(tx1) || isnan(ty0) ||
+                         isnan(ty1) || isnan(tz0) || isnan(tz1);
+  const float tnear =
+      fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1));
+  const float tfar =
+      fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
+  return undecided || (tnear <= tfar && tfar > 0.0f && tnear < best);
+}
+
+// THE hit test of one triangle (p0, e1, e2): replaces h when it is hit
+// strictly closer than h.t.
+__device__ __forceinline__ void hit_test(Hit& h, int id, float p0x, float p0y,
+                                         float p0z, float e1x, float e1y,
+                                         float e1z, float e2x, float e2y,
+                                         float e2z, float ox, float oy,
+                                         float oz, float dx, float dy,
+                                         float dz) {
+  const float hx = fmaf(dy, e2z, -(dz * e2y));
+  const float hy = fmaf(dz, e2x, -(dx * e2z));
+  const float hz = fmaf(dx, e2y, -(dy * e2x));
+  const float a = fmaf(e1z, hz, fmaf(e1x, hx, e1y * hy));
+  const float f = 1.0f / a;  // inf at a = 0; masked by the test below
+  const float sx = ox - p0x, sy = oy - p0y, sz = oz - p0z;
+  const float u = f * fmaf(sz, hz, fmaf(sy, hy, sx * hx));
+  const float qx = fmaf(sy, e1z, -(sz * e1y));
+  const float qy = fmaf(sz, e1x, -(sx * e1z));
+  const float qz = fmaf(sx, e1y, -(sy * e1x));
+  const float v = f * fmaf(dz, qz, fmaf(dx, qx, dy * qy));
+  const float t = f * fmaf(e2z, qz, fmaf(e2x, qx, e2y * qy));
+  if (fabsf(a) > 1e-12f && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
+      t > kRayEpsilon && t < h.t) {
+    h.t = t;
+    h.id = id;
+    h.u = u;
+    h.v = v;
+  }
+}
+
+// Sweep a (9, stride) triangle table and its (6, stride / 16) box table,
+// both staged, into the running hit h; triangle j has the id base + j.
+__device__ __forceinline__ void sweep_into(Hit& h, const float* __restrict__ tri,
+                                           const float* __restrict__ box,
+                                           int stride, int base, float ox,
+                                           float oy, float oz, float dx,
+                                           float dy, float dz) {
+  const int nc = stride / kCluster;
+  const float ix = 1.0f / dx;
+  const float iy = 1.0f / dy;
+  const float iz = 1.0f / dz;
+  for (int c = 0; c < nc; ++c) {
+    if (!box_visit(box[c], box[nc + c], box[2 * nc + c], box[3 * nc + c],
+                   box[4 * nc + c], box[5 * nc + c], ox, oy, oz, ix, iy, iz,
+                   h.t))
+      continue;
+    for (int j = c * kCluster; j < (c + 1) * kCluster; ++j)
+      hit_test(h, base + j, tri[j], tri[stride + j], tri[2 * stride + j],
+               tri[3 * stride + j], tri[4 * stride + j], tri[5 * stride + j],
+               tri[6 * stride + j], tri[7 * stride + j], tri[8 * stride + j],
+               ox, oy, oz, dx, dy, dz);
   }
 }
 
@@ -70,52 +154,8 @@ __device__ __forceinline__ Hit sweep(const float* __restrict__ tri,
                                      const float* __restrict__ box, int f_pad,
                                      float ox, float oy, float oz, float dx,
                                      float dy, float dz) {
-  const int nc = f_pad / kCluster;
   Hit h{kInf, -1, 0.0f, 0.0f};
-  const float ix = 1.0f / dx;
-  const float iy = 1.0f / dy;
-  const float iz = 1.0f / dz;
-  for (int c = 0; c < nc; ++c) {
-    const float tx0 = (box[c] - ox) * ix;
-    const float tx1 = (box[3 * nc + c] - ox) * ix;
-    const float ty0 = (box[nc + c] - oy) * iy;
-    const float ty1 = (box[4 * nc + c] - oy) * iy;
-    const float tz0 = (box[2 * nc + c] - oz) * iz;
-    const float tz1 = (box[5 * nc + c] - oz) * iz;
-    const bool undecided = isnan(tx0) || isnan(tx1) || isnan(ty0) ||
-                           isnan(ty1) || isnan(tz0) || isnan(tz1);
-    const float tnear =
-        fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1));
-    const float tfar =
-        fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
-    if (!undecided && !(tnear <= tfar && tfar > 0.0f && tnear < h.t)) continue;
-    for (int j = c * kCluster; j < (c + 1) * kCluster; ++j) {
-      const float p0x = tri[j], p0y = tri[f_pad + j], p0z = tri[2 * f_pad + j];
-      const float e1x = tri[3 * f_pad + j], e1y = tri[4 * f_pad + j],
-                  e1z = tri[5 * f_pad + j];
-      const float e2x = tri[6 * f_pad + j], e2y = tri[7 * f_pad + j],
-                  e2z = tri[8 * f_pad + j];
-      const float hx = fmaf(dy, e2z, -(dz * e2y));
-      const float hy = fmaf(dz, e2x, -(dx * e2z));
-      const float hz = fmaf(dx, e2y, -(dy * e2x));
-      const float a = fmaf(e1z, hz, fmaf(e1x, hx, e1y * hy));
-      const float f = 1.0f / a;  // inf at a = 0; masked by the test below
-      const float sx = ox - p0x, sy = oy - p0y, sz = oz - p0z;
-      const float u = f * fmaf(sz, hz, fmaf(sy, hy, sx * hx));
-      const float qx = fmaf(sy, e1z, -(sz * e1y));
-      const float qy = fmaf(sz, e1x, -(sx * e1z));
-      const float qz = fmaf(sx, e1y, -(sy * e1x));
-      const float v = f * fmaf(dz, qz, fmaf(dx, qx, dy * qy));
-      const float t = f * fmaf(e2z, qz, fmaf(e2x, qx, e2y * qy));
-      if (fabsf(a) > 1e-12f && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
-          t > kRayEpsilon && t < h.t) {
-        h.t = t;
-        h.id = j;
-        h.u = u;
-        h.v = v;
-      }
-    }
-  }
+  sweep_into(h, tri, box, f_pad, 0, ox, oy, oz, dx, dy, dz);
   if (!(h.t < kInf)) h.id = -1;
   return h;
 }

@@ -7,8 +7,9 @@ import dataclasses
 
 import torch
 
-from ..core.math import rgb2luminance
-from ..shape.mesh import MeshData
+from ..core.math import rgb2luminance, safe_div
+from ..core.records import PositionSample
+from ..shape.mesh import MeshData, sample_position
 from .emitter import Emitter
 
 
@@ -43,6 +44,25 @@ class AreaLightData:
     sampling_weight: torch.Tensor   # ()
     mesh_data: MeshData
     mesh_index: int = -1
+
+    def eval(self, its, active):
+        """One-sided constant radiance (area.cpp:17-26): ``(..., 3)``."""
+        ok = active & (its.wi[..., 2] > 0.0)
+        return torch.where(ok[..., None], self.radiance, 0.0)
+
+    def sample_position(self, ref_p, sample2, active) -> PositionSample:
+        """A point on the light, uniform by area (area.cpp:29-45)."""
+        ps = sample_position(self.mesh_data, sample2)
+        ps.is_valid = ps.is_valid & active
+        return ps
+
+    def sample_position_pdf(self, ref_p, its, active):
+        """``sampling_weight / total_area`` where the hit is on this light
+        (area.cpp:48-59, mesh.cpp:457-466)."""
+        ok = active & (its.mesh_id == self.mesh_index)
+        inv_area = safe_div(torch.ones_like(self.mesh_data.total_area),
+                            self.mesh_data.total_area)
+        return torch.where(ok, self.sampling_weight * inv_area, 0.0)
 
 
 def area_light_weight(radiance, mesh_data: MeshData):

@@ -23,6 +23,14 @@ STREAM_PRIMARY = 1
 # 2^20 / 2^21 / 2^22 / 2^23 lanes per chunk, for a peak of 0.1 / 0.2 /
 # 0.4 / 0.8 GB (PERF.md). Larger frames loop over 2^23-lane chunks.
 CHUNK_LANES = 1 << 23
+# Sample lanes per chunk of renderC on the general path (scenes outside
+# K2's scope, ``PathTracer._li_general``), whose PyTorch shading holds
+# every bounce's per-lane tensors of a chunk at once. On an H100 the
+# 102,412-triangle gallery at 512x512 spp 8 took 511 / 314 / 245 / 216 ms
+# at 2^18 / 2^19 / 2^20 / 2^21 lanes per chunk, for a peak of 0.14 / 0.26
+# / 0.49 / 0.95 GB (PERF.md): each chunk costs ~2,000 small launches that
+# the host issues slower than the card runs them.
+GENERAL_CHUNK_LANES = 1 << 21
 # Sample lanes per chunk of the training step's interior pass (one chunk's
 # attached graph, K2-stash payload, rays and K4's cotangents, is held at a
 # time) and of its primary-edge pass. On an H100 the 512x512 spp-32
@@ -33,6 +41,16 @@ TRAIN_CHUNK_LANES = 1 << 22
 
 _NOT_PORTED = ("is not ported to psdr_jit_tpu_torch yet: it follows in a "
                "later slice of the port (ROADMAP.md, port queue)")
+
+
+def interior_chunk_lanes(sd) -> int:
+    """Lanes per chunk of renderC: K2's scenes take ``CHUNK_LANES``, all
+    others ``GENERAL_CHUNK_LANES`` (the JAX package routes its chunk size
+    on the scene's intersection path the same way). Chunking is
+    partition-exact, so the image does not depend on it."""
+    from ..ops import megakernel as mega
+
+    return CHUNK_LANES if mega.applicable(sd) else GENERAL_CHUNK_LANES
 
 
 def interior_lane_setup(width: int, height: int, spp: int, seed: int,
@@ -50,8 +68,11 @@ def interior_lane_setup(width: int, height: int, spp: int, seed: int,
     sampler = Sampler(seed + STREAM_INTERIOR, lane)
     base = torch.stack([(sample_pix % width).to(torch.float32),
                         (sample_pix // width).to(torch.float32)], dim=-1)
-    samples = (base + sampler.next_2d()) / torch.tensor(
-        [width, height], dtype=torch.float32, device=dev)
+    # (width, height) filled on the device: a tensor copied from the host
+    # would make the host wait for the card
+    size = torch.empty(2, dtype=torch.float32, device=dev)
+    size[0], size[1] = width, height
+    samples = (base + sampler.next_2d()) / size
     return m, sampler, samples
 
 
@@ -156,7 +177,7 @@ class Integrator:
         spp = opts.spp
         if spp == 0:
             return out
-        step = max(CHUNK_LANES // spp, 1)
+        step = max(interior_chunk_lanes(sd) // spp, 1)
         for s in range(0, n_pix, step):
             out[s:s + step] = interior_chunk(self, sd, opts, sensor_id, seed,
                                              spp, False, pix[s:s + step])

@@ -10,8 +10,8 @@ render a scene that was built with it. :func:`params_to_torch` does the
 same for a training step's parameters, so both packages can take the same
 step.
 
-Scope: the slice's scene class (constant ``DiffuseBSDF``s, ``AreaLight``s
-and field-of-view ``PerspectiveCamera``s); anything else raises.
+Scope: constant ``DiffuseBSDF``s, ``AreaLight``s and field-of-view
+``PerspectiveCamera``s; anything else raises.
 """
 
 from __future__ import annotations
@@ -84,9 +84,9 @@ def scene_to_arrays(scene) -> dict:
     return out
 
 
-def scene_from_arrays(arrays, device="cpu"):
+def scene_from_arrays(arrays, device="cuda"):
     """``{name: array}`` (or a loaded ``.npz``) -> this package's Scene on
-    ``device``."""
+    ``device`` (the card unless the caller asks for the CPU)."""
     from . import (AreaLight, DiffuseBSDF, Mesh, PerspectiveCamera,
                    RenderOption, Scene)
 
@@ -127,9 +127,12 @@ def scene_from_arrays(arrays, device="cpu"):
     return sc
 
 
-def params_to_torch(np_params, device="cpu") -> dict:
+def params_to_torch(np_params, device="cuda") -> dict:
     """A training step's parameters, ``{name: array}`` (numpy, or anything
     ``np.asarray`` takes, such as the JAX package's arrays), as float32
-    tensors on ``device``."""
+    tensors on ``device`` (the card unless the caller asks for the CPU)."""
+    from .scene.scene import _checked_device
+
+    device = _checked_device(device)
     return {k: torch.tensor(np.asarray(v, np.float32), device=device)
             for k, v in np_params.items()}

@@ -18,7 +18,8 @@ kernel wants a fused multiply-add it writes ``fmaf`` explicitly.
 
 ``LAUNCHES`` counts the launches of each kernel (``K1``: closest hit;
 ``K2``, ``K2-pair``, ``K2-stash``: the detached Li in its three modes;
-``K3``: the attached shade; ``K4``: its adjoint); each wrapper adds one
+``K3``: the attached shade; ``K4``: its adjoint; ``K5``: the streamed
+super-block sweep; ``K6``: the block-culled sweep); each wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that it
 went through the kernels.
 """
@@ -39,13 +40,13 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "build"
 SOURCES = ("common.cuh", "sweep.cuh", "shade.cuh", "intersect.cu",
-           "megakernel.cu", "shade.cu")
+           "megakernel.cu", "shade.cu", "intersect_super.cu", "bvh.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libpsdr_kernels.so"
 
 LAUNCHES = {"K1": 0, "K2": 0, "K2-pair": 0, "K2-stash": 0, "K3": 0,
-            "K4": 0}
+            "K4": 0, "K5": 0, "K6": 0}
 
 
 def reset_launches():
@@ -130,6 +131,11 @@ def library() -> ctypes.CDLL:
     lib.psdr_shade_fwd.restype = _I
     lib.psdr_shade_bwd.argtypes = shade + [_P, _P, _P, _P, _P, _P, _P]
     lib.psdr_shade_bwd.restype = _I
+    lib.psdr_intersect_super.argtypes = [_P, _P, _I, _P, _P, _P, _LL, _P,
+                                         _P, _P, _P]
+    lib.psdr_intersect_super.restype = _I
+    lib.psdr_bvh.argtypes = [_P, _P, _P, _I, _P, _P, _P, _LL, _P, _P, _P, _P]
+    lib.psdr_bvh.restype = _I
     lib.psdr_error_string.argtypes = [_I]
     lib.psdr_error_string.restype = ctypes.c_char_p
     return lib

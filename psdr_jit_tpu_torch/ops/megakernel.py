@@ -32,10 +32,11 @@ from __future__ import annotations
 
 import torch
 
-from ..core.types import (EPSILON, SHADOW_EPSILON, INV_PI, PI,
+from ..core.types import (EPSILON, SHADOW_EPSILON, INV_PI,
                           coordinate_system)
 from ..core.sampler import pcg4d, u32_to_unit_float, SALT
 from ..core.math import mis_weight, normalize, safe_div, safe_sqrt
+from ..core.warp import square_to_uniform_disk_concentric
 from ..bsdf.diffuse import DiffuseBSDF
 from ..emitter.area import AreaLightData
 from . import _cuda
@@ -111,28 +112,11 @@ def _dot3(a, b):
     return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
 
 
-def sincos_pio4(phi):
-    """sin and cos for |phi| <= pi/4: Cephes' single-precision minimax
-    polynomials (about 1 ulp), written out so every device and batch size
-    runs the same arithmetic; K2 uses the same two polynomials."""
-    z = phi * phi
-    s = ((-1.9515295891e-4 * z + 8.3321608736e-3) * z
-         - 1.6666654611e-1) * z * phi + phi
-    c = ((2.443315711809948e-5 * z - 1.388731625493765e-3) * z
-         + 4.166664568298827e-2) * z * z - 0.5 * z + 1.0
-    return s, c
-
-
 def _cosine_hemisphere(u0, u1):
-    """Concentric-disk cosine-weighted hemisphere sample (warp.py:30-51)."""
-    x = 2.0 * u0 - 1.0
-    y = 2.0 * u1 - 1.0
-    q13 = torch.abs(x) < torch.abs(y)
-    r = torch.where(q13, y, x)
-    rp = torch.where(q13, x, y)
-    s, c = sincos_pio4(0.25 * PI * safe_div(rp, r))
-    px = r * torch.where(q13, s, c)
-    py = r * torch.where(q13, c, s)
+    """Concentric-disk cosine-weighted hemisphere sample (warp.py:30-51)
+    as three components."""
+    px, py = square_to_uniform_disk_concentric(
+        torch.stack([u0, u1], dim=-1)).unbind(-1)
     return px, py, safe_sqrt(1.0 - px * px - py * py)
 
 

@@ -6,8 +6,9 @@ World-space triangles from ``load_raw`` and the
 that the primary-edge pass classifies (:func:`build_edge_list`).
 :meth:`Mesh.configure_data` is differentiable: autograd flows from every
 world-space table back to ``vertex_positions_raw`` and the transforms.
-OBJ loading, texture coordinates and the secondary-edge tables are not
-ported yet.
+:func:`sample_position` samples a point on a mesh uniformly by area (the
+area lights' sampling). OBJ loading, texture coordinates and the
+secondary-edge tables are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,8 +19,10 @@ import numpy as np
 import torch
 
 from ..core import transform as xf
-from ..core.math import cross, norm, normalize, safe_div
+from ..core import warp
+from ..core.math import bilinear, cross, norm, normalize, safe_div
 from ..core.distribution import DiscreteDistribution
+from ..core.records import PositionSample
 
 
 def cpu_f32(x) -> torch.Tensor:
@@ -175,3 +178,21 @@ class Mesh:
 
     def __repr__(self) -> str:
         return f"Mesh[nv={self.num_vertices}, nf={self.num_faces}]"
+
+
+def sample_position(mesh_data: MeshData, sample2) -> PositionSample:
+    """Uniform-by-area surface sample with sample reuse (mesh.cpp:413-454):
+    the first uniform picks the face and is reused for the point. The
+    reference's Jacobian ``face_area / detach(face_area)`` is 1 in value:
+    the sample is detached here."""
+    idx, _, u0 = mesh_data.face_distrb.sample_reuse(sample2[..., 0])
+    st = warp.square_to_uniform_triangle(
+        torch.stack([u0, sample2[..., 1]], dim=-1))
+    tri = mesh_data.tri
+    j = idx.long()
+    p = bilinear(tri.p0[j], tri.e1[j], tri.e2[j], st)
+    total = mesh_data.total_area
+    inv_total = safe_div(torch.ones_like(total), total)
+    return PositionSample(
+        p=p, n=tri.face_normal[j], pdf=inv_total.expand(idx.shape),
+        J=torch.ones_like(u0), is_valid=torch.ones_like(idx, dtype=torch.bool))

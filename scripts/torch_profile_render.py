@@ -4,6 +4,7 @@ step, goes on a CUDA card.
 
     python3 scripts/torch_profile_render.py           # renderC
     python3 scripts/torch_profile_render.py --train   # loss_and_grad
+    python3 scripts/torch_profile_render.py --large   # the gallery
 
 from the repository root. Both use the Cornell box of
 ``tests/data/cbox_scene.npz`` (512x512, spp 32) with ``PathTracer(3)``;
@@ -19,6 +20,14 @@ chunk size (2^20..2^23 lanes), the device's busy time per step with the
 kernels by device time, and the step split into its parts: each part is
 timed on the host between two synchronizes, so the parts add up to a
 step slower than an unsplit one.
+
+--large: renderC of the 102,412-triangle gallery (``chip_smoke``
+``gallery_arrays``, 256x256, spp 4, ``PathTracer(2)``, the general Li
+through K6): the frame's host time over 10 runs, the device's busy time
+per frame with the kernels by device time and K6's share of it; the
+frame at 512x512 spp 8 at each general-path chunk size (2^18..2^21
+lanes) with its peak device memory; and, on the 1,292-triangle gallery,
+K5 against K6 on the same 262,144 rays and in the whole frame.
 
 Imports no JAX; exits non-zero without a CUDA card.
 """
@@ -172,6 +181,85 @@ def train(dev) -> int:
     return 0
 
 
+def large(dev) -> int:
+    from chip_smoke import (CHECK_RAYS, LARGE, LARGE_DEPTH, WIDE, cuda_ms,
+                            gallery_arrays, mixed_rays)
+    from psdr_jit_tpu_torch.integrator import base
+    from psdr_jit_tpu_torch.ops import bvh
+    from psdr_jit_tpu_torch.ops import intersect as ix
+
+    integ = pt.PathTracer(LARGE_DEPTH)
+    sc = pt.Scene.from_arrays(gallery_arrays(*LARGE), device=dev)
+    sd = sc.configure()
+    print(f"gallery {sd.tri.p0.shape[0]} triangles, renderC {LARGE[0]}x"
+          f"{LARGE[1]} spp {LARGE[2]} depth {LARGE_DEPTH}, chunk "
+          f"2^{base.GENERAL_CHUNK_LANES.bit_length() - 1} lanes")
+
+    def frame():
+        return integ.renderC(sc, 0, seed=0)
+
+    med, lo, hi = host_ms(frame, 10)
+    print(f"frame host ms median {med:.3f} min {lo:.3f} max {hi:.3f}")
+    frames = 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(frames):
+            frame()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / frames / 1e3
+    k6 = sum(e.self_device_time_total for e in kernels
+             if "bvh_kernel" in e.name) / frames / 1e3
+    n_kernels = len(kernels) / frames
+    print(f"device busy per frame (profiler): {busy:.3f} ms, idle share "
+          f"{1 - busy / med:.3f} of the median; K6 {k6:.3f} ms, the rest "
+          f"(PyTorch kernels of the general Li, lane set-up, block tables) "
+          f"{busy - k6:.3f} ms in {n_kernels - 5:.0f} launches")
+    print(prof.key_averages().table(sort_by="self_device_time_total",
+                                    row_limit=15, max_name_column_width=60))
+
+    wide = pt.Scene.from_arrays(gallery_arrays(*WIDE), device=dev)
+    wide.configure()
+    default = base.GENERAL_CHUNK_LANES
+    for lanes in (1 << 18, 1 << 19, 1 << 20, 1 << 21):
+        base.GENERAL_CHUNK_LANES = lanes
+        integ.renderC(wide, 0, seed=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        med, lo, hi = host_ms(lambda: integ.renderC(wide, 0, seed=0), 3)
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        print(f"{WIDE[0]}x{WIDE[1]} spp {WIDE[2]}, chunk "
+              f"2^{lanes.bit_length() - 1} lanes: host ms median {med:.3f} "
+              f"min {lo:.3f} max {hi:.3f}, peak {peak:.3f} GB")
+    base.GENERAL_CHUNK_LANES = default
+
+    mid = pt.Scene.from_arrays(gallery_arrays(*LARGE, 4, 2), device=dev)
+    sdm = mid.configure()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    o, d, act = mixed_rays(sdm, CHECK_RAYS, gen, dev)
+    tri = sdm.tri
+    tab, box = ix.pack_triangles(tri.p0, tri.e1, tri.e2, ix.SUPER)
+    h = bvh.build_bvh(tri.p0, tri.e1, tri.e2)
+    k5_ms = cuda_ms(lambda: ix.intersect_super_cuda(tab, box, o, d, act), 20)
+    k6_ms = cuda_ms(lambda: bvh.bvh_cuda(h, o, d, act), 20)
+    same = all(torch.equal(a, b) for a, b in zip(
+        ix.intersect_super_cuda(tab, box, o, d, act), bvh.bvh_cuda(h, o, d,
+                                                                   act)))
+    print(f"{tri.p0.shape[0]} triangles, {o.shape[0]} mixed rays: K5 "
+          f"{k5_ms:.4f} ms, K6 {k6_ms:.4f} ms, equal hits {same}")
+    k5_frame = host_ms(lambda: integ.renderC(mid, 0, seed=0), 5)[0]
+    limit = ix.K5_MAX_TRIS
+    ix.K5_MAX_TRIS = ix.K1_MAX_TRIS  # route the same scene to K6
+    try:
+        k6_frame = host_ms(lambda: integ.renderC(mid, 0, seed=0), 5)[0]
+    finally:
+        ix.K5_MAX_TRIS = limit
+    print(f"renderC of it at {LARGE[0]}x{LARGE[1]} spp {LARGE[2]}: through "
+          f"K5 {k5_frame:.3f} ms, through K6 {k6_frame:.3f} ms (host "
+          f"medians)")
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device visible", file=sys.stderr)
@@ -183,6 +271,8 @@ def main() -> int:
     dev = torch.device("cuda:0")
     if "--train" in sys.argv[1:]:
         return train(dev)
+    if "--large" in sys.argv[1:]:
+        return large(dev)
     sc = pt.Scene.from_arrays(np.load(ROOT / "tests/data/cbox_scene.npz"),
                               device=dev)
     sd = sc.configure()

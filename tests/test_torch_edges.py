@@ -30,6 +30,8 @@ from psdr_jit_tpu_torch.sensor.sensor import sample_primary_edge
 from psdr_jit_tpu_torch.shape.mesh import build_edge_list
 from scenes import make_cbox
 
+CPU = torch.device("cpu")  # the entry points default to the card
+
 W, SPPE, SEED, DEPTH = 16, 4, 3, 2
 # Screen-space endpoints: both packages project with a 4x4 matrix whose
 # inverse they round in different orders (tests/test_torch_scene.py).
@@ -40,7 +42,7 @@ RTOL, ATOL = 1e-5, 1e-6
 def pair():
     jsc = make_cbox(width=W, height=W, spp=4, sppe=SPPE)
     jsc.configure()
-    sc = pt.Scene.from_arrays(pt.scene_to_arrays(jsc))
+    sc = pt.Scene.from_arrays(pt.scene_to_arrays(jsc), device=CPU)
     return jsc, sc, sc.configure()
 
 
@@ -79,7 +81,7 @@ def test_edges_disabled_builds_none(pair):
     arrays = pt.scene_to_arrays(jsc)
     for i in range(len(jsc.meshes)):
         arrays[f"mesh.{i}.enable_edges"] = np.asarray(False)
-    sc = pt.Scene.from_arrays(arrays)
+    sc = pt.Scene.from_arrays(arrays, device=CPU)
     assert all(m.num_edges == 0 for m in sc.meshes)
     assert sc.configure().sensors[0].edge_info is None
     with pytest.raises(ValueError, match="no primary edges"):

@@ -47,6 +47,8 @@ from psdr_jit_tpu_torch.integrator import base as tbase
 from psdr_jit_tpu_torch.sensor.sensor import SensorData
 from scenes import make_cbox
 
+CPU = torch.device("cpu")  # the entry points default to the card
+
 W, SPP, SPPE, SEED = 16, 4, 4, 3
 TARGET = np.random.default_rng(0).random((W * W, 3)).astype(np.float32)
 LOSS_RTOL, IMG_RTOL = 2e-4, 1e-3
@@ -87,7 +89,7 @@ def _jax_step(depth, mode, spp=SPP, sppe=SPPE):
 
 def _port_scene(spp=SPP, sppe=SPPE):
     return pt.Scene.from_arrays(pt.scene_to_arrays(
-        make_cbox(width=W, height=W, spp=spp, sppe=sppe)))
+        make_cbox(width=W, height=W, spp=spp, sppe=sppe)), device=CPU)
 
 
 def _port_step(sc, depth, np_params):
@@ -95,7 +97,7 @@ def _port_step(sc, depth, np_params):
     (the target of ``train_setup`` is ``TARGET``)."""
     _, apply, loss_fn = train_setup(sc, seed=0)
     loss, g, img = pt.PathTracer(depth).loss_and_grad(
-        sc, pt.params_to_torch(np_params), apply, loss_fn, seed=SEED)
+        sc, pt.params_to_torch(np_params, device=CPU), apply, loss_fn, seed=SEED)
     return float(loss), {k: v.numpy() for k, v in g.items()}, img.numpy()
 
 

@@ -28,12 +28,14 @@ from psdr_jit_tpu.ops.intersect_pallas import ray_intersect_pallas
 from psdr_jit_tpu_torch.ops import intersect as ix
 from scenes import make_cbox
 
+CPU = torch.device("cpu")  # the entry points default to the card
+
 
 @pytest.fixture(scope="module")
 def scenes():
     jsc = make_cbox(width=32, height=32, spp=4)
     jsc.configure()
-    sc = pt.Scene.from_arrays(pt.scene_to_arrays(jsc))
+    sc = pt.Scene.from_arrays(pt.scene_to_arrays(jsc), device=CPU)
     sc.configure()
     return jsc, sc
 

@@ -22,10 +22,11 @@ import pytest
 import torch
 
 import psdr_jit_tpu_torch as pt
-from chip_smoke import train_setup
+from chip_smoke import gallery_arrays, mixed_rays, train_setup
 from psdr_jit_tpu_torch.integrator import base
 from psdr_jit_tpu_torch.integrator.base import interior_lane_setup
 from psdr_jit_tpu_torch.ops import _cuda
+from psdr_jit_tpu_torch.ops import bvh
 from psdr_jit_tpu_torch.ops import intersect as ix
 from psdr_jit_tpu_torch.ops import megakernel as mk
 from psdr_jit_tpu_torch.ops import shade_mega as sm
@@ -93,7 +94,7 @@ def test_cpu_path_is_plain_and_launches_nothing():
     assert torch.isfinite(loss) and all(g.abs().sum() > 0
                                         for g in grads.values())
     assert set(_cuda.LAUNCHES) == {"K1", "K2", "K2-pair", "K2-stash", "K3",
-                                   "K4"}
+                                   "K4", "K5", "K6"}
     assert not any(_cuda.LAUNCHES.values())
 
 
@@ -122,6 +123,27 @@ def test_cuda_launchers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         sm.shade_adjoint_cuda(table, light, misc, ids, us, vs, o, d, act,
                               lane, 0, 1, sampler.cnt, False, o)
+
+
+def _gallery(device, n_spheres, subdiv, width=16, spp=2):
+    sc = pt.Scene.from_arrays(gallery_arrays(width, width, spp, n_spheres,
+                                             subdiv), device=device)
+    sc.configure()
+    return sc
+
+
+def test_large_scene_launchers_refuse_cpu_tensors():
+    sd = _gallery("cpu", 2, 2).data
+    o, d, act = mixed_rays(sd, 64, torch.Generator().manual_seed(0),
+                           torch.device("cpu"))
+    tri, box = ix.pack_triangles(sd.tri.p0, sd.tri.e1, sd.tri.e2, ix.SUPER)
+    with pytest.raises(ValueError, match="CUDA"):
+        ix.intersect_super_cuda(tri, box, o, d, act)
+    with pytest.raises(ValueError, match="CUDA"):
+        bvh.bvh_cuda(bvh.build_bvh(sd.tri.p0, sd.tri.e1, sd.tri.e2), o, d,
+                     act)
+    with pytest.raises(ValueError, match="multiple of 512"):
+        ix.intersect_super_cuda(tri[:, :100], box, o, d, act)
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
@@ -295,3 +317,45 @@ def test_training_step_on_card(cuda):
     for k, g in grads_p.items():
         assert grads[k].device == g.device
         assert _rel(grads[k], g) < 1e-3, k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_spheres, subdiv, kernel", [(4, 2, "K5"),
+                                                       (4, 3, "K6")])
+def test_k5_k6_match_plain_bitwise(cuda, n_spheres, subdiv, kernel):
+    """K5 (1,292 triangles) and K6 (5,132) against their plain versions and
+    the unculled sweep, bit for bit, through the routing entry."""
+    sd = _gallery(cuda, n_spheres, subdiv).data
+    tri = sd.tri
+    o, d, act = mixed_rays(sd, 1 << 16,
+                           torch.Generator(cuda).manual_seed(5), cuda)
+    before = dict(_cuda.LAUNCHES)
+    out = ix.ray_intersect_detached(tri.p0, tri.e1, tri.e2, pt.Ray(o, d),
+                                    act)
+    assert _cuda.LAUNCHES[kernel] == before[kernel] + 1
+    assert sum(_cuda.LAUNCHES.values()) == sum(before.values()) + 1
+    brute = ix.ray_intersect_brute(tri.p0, tri.e1, tri.e2, o, d, act)
+    plain = (brute if kernel == "K5" else bvh.ray_intersect_bvh_plain(
+        bvh.build_bvh(tri.p0, tri.e1, tri.e2), o, d, act))
+    for x, y, z in zip(out, plain, brute):
+        assert torch.equal(x, y) and torch.equal(y, z)
+    assert not out[1][~act].any() and out[1].float().mean() > 0.5
+
+
+@pytest.mark.gpu
+def test_gallery_render_on_card(cuda, monkeypatch):
+    """renderC of the 5,132-triangle gallery through K6 (five launches a
+    chunk at depth 2), against the same render on the CPU's plain path,
+    and a crop equal to the frame's rows."""
+    monkeypatch.setattr(base, "GENERAL_CHUNK_LANES", 128)
+    sc = _gallery(cuda, 4, 3)
+    integ = pt.PathTracer(2)
+    _cuda.reset_launches()
+    img = integ.renderC(sc, 0, seed=0)
+    assert _cuda.LAUNCHES["K6"] == 5 * 4
+    assert sum(_cuda.LAUNCHES.values()) == 5 * 4
+    ref = integ.renderC(_gallery("cpu", 4, 3), 0, seed=0)
+    assert torch.isfinite(img).all() and img.abs().sum() > 0
+    assert _rel(img.cpu(), ref) < 1e-4
+    crop = torch.arange(20, 200, 7, device=cuda)
+    assert torch.equal(integ.renderC(sc, 0, seed=0, pix_id=crop), img[crop])

@@ -22,8 +22,11 @@ import jax.numpy as jnp
 import psdr_jit_tpu_torch as pt
 from psdr_jit_tpu.ops import megakernel as jmk
 from psdr_jit_tpu_torch.integrator.base import interior_lane_setup
+from psdr_jit_tpu_torch.core import warp
 from psdr_jit_tpu_torch.ops import megakernel as mk
 from scenes import make_cbox
+
+CPU = torch.device("cpu")  # the entry points default to the card
 
 SEED = 5
 
@@ -31,7 +34,7 @@ SEED = 5
 @pytest.fixture(scope="module")
 def setup():
     sc = pt.Scene.from_arrays(pt.scene_to_arrays(
-        make_cbox(width=32, height=32, spp=4)))
+        make_cbox(width=32, height=32, spp=4)), device=CPU)
     sd = sc.configure()
     tables = mk.build_tables(sd)
     _, sampler, samples = interior_lane_setup(32, 32, 4, SEED,
@@ -116,7 +119,7 @@ def test_sincos_polynomials():
     """The bounce's sin/cos polynomials are accurate to ~1 ulp on
     [-pi/4, pi/4]."""
     phi = torch.linspace(-np.pi / 4, np.pi / 4, 100_001)
-    s, c = mk.sincos_pio4(phi)
+    s, c = warp.sincos_pio4(phi)
     ref = phi.double()
     np.testing.assert_allclose(s.double(), torch.sin(ref), atol=1.2e-7)
     np.testing.assert_allclose(c.double(), torch.cos(ref), atol=1.2e-7)

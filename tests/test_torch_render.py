@@ -22,6 +22,8 @@ import psdr_jit_tpu_torch as pt
 from psdr_jit_tpu_torch.integrator import base
 from scenes import make_cbox
 
+CPU = torch.device("cpu")  # the entry points default to the card
+
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden_cbox32.npy")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -30,7 +32,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def scenes():
     jsc = make_cbox(width=32, height=32, spp=4)
     jsc.configure()
-    return jsc, pt.Scene.from_arrays(pt.scene_to_arrays(jsc))
+    return jsc, pt.Scene.from_arrays(pt.scene_to_arrays(jsc), device=CPU)
 
 
 def _close(img, ref):

@@ -25,13 +25,14 @@ from scenes import make_cbox
 
 NPZ = os.path.join(os.path.dirname(__file__), "data", "cbox_scene.npz")
 RTOL, ATOL = 1e-5, 1e-3
+CPU = torch.device("cpu")  # the entry points default to the card
 
 
 @pytest.fixture(scope="module")
 def pair():
     jsc = make_cbox(width=32, height=32, spp=4)
     jsc.configure()
-    sc = pt.Scene.from_arrays(pt.scene_to_arrays(jsc))
+    sc = pt.Scene.from_arrays(pt.scene_to_arrays(jsc), device=CPU)
     return jax.lax.stop_gradient(jsc.data), sc.configure()
 
 
@@ -116,30 +117,43 @@ def test_committed_scene_matches_make_cbox():
 
 def test_scene_roundtrip_builds_same_objects():
     jsc = make_cbox(width=16, height=8, spp=2)
-    sc = pt.Scene.from_arrays(pt.scene_to_arrays(jsc))
+    sc = pt.Scene.from_arrays(pt.scene_to_arrays(jsc), device=CPU)
     assert (sc.opts.width, sc.opts.height, sc.opts.spp) == (16, 8, 2)
     assert sc.num_meshes == jsc.num_meshes and sc.bsdf_ids == jsc.bsdf_ids
     assert [m.emitter_id for m in sc.meshes] == [m.emitter_id
                                                  for m in jsc.meshes]
     assert [m.bsdf_id for m in sc.meshes] == [m.bsdf_id for m in jsc.meshes]
     assert set(sc.param_map) == set(jsc.param_map)
-    assert sc.device == torch.device("cpu")
+    assert sc.device == CPU
 
 
 def test_out_of_scope_scenes_raise():
+    """A two-sided cbox renders through the general Li and a 300-face
+    extra mesh configures (Morton-ordered); training on such scenes (the
+    attached general Li) and a textured BSDF still raise. With no card,
+    the entry points' default device raises instead of falling back."""
     jsc = make_cbox(width=8, height=8, spp=1)
     arrays = pt.scene_to_arrays(jsc)
-    sc = pt.Scene.from_arrays(arrays)
+    sc = pt.Scene.from_arrays(arrays, device=CPU)
     sc.bsdfs[1].twoSide = True
     assert not mk.applicable(sc.configure())
-    with pytest.raises(NotImplementedError, match="megakernel's scope"):
-        pt.PathTracer(1).renderC(sc)
-    big = pt.Scene.from_arrays(arrays)
+    img = pt.PathTracer(1).renderC(sc)
+    assert img.shape == (64, 3) and bool(torch.isfinite(img).all())
+    with pytest.raises(NotImplementedError, match="attached general Li"):
+        pt.PathTracer(1).loss_and_grad(sc, {}, lambda p: None,
+                                       lambda rows, pix: rows.sum(-1))
+    big = pt.Scene.from_arrays(arrays, device=CPU)
     extra = pt.Mesh().load_raw(np.random.default_rng(0).random((900, 3)),
                                np.arange(900).reshape(300, 3))
     big.add_Mesh(extra, None, "white")
-    with pytest.raises(NotImplementedError, match="Morton"):
-        big.configure()
+    sd = big.configure()
+    assert sd.tri.p0.shape[0] == 332 and big._tri_perm.shape == (332,)
+    assert sorted(big._tri_perm.tolist()) == list(range(332))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            pt.Scene.from_arrays(arrays)
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            pt.params_to_torch({"x": np.zeros(3)})
     with pytest.raises(NotImplementedError, match="only constant"):
         jsc.bsdfs[0].reflectance = jsc.bsdfs[0].reflectance.from_array(
             np.ones((2, 2, 3), np.float32))

@@ -34,6 +34,8 @@ from psdr_jit_tpu_torch.ops import shade_mega as sm
 from psdr_jit_tpu_torch.scene.scene import tree_map
 from scenes import make_cbox
 
+CPU = torch.device("cpu")  # the entry points default to the card
+
 W, SPP, SEED = 16, 4, 7
 
 
@@ -41,7 +43,7 @@ W, SPP, SEED = 16, 4, 7
 def setup():
     jsc = make_cbox(width=W, height=W, spp=SPP)
     jsc.configure()
-    sc = pt.Scene.from_arrays(pt.scene_to_arrays(jsc))
+    sc = pt.Scene.from_arrays(pt.scene_to_arrays(jsc), device=CPU)
     sd = sc.configure()
     _, sampler, samples = interior_lane_setup(W, W, SPP, SEED,
                                               torch.arange(W * W))
