@@ -6,7 +6,7 @@
 Builds the port's kernels from ``psdr_jit_tpu_torch/csrc`` with ``nvcc``,
 holds each kernel against its plain PyTorch version on the card (K1; K2 in
 its single, pair and stash modes; K3, the attached shade; K4, its adjoint;
-K5, the streamed super-block sweep; K6, the block-culled sweep), checks a
+K5, the streamed super-block sweep; K6, the tree traversal), checks a
 32x32 render against ``tests/golden_cbox32.npy``, then drives three main
 paths at full size as a user would, each with the launch counts set to 0
 just before it and read just after:
@@ -166,6 +166,43 @@ SHADE_FLOPS = 200
 # bytes a ray moves through an intersection kernel: origin and direction
 # in, (t, id, u, v) out
 RAY_BYTES = 24 + 16
+# bytes of a triangle that any closest hit must read: p0, e1 and e2 in
+# float32 (a kernel's own tree, boxes or padding are its design, not its work)
+TRI_BYTES = 36
+
+
+def ptxas_report(kernel: str, report: str | None = None) -> str:
+    """Registers, stack and spills of each compiled instance of ``kernel``
+    in ptxas's ``report`` (by default that of the package's build,
+    ``ptxas.txt``), as ``"<template argument>:<registers>r/<stack>B/<spill
+    stores>+<spill loads>B"`` joined by commas."""
+    import re
+
+    from psdr_jit_tpu_torch.ops import _cuda
+
+    if report is None:
+        report = (_cuda.build().parent / "ptxas.txt").read_text()
+    out, name = [], None
+    stack = None
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = m.group(1) if kernel in m.group(1) else None
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            stack = m.groups()
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and stack is not None:
+            args = re.search(kernel + r"IL\w(\d+)EE", name)
+            out.append(f"{args.group(1) if args else '-'}:{m.group(1)}r/"
+                       f"{stack[0]}B/{stack[1]}+{stack[2]}B")
+            name = stack = None
+    return ",".join(out)
 
 
 def bound(nbytes: float, flops: float):
@@ -198,6 +235,47 @@ def needed_tests(lo, hi, size: int, o, d, t, active=None,
             v = v & active[s:e, None]
         total += int(v.sum())
     return total * size
+
+
+def triangle_box_tests(p0, e1, e2, o, d, t, active=None, cluster: int = 64,
+                       chunk: int = 1 << 12) -> int:
+    """The (ray, triangle) tests any hierarchy of boxes over these
+    triangles must make: for each ray, the triangles whose own widened box
+    (``widen_boxes``) its slab test enters before its closest hit ``t``.
+    Counted exactly, but only inside the ``cluster``-triangle runs of
+    consecutive ids whose box (the union of theirs) the ray enters, which
+    contain those triangle boxes. It depends on the rays, their hits and
+    the triangles, not on the kernel's hierarchy."""
+    import torch
+    from psdr_jit_tpu_torch.ops.intersect import box_visit, widen_boxes
+
+    f = p0.shape[0]
+    v1, v2 = p0 + e1, p0 + e2
+    lo, hi = widen_boxes(torch.minimum(torch.minimum(p0, v1), v2),
+                         torch.maximum(torch.maximum(p0, v1), v2))
+    nc = -(-f // cluster)
+    pad = nc * cluster - f
+    clo = torch.cat([lo, lo.new_full((pad, 3), float("inf"))]).reshape(
+        nc, cluster, 3).amin(1)
+    chi = torch.cat([hi, hi.new_full((pad, 3), float("-inf"))]).reshape(
+        nc, cluster, 3).amax(1)
+    inv = 1.0 / d
+    k = torch.arange(cluster, device=o.device)
+    total = 0
+    for s in range(0, o.shape[0], chunk):
+        e = s + chunk
+        v = box_visit(clo[None], chi[None], o[s:e, None], inv[s:e, None],
+                      t[s:e, None])
+        if active is not None:
+            v = v & active[s:e, None]
+        r, c = torch.nonzero(v).unbind(1)
+        j = c[:, None] * cluster + k[None]
+        ok = j < f
+        j = torch.clamp(j, max=f - 1)
+        r = r + s
+        total += int((box_visit(lo[j], hi[j], o[r, None], inv[r, None],
+                                t[r, None]) & ok).sum())
+    return total
 
 
 def camera_tests(tab, box, o, d, active=None) -> int:
@@ -381,6 +459,47 @@ def gallery_arrays(width=256, height=256, spp=4, n_spheres=80, subdiv=3,
     return out
 
 
+def tie_case(n_tri: int = 5000, n_pairs: int = 150, seed: int = 41):
+    """``(p0, e1, e2, ray_o, ray_d, low)``, numpy: ``n_tri`` small
+    triangles scattered in [-1, 1]^3 (in Morton order), ``n_pairs`` of
+    them copied to other ids, and a ray from a random origin aimed at each
+    copied triangle, so that rays hit two triangles at exactly the same
+    distance; ``low`` is the lower id of each ray's pair, the hit the
+    unculled sweep keeps."""
+    import numpy as np
+    from psdr_jit_tpu_torch.scene.scene import morton_order
+
+    rng = np.random.default_rng(seed)
+    p0 = rng.uniform(-1, 1, (n_tri, 3)).astype(np.float32)
+    e1, e2 = (rng.uniform(-0.03, 0.03, (n_tri, 3)).astype(np.float32)
+              for _ in range(2))
+    src = rng.choice(n_tri, n_pairs, replace=False)
+    dst = rng.choice(np.setdiff1d(np.arange(n_tri), src), n_pairs,
+                     replace=False)
+    for x in (p0, e1, e2):
+        x[dst] = x[src]
+    target = p0[src] + 0.3 * e1[src] + 0.3 * e2[src]
+    ro = rng.uniform(-2, 2, (n_pairs, 3)).astype(np.float32)
+    rd = target - ro
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    # in the Morton order a scene compile gives its triangles
+    perm = morton_order(p0 + (e1 + e2) / 3.0)
+    rank = np.argsort(perm)
+    return (p0[perm], e1[perm], e2[perm], ro, rd,
+            np.minimum(rank[src], rank[dst]))
+
+
+def swapped_children(tree):
+    """``tree`` with the two children of every node swapped: the same
+    tree, visited in another order."""
+    import dataclasses
+
+    import torch
+
+    return dataclasses.replace(tree, node=torch.cat(
+        [tree.node[:, 8:], tree.node[:, :8]], 1).contiguous())
+
+
 class PlainCalls:
     """Counts calls of the plain versions while active (by wrapping the
     module globals their dispatchers call), so a run can show that it
@@ -530,6 +649,7 @@ def train_kernel_phases(sd, sd_edges, tables, dev, gen, kernels):
     plain_ms = cuda_ms(lambda: torch.autograd.grad(
         ref, leaves, ct, retain_graph=True, allow_unused=True), 3)
     log("K4", lanes=o.shape[0], depth=DEPTH,
+        ptxas=ptxas_report("shade_bwd_kernel"),
         rel_l1=",".join(f"{k}:{v:.3e}" for k, v in rels.items()),
         max_abs_err=f"{max(errs):.3e}", run_to_run_rel=f"{spread:.3e}",
         bitwise_run_to_run=all(torch.equal(a, b)
@@ -863,7 +983,7 @@ def intersect_record(name, source, replaces, calls, plain, tests_of,
     intersection kernel against its plain version on the same inputs and
     time both: ``(record for the kernels' JSON, agreement, needed tests,
     each launch's ms)``. ``tests_of(args, t)`` counts a launch's needed
-    tests, ``table_bytes(args)`` the bytes of its tables."""
+    tests, ``table_bytes(args)`` the bytes of the scene it must read."""
     ms = plain_ms = 0.0
     launch_ms = []
     nbytes = flops = 0
@@ -920,15 +1040,22 @@ def large_scene_phases(kernels, dev, gen) -> dict:
 
     def k6_tests(args, t):
         h, o, d, act = args
-        return needed_tests(h.cbox[:, 0:3], h.cbox[:, 4:7], bvh.BVH_CLUSTER,
-                            o, d, t, act)
+        return triangle_box_tests(h.tri4[:, 0:3], h.tri4[:, 3:6],
+                                  h.tri4[:, 6:9], o, d, t, act)
 
     def k5_bytes(args):
         return 4 * (args[0].numel() + args[1].numel())
 
     def k6_bytes(args):
-        h = args[0]
-        return 4 * (h.tri4.numel() + h.cbox.numel() + h.bbox.numel())
+        return TRI_BYTES * args[0].tri4.shape[0]
+
+    def k6_counted(args):
+        """K6's own (triangle tests, node visits) for a launch's inputs,
+        from its counting build, outside any counted run."""
+        c = torch.zeros((args[1].shape[0], 2), dtype=torch.int32,
+                        device=dev)
+        bvh.bvh_cuda(*args, counts=c)
+        return c.sum(0).tolist()
 
     # ---- [K5]: the 1,292-triangle gallery ----------------------------------
     mid = pt.Scene.from_arrays(gallery_arrays(W, H, SPP, 4, 2), device=dev)
@@ -957,25 +1084,47 @@ def large_scene_phases(kernels, dev, gen) -> dict:
     f6 = sd6.tri.p0.shape[0]
     require(f6 > ix.K5_MAX_TRIS, "K6 scene out of range")
     o, d, act = mixed_rays(sd6, CHECK_RAYS, gen, dev)
-    h = bvh.build_bvh(sd6.tri.p0, sd6.tri.e1, sd6.tri.e2)
+    torch.cuda.synchronize()
+    h, tree_ms = _synced_ms(lambda: sd6.bvh)
     out = bvh.bvh_cuda(h, o, d, act)
     sub = torch.randperm(o.shape[0], generator=gen, device=dev)[:PLAIN_RAYS]
     sub_args = (h, o[sub].contiguous(), d[sub].contiguous(), act[sub])
     stats = {}
     ref, plain_ms = _synced_ms(lambda: k6_plain(*sub_args, stats))
     a = hit_agreement(tuple(x[sub] for x in out), ref)
+    # the tie case: equal distances, lowest id, in two visit orders
+    tp0, te1, te2, tro, trd, low = (torch.from_numpy(x).to(dev)
+                                    for x in tie_case())
+    tie_tree = bvh.build_bvh(tp0, te1, te2)
+    tie_act = torch.ones(tro.shape[0], dtype=torch.bool, device=dev)
+    tie_ref = k6_plain(tie_tree, tro, trd, tie_act)
+    tie_ok = all(hit_agreement(bvh.bvh_cuda(tr, tro, trd, tie_act),
+                               tie_ref)["bitwise"]
+                 for tr in (tie_tree, swapped_children(tie_tree)))
+    tie_hits = int((tie_ref[1] == low.to(torch.int32)).sum())
     k6_ms = cuda_ms(lambda: bvh.bvh_cuda(h, o, d, act), 10)
     k6_sub_ms = cuda_ms(lambda: bvh.bvh_cuda(*sub_args), 10)
     tests = k6_tests((h, o, d, act), out[0])
-    log("K6", rays=o.shape[0], triangles=f6, blocks=h.n_blocks,
-        plain_rays=sub.shape[0], bitwise_equal_to_plain=a["bitwise"],
+    own_tests, visits = k6_counted((h, o, d, act))
+    log("K6", rays=o.shape[0], triangles=f6, leaf=bvh.LEAF, depth=h.depth,
+        ptxas=ptxas_report("bvh_kernel"),
+        tree_build_ms=f"{tree_ms:.2f}", plain_rays=sub.shape[0],
+        bitwise_equal_to_plain=a["bitwise"],
         id_match=f"{a['id_match']:.6f}", mismatches=a["mismatches"],
         mismatches_are_ties=a["ties_ok"], t_max_rel=f"{a['t_max_rel']:.3e}",
+        tie_case_bitwise=tie_ok, tie_rays_on_lowest_id=tie_hits,
         ms=f"{k6_ms:.4f}", ms_plain_rays=f"{k6_sub_ms:.4f}",
         plain_ms=f"{plain_ms:.1f}",
-        tests_per_ray=f"{tests / o.shape[0]:.1f}",
+        tests_per_ray=f"{own_tests / o.shape[0]:.1f}",
+        node_visits_per_ray=f"{visits / o.shape[0]:.1f}",
+        needed_tests_per_ray=f"{tests / o.shape[0]:.1f}",
         plain_tests_per_ray=f"{stats['tri_tests'] / sub.shape[0]:.1f}")
     require_agreement("K6", a)
+    require(a["bitwise"] and tie_ok, "K6: not bitwise equal to its plain "
+            "traversal")
+    require(tie_hits > tro.shape[0] // 2, "K6: the tie case has few ties")
+    require(int(h.tri4.shape[0]) == f6 and h.depth <= bvh.STACK,
+            "K6: the tree does not fit its stack")
 
     # ---- [large-64]: the kernels against the CPU's plain path ----------------
     imgs = {}
@@ -1027,9 +1176,12 @@ def large_scene_phases(kernels, dev, gen) -> dict:
     require(len(calls) == (1 + 2 * LARGE_DEPTH) * chunks,
             "large-frame: K6 launches != 5 a chunk")
     k6, a, tests, k6_launch_ms = intersect_record(
-        "K6 block-culled sweep", k6_src, k6_rep, calls, k6_plain, k6_tests,
+        "K6 tree traversal", k6_src, k6_rep, calls, k6_plain, k6_tests,
         k6_bytes)
     require_agreement("large-frame", a)
+    require(a["bitwise"], "large-frame: K6 not bitwise equal to its plain "
+            "traversal")
+    own = [sum(x) for x in zip(*(k6_counted(c[1]) for c in calls))]
     frame_ms = wall_ms(lambda: integ.renderC(big, 0, seed=SEED), 3)
     torch.cuda.reset_peak_memory_stats(dev)
     integ.renderC(big, 0, seed=SEED)
@@ -1041,6 +1193,7 @@ def large_scene_phases(kernels, dev, gen) -> dict:
     integ.renderC(wide, 0, seed=SEED)
     wide_peak = torch.cuda.max_memory_allocated(dev) / 1e9
     rays = lanes * (1 + 2 * LARGE_DEPTH)
+    n_rays = sum(c[2][0].shape[0] for c in calls)
     log("large-frame", size=f"{W}x{H}", spp=SPP, depth=LARGE_DEPTH,
         K6_launches=len(calls), bitwise_equal_to_plain=a["bitwise"],
         mismatches=a["mismatches"], mismatches_are_ties=a["ties_ok"],
@@ -1048,7 +1201,9 @@ def large_scene_phases(kernels, dev, gen) -> dict:
         K6_launch_ms=",".join(f"{x:.3f}" for x in k6_launch_ms),
         K6_plain_ms=f"{k6['plain_ms']:.1f}",
         K6_bound_ms=f"{k6['bound_ms']:.4f}", K6_bound_by=k6["bound_by"],
-        tests_per_ray=f"{tests / max(sum(c[2][0].shape[0] for c in calls), 1):.1f}",
+        tests_per_ray=f"{own[0] / n_rays:.1f}",
+        node_visits_per_ray=f"{own[1] / n_rays:.1f}",
+        needed_tests_per_ray=f"{tests / n_rays:.1f}",
         ms=f"{frame_ms:.2f}", mrays_per_s=f"{rays / frame_ms / 1e3:.1f}",
         peak_gb=f"{peak_gb:.3f}", mean=f"{img.mean().item():.6f}",
         wide=f"{WIDE[0]}x{WIDE[1]}spp{WIDE[2]}", wide_ms=f"{wide_ms:.2f}",

@@ -15,19 +15,31 @@
 //    192-triangle limit) and read by stashed hit id.
 //  * K4 does not write per-lane row cotangents (840 B a lane at depth 3, 7 GB
 //    at 8.4M lanes). Each thread adds its cotangents into a per-block copy
-//    of the tables in shared memory (shared-memory atomics); at the end each
-//    block adds its nonzero partials into the output tables with one global
-//    atomic per entry. On the TPU the sequential grid carried the sums in
-//    place (`out_refs[...] +=`); Hopper's blocks run in no order, so the
-//    float sums are reordered from run to run and their last bits vary.
-//  * Depth is a template parameter of K4 (0..3), so its per-depth inputs
-//    sit in registers.
+//    of the tables in shared memory; the lanes of a warp that add to the
+//    same entry at the same point of the adjoint are summed with warp
+//    shuffles first and one lane adds the sum (shade.cuh group_add). At the
+//    end each block adds its nonzero partials into the output tables with
+//    one global atomic per entry. On the TPU the sequential grid carried
+//    the sums in place (`out_refs[...] +=`); Hopper's blocks run in no
+//    order, so the float sums are reordered from run to run and their last
+//    bits vary.
+//  * K4 runs a persistent grid: as many blocks as the SMs hold (two of 256
+//    threads an SM, its registers capped at 128), each looping over lanes,
+//    so that each block stages, zeroes and flushes its tables once per
+//    launch, not once per 256 lanes.
+//  * Depth is a template parameter of K4 (0..3), and each depth's inputs
+//    are recomputed before its adjoint rather than kept in an array, so no
+//    array of the lane's state sits in local memory (what is left there is
+//    spill at the 128-register cap).
 //
-// What bounds them on an H100: arithmetic and the atomics. K3 reads 12 B per
-// hit and 28 B per lane and does ~250 f32 operations per depth; K4 recomputes
-// the forward once more per depth and adds up to ~60 cotangents a depth
-// into shared memory, where lanes of a warp that hit the same triangle
-// contend for the same addresses.
+// What bounds them on an H100: arithmetic. K3 reads 12 B per hit and 28 B
+// per lane and does ~250 f32 operations per depth; K4 recomputes the
+// forward and sweeps back through it, adding up to ~60 cotangents a depth.
+// Added lane by lane, those shared-memory atomics took 18 of K4's 21.8 ms a
+// training step: a pixel's 32 samples (one warp) share their camera hit and
+// NEE hits fall on the same light triangles, so the adds serialised on the
+// same addresses, and one block an SM (161 registers) hid none of their
+// latency (PERF.md). The warp sums and the second block answer that.
 #include <cuda_runtime.h>
 
 #include "shade.cuh"
@@ -38,6 +50,8 @@ using psdr::V3;
 namespace sh = psdr::shade;
 
 constexpr int kThreads = 256;
+// K4 caps its registers at 128 a thread so that two blocks fit an SM.
+constexpr int kBwdBlocksPerSm = 2;
 
 __device__ __forceinline__ void stage(const float* __restrict__ table_g,
                                       const float* __restrict__ light_g,
@@ -83,8 +97,11 @@ __global__ void __launch_bounds__(kThreads)
   out[3 * i + 2] = res.z;
 }
 
+// A persistent grid: about as many blocks as the SMs hold, each looping over
+// lanes, so each block stages the tables, zeroes its partials and flushes
+// them once per launch.
 template <int DEPTH>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kBwdBlocksPerSm)
     shade_bwd_kernel(const float* __restrict__ table_g, const float* __restrict__ light_g,
                      const float* __restrict__ misc_g, int n_tab, int n_light,
                      const int* __restrict__ ids, const float* __restrict__ us,
@@ -104,12 +121,13 @@ __global__ void __launch_bounds__(kThreads)
   stage(table_g, light_g, misc_g, n_tab, n_light, s_table, s_light, s_misc);
   for (int k = threadIdx.x; k < n_part; k += blockDim.x) p_all[k] = 0.0f;
   __syncthreads();
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i < n) {
+  const sh::Grads gr{p_all, p_all + n_tab * sh::kRows,
+                     p_all + n_tab * sh::kRows + sh::kLightRows * n_light, n_light};
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
     const sh::Lane ln =
         lane_of(s_light, s_misc, n_light, lanes[i], seed, cnt0, hide_emitters);
-    const sh::Grads gr{p_all, p_all + n_tab * sh::kRows,
-                       p_all + n_tab * sh::kRows + sh::kLightRows * n_light, n_light};
     V3 go, gd;
     sh::lane_backward<DEPTH>(ln, s_table, ids, us, vs, n, i,
                              {ray_o[3 * i], ray_o[3 * i + 1], ray_o[3 * i + 2]},
@@ -187,15 +205,25 @@ extern "C" int psdr_shade_bwd(const float* table, const float* light, const floa
                               long long n, int depth, int cnt0, int hide_emitters,
                               const float* ct, float* d_table, float* d_light,
                               float* d_misc, float* d_o, float* d_d, void* stream) {
-  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
   const size_t smem = 2 * table_bytes(n_tab, n_light);
   const auto* a = static_cast<const unsigned char*>(active);
   const auto* l = static_cast<const uint32_t*>(lanes);
   const auto s = static_cast<cudaStream_t>(stream);
+  int dev = 0, n_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long lane_blocks = (n + kThreads - 1) / kThreads;
 #define PSDR_SHADE_BWD(D)                                                              \
   do {                                                                                 \
     const int err = launch_config(shade_bwd_kernel<D>, smem);                          \
     if (err != 0) return err;                                                          \
+    int per_sm = 0;                                                                    \
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, shade_bwd_kernel<D>,    \
+                                                      kThreads, smem);                 \
+    if (e != cudaSuccess) return static_cast<int>(e);                                  \
+    const long long most = static_cast<long long>(n_sm) * (per_sm > 0 ? per_sm : 1);   \
+    const unsigned blocks = static_cast<unsigned>(lane_blocks < most ? lane_blocks : most); \
     shade_bwd_kernel<D><<<blocks, kThreads, smem, s>>>(                                \
         table, light, misc, n_tab, n_light, ids, us, vs, ray_o, ray_d, a, l, seed, n,  \
         cnt0, hide_emitters, ct, d_table, d_light, d_misc, d_o, d_d);                  \

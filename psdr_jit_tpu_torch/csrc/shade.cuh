@@ -16,10 +16,9 @@
 // :230). Where such a quantity multiplies an attached one, only the
 // attached factor receives a cotangent.
 //
-// Depth is a template parameter (0..3) of the adjoint: the forward keeps
-// each depth's inputs, then the adjoint recomputes one depth's locals at a
-// time (depth_forward) and sweeps back through it (depth_backward), last
-// depth first, then the camera hit.
+// Depth is a template parameter (0..3) of the adjoint: for each depth, last
+// first, it recomputes that depth's inputs and locals (depth_forward) and
+// sweeps back through them (depth_backward), then the camera hit.
 //
 // Tables: `table` (F, 30) row-major with the JAX package's ROW_* columns,
 // `light` (12, L), `misc` (8). A miss reads row 0, as the JAX package's
@@ -45,33 +44,104 @@ PSDR_HD void add_comp(V3& v, int k, float s) {
 }
 PSDR_HD float sgn(float x) { return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f); }
 
-PSDR_HD void atomic_add(float* p, float v) {
 #ifdef __CUDA_ARCH__
-  atomicAdd(p, v);
+// Sums s[] over `grp`, the lanes among the active lanes `act` of this warp
+// that add to the same address, by a pointer jump along each group's lanes
+// (log2 of the largest group's size steps, the same count in every lane of
+// act, as the shuffles need): afterwards the lowest lane of grp holds the
+// group's sums.
+template <int N>
+__device__ __forceinline__ void group_sum(unsigned act, unsigned grp, float (&s)[N]) {
+  const int lane = static_cast<int>(threadIdx.x & 31u);
+  const unsigned above = grp & ~((2u << lane) - 1u);
+  int nxt = above != 0u ? __ffs(above) - 1 : -1;  // the group's next lane
+  const unsigned most = __reduce_max_sync(act, static_cast<unsigned>(__popc(grp)));
+  for (unsigned k = 1; k < most; k <<= 1) {
+    const int src = nxt >= 0 ? nxt : lane;
+#pragma unroll
+    for (int c = 0; c < N; ++c) {
+      const float w = __shfl_sync(act, s[c], src);
+      if (nxt >= 0) s[c] += w;
+    }
+    const int far = __shfl_sync(act, nxt, src);
+    nxt = nxt >= 0 ? far : -1;
+  }
+}
+#endif
+
+// Adds v[c] to p[c * stride]. On the card the active lanes of the warp that
+// add to the same p (a pixel's 32 samples on their camera hit, NEE on one
+// light triangle) are summed first, and each group's lowest lane adds the
+// sums with one atomic an entry. A call where every lane adds zeros adds
+// nothing.
+template <int N>
+PSDR_HD void group_add(float* p, int stride, const float (&v)[N]) {
+#ifdef __CUDA_ARCH__
+  const unsigned act = __activemask();
+  bool nonzero = false;
+#pragma unroll
+  for (int c = 0; c < N; ++c) nonzero = nonzero || v[c] != 0.0f;
+  if (!__any_sync(act, nonzero)) return;
+  // the shared-memory partials lie in one window: the low 32 bits of the
+  // address tell them apart
+  const unsigned grp =
+      __match_any_sync(act, static_cast<unsigned>(reinterpret_cast<uintptr_t>(p)));
+  float s[N];
+#pragma unroll
+  for (int c = 0; c < N; ++c) s[c] = v[c];
+  group_sum<N>(act, grp, s);
+  if (static_cast<int>(threadIdx.x & 31u) != __ffs(grp) - 1) return;
+#pragma unroll
+  for (int c = 0; c < N; ++c) {
+    if (s[c] != 0.0f) atomicAdd(&p[c * stride], s[c]);
+  }
 #else
-  *p += v;
+  for (int c = 0; c < N; ++c) {
+    if (v[c] != 0.0f) p[c * stride] += v[c];
+  }
 #endif
 }
 
-// Where the cotangents of the tables go (block partials in K4).
+// Where the cotangents of the tables go (block partials in K4). Lanes that
+// add into the same table row, light column or misc entry at the same call
+// are summed across the warp first (group_add): the 32 samples of a pixel
+// share their camera hit, and NEE hits fall on the same light triangles,
+// so lane-by-lane shared-memory atomics on those addresses serialised.
 struct Grads {
   float* table;
   float* light;
   float* misc;
   int n_light;
+  // columns col .. col + N - 1 of a table row
+  template <int N>
+  PSDR_HD void tab_n(int row, int col, const float (&v)[N]) const {
+    group_add<N>(&table[row * kRows + col], 1, v);
+  }
   PSDR_HD void tab(int row, int col, float v) const {
-    if (v != 0.0f) atomic_add(&table[row * kRows + col], v);
+    const float a[1] = {v};
+    tab_n<1>(row, col, a);
   }
   PSDR_HD void tab3(int row, int col, V3 v) const {
-    tab(row, col, v.x);
-    tab(row, col + 1, v.y);
-    tab(row, col + 2, v.z);
+    const float a[3] = {v.x, v.y, v.z};
+    tab_n<3>(row, col, a);
+  }
+  // three consecutive 3-vectors from column col (p0, e1, e2 or n0, n1, n2)
+  PSDR_HD void tab9(int row, int col, V3 a, V3 b, V3 c) const {
+    const float v[9] = {a.x, a.y, a.z, b.x, b.y, b.z, c.x, c.y, c.z};
+    tab_n<9>(row, col, v);
   }
   PSDR_HD void lig(int r, int j, float v) const {
-    if (v != 0.0f) atomic_add(&light[r * n_light + j], v);
+    const float a[1] = {v};
+    group_add<1>(&light[r * n_light + j], 1, a);
+  }
+  // light rows r .. r + 8 of column j (the sampled point's p0, e1, e2)
+  PSDR_HD void lig9(int r, int j, V3 a, V3 b, V3 c) const {
+    const float v[9] = {a.x, a.y, a.z, b.x, b.y, b.z, c.x, c.y, c.z};
+    group_add<9>(&light[r * n_light + j], n_light, v);
   }
   PSDR_HD void mis(int k, float v) const {
-    if (v != 0.0f) atomic_add(&misc[k], v);
+    const float a[1] = {v};
+    group_add<1>(&misc[k], 1, a);
   }
 };
 
@@ -124,9 +194,7 @@ PSDR_HD void shading_normal_bwd(const Hit& h, float u, float v, V3 g, const Grad
   if (n2 >= kTiny) d_n2 = dot3(g, n) * (-0.5f * inv * inv * inv);
   const V3 dn = add3(scale3(g, inv), scale3(n, 2.0f * d_n2));
   const float w0 = 1.0f - u - v;
-  gr.tab3(h.row, kN0, scale3(dn, w0));
-  gr.tab3(h.row, kN1, scale3(dn, u));
-  gr.tab3(h.row, kN2, scale3(dn, v));
+  gr.tab9(h.row, kN0, scale3(dn, w0), scale3(dn, u), scale3(dn, v));
   if (du != nullptr) {
     const V3 n0 = row3(h.r, kN0);
     *du += dot3(dn, sub3(row3(h.r, kN1), n0));
@@ -405,9 +473,7 @@ PSDR_HD DepthGrad depth_backward(const Lane& ln, const DepthIn& in, const DepthF
   d_dv2 = add3(d_dv2, scale3(s.dv2, 2.0f * d_t2sq));
   const V3 d_p2 = add3(out.p, d_dv2);
   g.p = sub3(g.p, d_dv2);
-  gr.tab3(f2.row, kP0, d_p2);
-  gr.tab3(f2.row, kE1, scale3(d_p2, f2.u));
-  gr.tab3(f2.row, kE2, scale3(d_p2, f2.v));
+  gr.tab9(f2.row, kP0, d_p2, scale3(d_p2, f2.u), scale3(d_p2, f2.v));
   // ---- NEE, in reverse ----
   float d_bs = 0.0f;
   if (s.ok_nee) {
@@ -455,11 +521,7 @@ PSDR_HD DepthGrad depth_backward(const Lane& ln, const DepthIn& in, const DepthF
   d_w = add3(d_w, scale3(s.w, 2.0f * d_ds));
   g.p = sub3(g.p, d_w);
   // pl = p0l + e1l * b0 + e2l * b1
-  for (int k = 0; k < 3; ++k) {
-    gr.lig(2 + k, j, comp(d_w, k));
-    gr.lig(5 + k, j, comp(d_w, k) * s.b0);
-    gr.lig(8 + k, j, comp(d_w, k) * s.b1);
-  }
+  gr.lig9(2, j, d_w, scale3(d_w, s.b0), scale3(d_w, s.b1));
   const float d_b0 = dot3(d_w, s.e1l);
   const float d_b1 = dot3(d_w, s.e2l);
   const float d_tq = d_b1 * s.un.y - d_b0;
@@ -501,21 +563,25 @@ PSDR_HD void lane_backward(const Lane& ln, const float* table, const int* ids, c
                            V3 ct, const Grads& gr, V3* d_o, V3* d_d) {
   const Camera c = camera_forward(load_hit(table, ids[i], us[i], vs[i]), o, d, act,
                                   ln.hide_emitters);
-  DepthIn ins[DEPTH + 1];
-  ins[0] = {c.p, c.sh_n, row3(c.f0.r, kAlb), {1.0f, 1.0f, 1.0f}, c.wi_z, c.active,
-            c.f0.valid, c.f0.isem()};
-  for (int k = 0; k < DEPTH; ++k) {
-    const long long a = (1 + 2 * k) * n + i, b = (2 + 2 * k) * n + i;
-    ins[k + 1] = depth_forward(ln, ins[k], k, load_hit(table, ids[a], us[a], vs[a]),
-                               load_hit(table, ids[b], us[b], vs[b]))
-                     .next;
-  }
+  const DepthIn in0{c.p, c.sh_n, row3(c.f0.r, kAlb), {1.0f, 1.0f, 1.0f}, c.wi_z, c.active,
+                    c.f0.valid, c.f0.isem()};
+  // Depth k's inputs are recomputed from the camera hit before its adjoint
+  // (k forwards) rather than kept for every depth: D (D + 1) / 2 forwards,
+  // as many as keeping them and recomputing each depth's locals, with no
+  // per-depth array in local memory.
   DepthGrad g{{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
   for (int k = DEPTH - 1; k >= 0; --k) {
+    DepthIn in = in0;
+    for (int m = 0; m < k; ++m) {
+      const long long a = (1 + 2 * m) * n + i, b = (2 + 2 * m) * n + i;
+      in = depth_forward(ln, in, m, load_hit(table, ids[a], us[a], vs[a]),
+                         load_hit(table, ids[b], us[b], vs[b]))
+               .next;
+    }
     const long long a = (1 + 2 * k) * n + i, b = (2 + 2 * k) * n + i;
-    const DepthFwd s = depth_forward(ln, ins[k], k, load_hit(table, ids[a], us[a], vs[a]),
+    const DepthFwd s = depth_forward(ln, in, k, load_hit(table, ids[a], us[a], vs[a]),
                                      load_hit(table, ids[b], us[b], vs[b]));
-    g = depth_backward(ln, ins[k], s, ct, g, gr);
+    g = depth_backward(ln, in, s, ct, g, gr);
   }
   // ---- camera hit, in reverse ----
   const Hit& f0 = c.f0;
@@ -544,9 +610,7 @@ PSDR_HD void lane_backward(const Lane& ln, const float* table, const int* ids, c
   d_h = add3(d_h, scale3(e1, d_a));
   gd = add3(gd, cross3(e2, d_h));
   d_e2 = add3(d_e2, cross3(d_h, d));
-  gr.tab3(f0.row, kP0, scale3(d_s, -1.0f));
-  gr.tab3(f0.row, kE1, d_e1);
-  gr.tab3(f0.row, kE2, d_e2);
+  gr.tab9(f0.row, kP0, scale3(d_s, -1.0f), d_e1, d_e2);
   *d_o = go;
   *d_d = gd;
 }

@@ -13,7 +13,9 @@
 // Hit test (reference utils.h:83-93): Moller-Trumbore with |a| > 1e-12,
 // u >= 0, v >= 0, u + v <= 1, t > RAY_EPSILON and t < best. Triangles are
 // visited in ascending id and a hit must be strictly closer, so ties go to
-// the lowest id, as in the plain version's argmin.
+// the lowest id, as in the plain version's argmin. K6, whose tree visits
+// triangles in no fixed order, keeps the same hit with its own variants
+// (hit_test_any_order, box_enter).
 //
 // Rounding. The cross and dot products are fused multiply-adds placed
 // where the JAX package's CPU backend contracts the same expressions
@@ -97,14 +99,15 @@ __device__ __forceinline__ bool box_visit(float lox, float loy, float loz,
   return undecided || (tnear <= tfar && tfar > 0.0f && tnear < best);
 }
 
-// THE hit test of one triangle (p0, e1, e2): replaces h when it is hit
-// strictly closer than h.t.
-__device__ __forceinline__ void hit_test(Hit& h, int id, float p0x, float p0y,
-                                         float p0z, float e1x, float e1y,
-                                         float e1z, float e2x, float e2y,
-                                         float e2z, float ox, float oy,
-                                         float oz, float dx, float dy,
-                                         float dz) {
+// Moller-Trumbore of one triangle (p0, e1, e2): true when the ray hits it
+// at t > RAY_EPSILON, with (t, u, v) written out.
+__device__ __forceinline__ bool triangle_hit(float p0x, float p0y, float p0z,
+                                             float e1x, float e1y, float e1z,
+                                             float e2x, float e2y, float e2z,
+                                             float ox, float oy, float oz,
+                                             float dx, float dy, float dz,
+                                             float* t_out, float* u_out,
+                                             float* v_out) {
   const float hx = fmaf(dy, e2z, -(dz * e2y));
   const float hy = fmaf(dz, e2x, -(dx * e2z));
   const float hz = fmaf(dx, e2y, -(dy * e2x));
@@ -117,13 +120,74 @@ __device__ __forceinline__ void hit_test(Hit& h, int id, float p0x, float p0y,
   const float qz = fmaf(sx, e1y, -(sy * e1x));
   const float v = f * fmaf(dz, qz, fmaf(dx, qx, dy * qy));
   const float t = f * fmaf(e2z, qz, fmaf(e2x, qx, e2y * qy));
-  if (fabsf(a) > 1e-12f && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
-      t > kRayEpsilon && t < h.t) {
+  *t_out = t;
+  *u_out = u;
+  *v_out = v;
+  return fabsf(a) > 1e-12f && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
+         t > kRayEpsilon;
+}
+
+// THE hit test of one triangle (p0, e1, e2): replaces h when it is hit
+// strictly closer than h.t.
+__device__ __forceinline__ void hit_test(Hit& h, int id, float p0x, float p0y,
+                                         float p0z, float e1x, float e1y,
+                                         float e1z, float e2x, float e2y,
+                                         float e2z, float ox, float oy,
+                                         float oz, float dx, float dy,
+                                         float dz) {
+  float t, u, v;
+  if (triangle_hit(p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z, ox, oy, oz, dx,
+                   dy, dz, &t, &u, &v) &&
+      t < h.t) {
     h.t = t;
     h.id = id;
     h.u = u;
     h.v = v;
   }
+}
+
+// K6's hit test, for a traversal that visits triangles in no fixed order:
+// the hit replaces h when its (t, id) is lexicographically smaller. The
+// ascending sweep with a strict t < best keeps the lowest id of equal
+// distances; this rule picks the same hit whatever the order.
+__device__ __forceinline__ void hit_test_any_order(
+    Hit& h, int id, float p0x, float p0y, float p0z, float e1x, float e1y,
+    float e1z, float e2x, float e2y, float e2z, float ox, float oy, float oz,
+    float dx, float dy, float dz) {
+  float t, u, v;
+  if (triangle_hit(p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z, ox, oy, oz, dx,
+                   dy, dz, &t, &u, &v) &&
+      (t < h.t || (t == h.t && id < h.id))) {
+    h.t = t;
+    h.id = id;
+    h.u = u;
+    h.v = v;
+  }
+}
+
+// K6's slab test: box_visit with tnear <= best, so that a box holding a
+// hit at exactly `best` with a lower id is still entered, and with tnear
+// reported through *tnear_out (-inf where the test is undecided) for the
+// nearer-first order and for culling a stacked box against a later best.
+__device__ __forceinline__ bool box_enter(float lox, float loy, float loz,
+                                          float hix, float hiy, float hiz,
+                                          float ox, float oy, float oz,
+                                          float ix, float iy, float iz,
+                                          float best, float* tnear_out) {
+  const float tx0 = (lox - ox) * ix;
+  const float tx1 = (hix - ox) * ix;
+  const float ty0 = (loy - oy) * iy;
+  const float ty1 = (hiy - oy) * iy;
+  const float tz0 = (loz - oz) * iz;
+  const float tz1 = (hiz - oz) * iz;
+  const bool undecided = isnan(tx0) || isnan(tx1) || isnan(ty0) ||
+                         isnan(ty1) || isnan(tz0) || isnan(tz1);
+  const float tnear =
+      fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1));
+  const float tfar =
+      fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
+  *tnear_out = undecided ? __int_as_float(0xff800000) : tnear;  // -inf
+  return undecided || (tnear <= tfar && tfar > 0.0f && tnear <= best);
 }
 
 // Sweep a (9, stride) triangle table and its (6, stride / 16) box table,

@@ -19,7 +19,7 @@ kernel wants a fused multiply-add it writes ``fmaf`` explicitly.
 ``LAUNCHES`` counts the launches of each kernel (``K1``: closest hit;
 ``K2``, ``K2-pair``, ``K2-stash``: the detached Li in its three modes;
 ``K3``: the attached shade; ``K4``: its adjoint; ``K5``: the streamed
-super-block sweep; ``K6``: the block-culled sweep); each wrapper adds one
+super-block sweep; ``K6``: the tree traversal); each wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that it
 went through the kernels.
 """
@@ -64,15 +64,16 @@ def _nvcc() -> str:
         "from psdr_jit_tpu_torch/csrc with the CUDA toolkit at first use")
 
 
-def build() -> Path:
-    """Compile the kernels (once per source hash); returns the library
-    path. Each ``.cu`` is compiled by its own ``nvcc``, all at once, then
-    linked. ``ptxas.txt`` beside the library holds ptxas's register and
-    spill report."""
+def build(csrc: Path = CSRC) -> Path:
+    """Compile the kernels of ``csrc`` (the package's sources unless a
+    measurement gives an edited copy) once per source hash; returns the
+    library path. Each ``.cu`` is compiled by its own ``nvcc``, all at
+    once, then linked. ``ptxas.txt`` beside the library holds ptxas's
+    register and spill report."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES:
         h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+        h.update((csrc / name).read_bytes())
     out_dir = BUILD_ROOT / h.hexdigest()[:16]
     lib = out_dir / LIB_NAME
     if lib.exists():
@@ -84,7 +85,7 @@ def build() -> Path:
     for name in SOURCES:
         if name.endswith(".cu"):
             obj = out_dir / f"{name}.{tag}.o"
-            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / name)]
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(csrc / name)]
             jobs.append((obj, cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
@@ -116,9 +117,9 @@ _LL = ctypes.c_longlong
 
 
 @functools.cache
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
-    lib = ctypes.CDLL(str(build()))
+def library(csrc: Path = CSRC) -> ctypes.CDLL:
+    """The loaded kernel library of ``csrc``, built on first call."""
+    lib = ctypes.CDLL(str(build(csrc)))
     lib.psdr_intersect.argtypes = [_P, _P, _I, _P, _P, _LL, _P, _P, _P, _P]
     lib.psdr_intersect.restype = _I
     lib.psdr_li_mega.argtypes = [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
@@ -134,7 +135,7 @@ def library() -> ctypes.CDLL:
     lib.psdr_intersect_super.argtypes = [_P, _P, _I, _P, _P, _P, _LL, _P,
                                          _P, _P, _P]
     lib.psdr_intersect_super.restype = _I
-    lib.psdr_bvh.argtypes = [_P, _P, _P, _I, _P, _P, _P, _LL, _P, _P, _P, _P]
+    lib.psdr_bvh.argtypes = [_P, _P, _P, _P, _P, _P, _LL, _P, _P, _P, _P, _P]
     lib.psdr_bvh.restype = _I
     lib.psdr_error_string.argtypes = [_I]
     lib.psdr_error_string.restype = ctypes.c_char_p

@@ -13,8 +13,9 @@ count F, with the JAX package's thresholds:
   shared memory;
 * 512 < F <= 4096: kernel K5 (``csrc/intersect_super.cu``), the table
   streamed through shared memory in 512-triangle super-blocks;
-* F > 4096: kernel K6 (``csrc/bvh.cu``, ``ops/bvh.py``), a fixed two-level
-  hierarchy of 512-triangle blocks and 64-triangle clusters.
+* F > 4096: kernel K6 (``csrc/bvh.cu``, ``ops/bvh.py``), a per-ray
+  traversal of a binary tree over the triangles, built once per scene
+  compile (``SceneData.bvh``) or, for bare triangles, per call.
 
 On CPU tensors each route runs its plain PyTorch version: the unculled
 sweep :func:`sweep_plain` (through :func:`ray_intersect_brute`) for K1 and
@@ -23,10 +24,11 @@ its kernel or raises. Non-finite and inactive rays report a miss.
 
 Every version runs THE hit test of ``csrc/sweep.cuh`` (Moller-Trumbore
 with ``|a| > 1e-12, u >= 0, v >= 0, u + v <= 1, RAY_EPSILON < t < best``)
-and visits triangles in ascending id with a strict ``t < best``, and every
-culling box is widened (:func:`widen_boxes`) so that culling changes no
-hit: the kernels equal their plain versions, and the plain versions equal
-one another, bit for bit.
+and keeps the lowest id of equal distances (the sweeps visit triangles in
+ascending id with a strict ``t < best``, K6 compares ``(t, id)``), and
+every culling box is widened (:func:`widen_boxes`) so that culling changes
+no hit: the kernels equal their plain versions, and the plain versions
+equal one another, bit for bit.
 """
 
 from __future__ import annotations
@@ -95,25 +97,26 @@ def widen_boxes(lo, hi):
     return lo - m, hi + m
 
 
-def box_visit(lo, hi, o, inv, best):
+def box_visit(lo, hi, o, inv, best, inclusive: bool = False):
     """THE slab test of ``csrc/sweep.cuh`` ``box_visit``, broadcast: may a
     hit closer than ``best`` lie in the box ``[lo, hi]`` (..., 3)? A NaN
-    (origin on a slab plane of an axis-aligned ray) means "visit"."""
+    (origin on a slab plane of an axis-aligned ray) means "visit".
+    ``inclusive`` takes ``tnear <= best`` instead of ``<``, as K6's
+    ``box_enter`` does: a hit at exactly ``best`` with a lower id must
+    still be reached."""
     t0 = (lo - o) * inv
     t1 = (hi - o) * inv
     undecided = torch.isnan(t0).any(-1) | torch.isnan(t1).any(-1)
     tnear = torch.minimum(t0, t1).amax(-1)
     tfar = torch.maximum(t0, t1).amin(-1)
-    return undecided | ((tnear <= tfar) & (tfar > 0.0) & (tnear < best))
+    near = (tnear <= best) if inclusive else (tnear < best)
+    return undecided | ((tnear <= tfar) & (tfar > 0.0) & near)
 
 
-def _sweep_block(tri, ox, oy, oz, dx, dy, dz, mask=None):
-    """Closest hit of rays (component vectors) against the triangles of a
-    ``(9, k)`` table: ``(t, local id, u, v)``, the lowest id of equal
-    distances. ``mask`` (n, k), if given, keeps only those tests."""
-    rows = [tri[k][None, :] for k in range(9)]
-    p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z = rows
-    ox, oy, oz, dx, dy, dz = (c[:, None] for c in (ox, oy, oz, dx, dy, dz))
+def hit_test(p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z, ox, oy, oz, dx,
+             dy, dz):
+    """THE hit test of ``csrc/sweep.cuh``, elementwise under broadcasting:
+    ``(t, u, v)`` with ``t = INF`` where the ray misses the triangle."""
     hx = _fma(dy, e2z, -(dz * e2y))
     hy = _fma(dz, e2x, -(dx * e2z))
     hz = _fma(dx, e2y, -(dy * e2x))
@@ -130,9 +133,15 @@ def _sweep_block(tri, ox, oy, oz, dx, dy, dz, mask=None):
     t = f * _fma(e2z, qz, _fma(e2x, qx, e2y * qy))
     hit = ((a.abs() > 1e-12) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
            & (t > RAY_EPSILON) & (t < INF))
-    if mask is not None:
-        hit = hit & mask
-    t = torch.where(hit, t, INF)
+    return torch.where(hit, t, INF), u, v
+
+
+def _sweep_block(tri, ox, oy, oz, dx, dy, dz):
+    """Closest hit of rays (component vectors) against the triangles of a
+    ``(9, k)`` table: ``(t, local id, u, v)``, the lowest id of equal
+    distances."""
+    t, u, v = hit_test(*(tri[k][None, :] for k in range(9)),
+                       *(c[:, None] for c in (ox, oy, oz, dx, dy, dz)))
     j = torch.argmin(t, dim=1, keepdim=True)  # first (lowest-id) minimum
     bt = t.gather(1, j)[:, 0]
     return bt, j[:, 0].to(torch.int32), u.gather(1, j)[:, 0], v.gather(1, j)[:, 0]
@@ -262,11 +271,13 @@ def intersect_super_cuda(tri, box, ray_o, ray_d, active):
     return t, ids, uv
 
 
-def ray_intersect_detached(p0, e1, e2, ray, active=None):
+def ray_intersect_detached(p0, e1, e2, ray, active=None, tree=None):
     """Closest hit of ``ray`` (``(..., 3)`` o/d) against (F, 3) triangles,
     routed on F (module docstring): the kernels for CUDA tensors, their
     plain versions for CPU tensors. Non-finite and inactive rays report a
-    miss (``tri_id = -1``, ``valid = False``).
+    miss (``tri_id = -1``, ``valid = False``). ``tree``, K6's
+    ``bvh.build_bvh`` of these triangles, is built here when F > 4096 and
+    none is given.
     Returns ``(tri_id, valid, uv (..., 2), t)``."""
     from . import bvh
 
@@ -282,13 +293,15 @@ def ray_intersect_detached(p0, e1, e2, ray, active=None):
     d = torch.where(finite[:, None], d.reshape(-1, 3), unit_z)
     p0, e1, e2 = p0.detach(), e1.detach(), e2.detach()
     f = p0.shape[0]
+    if f > K5_MAX_TRIS and tree is None:
+        tree = bvh.build_bvh(p0, e1, e2)
     if o.device.type == "cpu":
         if f <= K5_MAX_TRIS:
             tri_id, valid, uv, t = ray_intersect_brute(p0, e1, e2, o, d,
                                                        finite)
         else:
-            tri_id, valid, uv, t = bvh.ray_intersect_bvh_plain(
-                bvh.build_bvh(p0, e1, e2), o, d, finite)
+            tri_id, valid, uv, t = bvh.ray_intersect_bvh_plain(tree, o, d,
+                                                               finite)
     else:
         o, d = o.contiguous(), d.contiguous()
         if f <= K1_MAX_TRIS:
@@ -298,8 +311,7 @@ def ray_intersect_detached(p0, e1, e2, ray, active=None):
             tri, box = pack_triangles(p0, e1, e2, SUPER)
             t, tri_id, uv = intersect_super_cuda(tri, box, o, d, finite)
         else:
-            t, tri_id, uv = bvh.bvh_cuda(bvh.build_bvh(p0, e1, e2), o, d,
-                                         finite)
+            t, tri_id, uv = bvh.bvh_cuda(tree, o, d, finite)
         valid = tri_id >= 0
     valid = valid & finite
     tri_id = torch.where(valid, tri_id, -1)

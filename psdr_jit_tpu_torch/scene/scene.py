@@ -18,7 +18,8 @@ tables flow back to them.
 Above 256 faces the global triangle stream is permuted into the Morton
 order of the faces' world centroids (:func:`morton_order`), the JAX
 package's permutation bit for bit, so that triangle ids compare one to one
-and the intersection kernels' clusters and blocks are spatially tight.
+and the intersection kernels' clusters and tree leaves are spatially
+tight.
 
 :class:`SceneData` also holds the shading interface of the general path
 tracer (``integrator/path.py``): the path-formulation intersection, the
@@ -46,7 +47,8 @@ from ..shape.mesh import Mesh, TriangleInfo, cpu_f32
 from ..bsdf.bsdf import (BSDF, eval_dispatch, material_table, pdf_dispatch,
                          sample_dispatch)
 from ..emitter.area import AreaLight, AreaLightData, area_light_weight
-from ..ops.intersect import ray_intersect_detached
+from ..ops import intersect
+from ..ops.bvh import build_bvh
 
 # Scenes above this many faces get the Morton triangle order (the JAX
 # package's threshold, scene.py _compute_tri_perm).
@@ -126,8 +128,9 @@ class SceneData:
         Without texture coordinates the shading frame is
         ``Frame.from_normal`` of the shading normal."""
         tri = self.tri
-        tri_id, valid, uv, _ = ray_intersect_detached(
-            tri.p0, tri.e1, tri.e2, ray, active)
+        tree = self.bvh if tri.p0.shape[0] > intersect.K5_MAX_TRIS else None
+        tri_id, valid, uv, _ = intersect.ray_intersect_detached(
+            tri.p0, tri.e1, tri.e2, ray, active, tree)
         idx = torch.clamp(tri_id, min=0).long()
         p = bilinear(tri.p0[idx], tri.e1[idx], tri.e2[idx], uv)
         dirv = p - ray.o
@@ -161,6 +164,14 @@ class SceneData:
             m = active & (slot == i)
             result = torch.where(m[..., None], em.eval(its, m), result)
         return result
+
+    @functools.cached_property
+    def bvh(self):
+        """K6's tree over the triangles (``ops/bvh.py build_bvh``), built on
+        the scene's device at first use from the detached geometry; a new
+        scene compile makes a new SceneData, and with it a new tree."""
+        tri = self.tri
+        return build_bvh(tri.p0.detach(), tri.e1.detach(), tri.e2.detach())
 
     @functools.cached_property
     def materials(self):

@@ -24,7 +24,8 @@ step slower than an unsplit one.
 --large: renderC of the 102,412-triangle gallery (``chip_smoke``
 ``gallery_arrays``, 256x256, spp 4, ``PathTracer(2)``, the general Li
 through K6): the frame's host time over 10 runs, the device's busy time
-per frame with the kernels by device time and K6's share of it; the
+per frame with the kernels by device time and K6's share of it; K6 a
+frame with leaves of 2, 4, 6 and 8 triangles; the
 frame at 512x512 spp 8 at each general-path chunk size (2^18..2^21
 lanes) with its peak device memory; and, on the 1,292-triangle gallery,
 K5 against K6 on the same 262,144 rays and in the whole frame.
@@ -182,8 +183,8 @@ def train(dev) -> int:
 
 
 def large(dev) -> int:
-    from chip_smoke import (CHECK_RAYS, LARGE, LARGE_DEPTH, WIDE, cuda_ms,
-                            gallery_arrays, mixed_rays)
+    from chip_smoke import (CHECK_RAYS, LARGE, LARGE_DEPTH, WIDE, KernelCalls,
+                            cuda_ms, gallery_arrays, mixed_rays)
     from psdr_jit_tpu_torch.integrator import base
     from psdr_jit_tpu_torch.ops import bvh
     from psdr_jit_tpu_torch.ops import intersect as ix
@@ -213,10 +214,28 @@ def large(dev) -> int:
     n_kernels = len(kernels) / frames
     print(f"device busy per frame (profiler): {busy:.3f} ms, idle share "
           f"{1 - busy / med:.3f} of the median; K6 {k6:.3f} ms, the rest "
-          f"(PyTorch kernels of the general Li, lane set-up, block tables) "
+          f"(PyTorch kernels of the general Li and the lane set-up) "
           f"{busy - k6:.3f} ms in {n_kernels - 5:.0f} launches")
     print(prof.key_averages().table(sort_by="self_device_time_total",
                                     row_limit=15, max_name_column_width=60))
+
+    # K6 at other leaf sizes: each launch of one frame, re-run on a tree
+    # of that leaf size (the same hits)
+    with KernelCalls({"K6": (bvh, "bvh_cuda")}) as rec:
+        frame()
+        torch.cuda.synchronize()
+    for leaf in (2, 4, 6, 8):
+        tree = bvh.build_bvh(sd.tri.p0, sd.tri.e1, sd.tri.e2, leaf)
+        ms = tests = rays = 0
+        for _, (_, o, d, act), _ in rec.calls["K6"]:
+            ms += cuda_ms(lambda: bvh.bvh_cuda(tree, o, d, act), 10)
+            counts = torch.zeros((o.shape[0], 2), dtype=torch.int32,
+                                 device=dev)
+            bvh.bvh_cuda(tree, o, d, act, counts)
+            tests += int(counts[:, 0].sum())
+            rays += o.shape[0]
+        print(f"K6 with leaves of {leaf}: {ms:.4f} ms a frame, tree depth "
+              f"{tree.depth}, {tests / rays:.1f} tests a ray")
 
     wide = pt.Scene.from_arrays(gallery_arrays(*WIDE), device=dev)
     wide.configure()
@@ -247,16 +266,28 @@ def large(dev) -> int:
                                                                    act)))
     print(f"{tri.p0.shape[0]} triangles, {o.shape[0]} mixed rays: K5 "
           f"{k5_ms:.4f} ms, K6 {k6_ms:.4f} ms, equal hits {same}")
+    def device_ms(name, owner, wrapper):
+        """The kernel's device ms summed over one frame's launches, each
+        timed alone on its recorded inputs."""
+        with KernelCalls({name: (owner, wrapper)}) as rec:
+            integ.renderC(mid, 0, seed=0)
+            torch.cuda.synchronize()
+        return sum(cuda_ms(lambda: fn(*args), 10)
+                   for fn, args, _ in rec.calls[name])
+
     k5_frame = host_ms(lambda: integ.renderC(mid, 0, seed=0), 5)[0]
+    k5_dev = device_ms("K5", ix, "intersect_super_cuda")
     limit = ix.K5_MAX_TRIS
     ix.K5_MAX_TRIS = ix.K1_MAX_TRIS  # route the same scene to K6
     try:
         k6_frame = host_ms(lambda: integ.renderC(mid, 0, seed=0), 5)[0]
+        k6_dev = device_ms("K6", bvh, "bvh_cuda")
     finally:
         ix.K5_MAX_TRIS = limit
     print(f"renderC of it at {LARGE[0]}x{LARGE[1]} spp {LARGE[2]}: through "
           f"K5 {k5_frame:.3f} ms, through K6 {k6_frame:.3f} ms (host "
-          f"medians)")
+          f"medians); the kernel alone a frame: K5 {k5_dev:.4f} ms, K6 "
+          f"{k6_dev:.4f} ms")
     return 0
 
 

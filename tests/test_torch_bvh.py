@@ -1,7 +1,8 @@
 """The large-scene intersection of psdr_jit_tpu_torch on the CPU: the plain
 versions of K5 (the unculled sweep, scanned in 512-triangle blocks) and of
-K6 (the block- and cluster-culled sweep of ``ops/bvh.py``), their tables,
-and the routing of ``ray_intersect_detached``.
+K6 (the traversal of ``ops/bvh.py``'s binary tree, a frontier of (ray,
+node) pairs expanded level by level), the tree, and the routing of
+``ray_intersect_detached``.
 
 Both plain versions are held against the JAX package's kernels run by the
 Pallas interpreter, as ``tests/test_bvh.py`` runs them
@@ -10,8 +11,9 @@ and ``ray_intersect_bvh`` on 5,000): ids are equal except where two hits
 tie within f32 rounding (the JAX kernels keep the later of equal hits in
 their visit order, the port the lowest id), and t agrees to 1e-5
 relative. Against the port's own unculled sweep they are equal bit for
-bit, which shows that their culling changes no hit. The cross-block and
-dead-lane cases mirror ``tests/test_bvh.py``.
+bit, which shows that their culling changes no hit, and K6's tie rule
+keeps the lowest id of equal distances in any visit order. The
+cross-block and dead-lane cases mirror ``tests/test_bvh.py``.
 
 The kernels themselves are held against these plain versions on the card
 (``tests/test_torch_kernels.py``, ``chip_smoke.py``).
@@ -24,6 +26,7 @@ import torch
 import jax.numpy as jnp
 
 import psdr_jit_tpu_torch as pt
+from chip_smoke import swapped_children, tie_case
 from psdr_jit_tpu.ops.bvh import ray_intersect_bvh
 from psdr_jit_tpu.ops.intersect_pallas import ray_intersect_pallas
 from psdr_jit_tpu_torch.ops import bvh
@@ -43,6 +46,16 @@ def _port(p0, e1, e2, ro, rd, active=None):
     return ix.ray_intersect_detached(
         _t(p0), _t(e1), _t(e2), pt.Ray(_t(ro), _t(rd)),
         None if active is None else torch.from_numpy(active))
+
+
+def _axis_rays(n, seed):
+    """Rays along the coordinate axes from random origins: slab tests with
+    infinite reciprocals."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-2, 2, (n, 3))
+    d = np.zeros((n, 3))
+    d[np.arange(n), rng.integers(0, 3, n)] = rng.choice([-1.0, 1.0], n)
+    return o.astype(np.float32), d.astype(np.float32)
 
 
 def _on_plane_rays(p0, e1, e2, n, seed):
@@ -83,14 +96,17 @@ def test_plain_matches_jax_kernel(route):
 
 
 @pytest.mark.parametrize("route", ["K5", "K6"])
-@pytest.mark.parametrize("rays", ["random", "on_plane"])
+@pytest.mark.parametrize("rays", ["random", "on_plane", "axis"])
 def test_plain_equals_unculled_sweep(route, rays):
     """Culling changes no hit: the route's plain version equals the
-    unculled sweep bit for bit, including rays whose slab tests are NaN."""
+    unculled sweep bit for bit, including rays whose slab tests are NaN
+    (on a box plane) or meet infinite reciprocals (along an axis)."""
     p0, e1, e2, ro, rd = _random_scene(n_tri=ROUTES[route], n_ray=1500,
                                        seed=31)
     if rays == "on_plane":
         ro, rd = _on_plane_rays(p0, e1, e2, 1500, 32)
+    elif rays == "axis":
+        ro, rd = _axis_rays(1500, 35)
     out = _port(p0, e1, e2, ro, rd)
     tri, _ = ix.pack_triangles(_t(p0), _t(e1), _t(e2))
     t, ids, u, v = ix.sweep_plain(tri, _t(ro).unbind(-1), _t(rd).unbind(-1))
@@ -102,6 +118,7 @@ def test_plain_equals_unculled_sweep(route, rays):
         again = bvh.ray_intersect_bvh_plain(h, _t(ro), _t(rd), stats=stats)
         assert all(torch.equal(a, b) for a, b in zip(again, out))
         assert 0 < stats["tri_tests"] < ro.shape[0] * h.tri.shape[1]
+        assert stats["node_visits"] > 0
 
 
 def test_blocked_sweep_equals_one_block(monkeypatch):
@@ -156,26 +173,60 @@ def test_dead_lanes(route):
     assert part[1][keep].any()
 
 
-def test_bvh_tables():
-    """Blocks of 512 triangles in eight clusters of 64; every triangle lies
-    inside its cluster's widened box, every cluster box inside its block's;
-    padding triangles are degenerate."""
-    p0, e1, e2, _, _ = _random_scene(n_tri=1300, n_ray=1, seed=34)
+@pytest.mark.parametrize("n_tri", [3, 1300])
+def test_bvh_tables(n_tri):
+    """The tree: each triangle in exactly one leaf of at most LEAF
+    consecutive ids, every stored box containing its children's boxes and
+    equal to the union of its triangles' widened boxes, the depth that of
+    a midpoint split, and the triangle rows p0, e1, e2."""
+    p0, e1, e2, _, _ = _random_scene(n_tri=n_tri, n_ray=1, seed=34)
     h = bvh.build_bvh(_t(p0), _t(e1), _t(e2))
-    assert h.n_blocks == 3 and h.tri.shape == (9, 1536)
-    assert h.tri4.shape == (1536, 12) and h.cbox.shape == (24, 8)
-    assert torch.equal(h.tri, ix.pack_triangles(_t(p0), _t(e1), _t(e2),
-                                                ix.SUPER)[0])
-    assert not h.tri4[:, 9:].any() and not h.tri[3:, 1300:].any()
-    verts = torch.stack([h.tri[0:3].T, h.tri[0:3].T + h.tri[3:6].T,
-                         h.tri[0:3].T + h.tri[6:9].T], 1).reshape(24, 192, 3)
-    lo, hi = h.cbox[:, None, 0:3], h.cbox[:, None, 4:7]
-    assert ((verts > lo) & (verts < hi)).all()
-    blo = h.cbox[:, 0:3].reshape(3, 8, 3).amin(1)
-    bhi = h.cbox[:, 4:7].reshape(3, 8, 3).amax(1)
-    assert torch.equal(h.bbox[:, 0:3], blo) and torch.equal(h.bbox[:, 4:7],
-                                                            bhi)
-    raw_lo = verts.amin(1)
-    margin = h.cbox[:, 0:3] - raw_lo
-    assert (margin < 0).all() and (margin.abs() <= 1e-3 * (
-        1 + torch.maximum(raw_lo.abs(), verts.amax(1).abs())) * 1.0001).all()
+    n_leaves = -(-n_tri // bvh.LEAF)
+    assert h.node.shape == (n_leaves - 1, 16)
+    assert h.depth == int(np.ceil(np.log2(n_leaves)))
+    assert torch.equal(h.tri, torch.cat([_t(p0), _t(e1), _t(e2)], 1).T)
+    assert not h.tri4[:, 9:].any()
+    v0, v1, v2 = _t(p0), _t(p0) + _t(e1), _t(p0) + _t(e2)
+    tlo, thi = ix.widen_boxes(torch.minimum(torch.minimum(v0, v1), v2),
+                              torch.maximum(torch.maximum(v0, v1), v2))
+    seen = torch.zeros(n_tri, dtype=torch.int64)
+
+    def walk(entry):
+        """Check the subtree of a stored child entry; returns its ids."""
+        lo, hi = entry[0:3], entry[4:7]
+        a, b = (int(x) for x in entry.view(torch.int32)[[3, 7]])
+        if b < 0:
+            assert 1 <= -b <= bvh.LEAF and a % bvh.LEAF == 0
+            ids = torch.arange(a, a - b)
+        else:
+            assert b == 0
+            row = h.node[a]
+            for k in (0, 8):
+                assert (lo <= row[k:k + 3]).all()
+                assert (hi >= row[k + 4:k + 7]).all()
+            ids = torch.cat([walk(row[0:8]), walk(row[8:16])])
+        assert torch.equal(lo, tlo[ids].amin(0))
+        assert torch.equal(hi, thi[ids].amax(0))
+        return ids
+
+    ids = walk(h.root)
+    seen.index_add_(0, ids, torch.ones_like(ids))
+    assert (seen == 1).all()
+
+
+def test_ties_go_to_lowest_id_in_any_visit_order():
+    """Duplicated triangles, hit at equal t from rays aimed at them
+    (``chip_smoke.tie_case``): the lowest id of each pair wins, as in the
+    unculled sweep, in the tree as built and with the two children of
+    every node swapped."""
+    p0, e1, e2, ro, rd, low = tie_case()
+    h = bvh.build_bvh(_t(p0), _t(e1), _t(e2))
+    brute = ix.ray_intersect_brute(_t(p0), _t(e1), _t(e2), _t(ro), _t(rd))
+    on_low = brute[0].numpy() == low
+    assert on_low.mean() > 0.5
+    for tree in (h, swapped_children(h)):
+        stats = {}
+        out = bvh.ray_intersect_bvh_plain(tree, _t(ro), _t(rd), stats=stats)
+        for a, b in zip(out, brute):
+            assert torch.equal(a, b)
+        assert stats["tri_tests"] < 5000 * ro.shape[0] // 10

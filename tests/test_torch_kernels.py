@@ -8,8 +8,10 @@ imports no JAX (the card's machine has none): run it there with
 The kernels are built without FMA contraction (their fmas are explicit and
 the plain versions write the same ones), so K1 must equal its plain version
 bit for bit and K2 in all three modes and K3 must agree with theirs to f32
-rounding; K4 sums its table cotangents with float atomics in no fixed
-order, so it agrees with autograd of the plain K3 to a reordered sum. The
+rounding; K4 sums its table cotangents across a warp, then with float
+atomics in no fixed order, so it agrees with autograd of the plain K3 to a
+reordered sum. K5 and K6 equal their plain versions and the unculled
+sweep bit for bit. The
 unmarked tests check, on any machine, that the CPU path is the plain
 version and that the kernel launchers refuse what they cannot run instead
 of falling back.
@@ -22,7 +24,8 @@ import pytest
 import torch
 
 import psdr_jit_tpu_torch as pt
-from chip_smoke import gallery_arrays, mixed_rays, train_setup
+from chip_smoke import (gallery_arrays, mixed_rays, swapped_children,
+                        tie_case, train_setup)
 from psdr_jit_tpu_torch.integrator import base
 from psdr_jit_tpu_torch.integrator.base import interior_lane_setup
 from psdr_jit_tpu_torch.ops import _cuda
@@ -320,11 +323,88 @@ def test_training_step_on_card(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("pattern", ["one", "distinct", "stash"])
+@pytest.mark.parametrize("depth", [0, 1, 2, 3])
+def test_k4_hit_patterns(cuda, depth, pattern):
+    """K4 against autograd of the plain K3 under three hit patterns of
+    32,768 lanes (a warp is one pixel's 32 samples): every lane on the
+    same hits (its cotangents all go to the same rows: the most
+    contention), every lane of a warp on a different triangle (no two
+    lanes share a row), and K2 stash's own hits."""
+    sd = _scene(cuda).data
+    tables = mk.build_tables(sd)
+    o, d, sampler = _camera_rays(sd, 32, 11, torch.arange(32 * 32,
+                                                          device=cuda))
+    act = torch.ones(o.shape[0], dtype=torch.bool, device=cuda)
+    act[::13] = False
+    _, hits = mk.li_mega_stash(*tables, o, d, act, sampler.lane, 11, depth,
+                               sampler.cnt)
+    ids, us, vs = hits
+    tabs = [t.detach().contiguous() for t in sm.attached_tables(sd)]
+    if pattern == "one":
+        # a lane whose hits are all valid; at depth 0 one that sees the
+        # light, so that its camera hit gets a cotangent
+        ok = (ids >= 0).all(0) & act
+        if depth == 0:
+            ok &= tabs[0][ids[0].clamp(min=0).long(), sm.ROW_ISEM] > 0.5
+        j = int(torch.nonzero(ok)[0])
+        ids, us, vs = (x[:, j:j + 1].expand_as(x).contiguous()
+                       for x in hits)
+    elif pattern == "distinct":
+        f = sd.tri.p0.shape[0]
+        lane = torch.arange(ids.shape[1], device=cuda)
+        ids = torch.stack([(lane + 7 * k) % f for k in range(ids.shape[0])]
+                          ).to(torch.int32)
+    leaves = [x.clone().requires_grad_() for x in (*tabs, o, d)]
+    ref_in = [x.clone().requires_grad_() for x in (*tabs, o, d)]
+    args = (ids, us, vs)
+    out = sm.li_attached(*leaves[:3], *args, leaves[3], leaves[4], act,
+                         sampler.lane, 11, depth, sampler.cnt)
+    ref = sm.li_attached_plain(*ref_in[:3], *args, ref_in[3], ref_in[4],
+                               act, sampler.lane, 11, depth, sampler.cnt)
+    assert torch.isfinite(out).all() and _rel(out, ref) < 1e-5
+    ct = torch.randn(out.shape, device=cuda, generator=torch.Generator(
+        cuda).manual_seed(depth))
+    before = _cuda.LAUNCHES["K4"]
+    out.backward(ct)
+    ref.backward(ct)
+    assert _cuda.LAUNCHES["K4"] == before + 1
+    for name, a, b in zip(("table", "light", "misc", "o", "d"), leaves,
+                          ref_in):
+        if b.grad is None or not b.grad.any():
+            assert a.grad is None or not a.grad.any(), name
+            continue
+        assert torch.isfinite(a.grad).all(), name
+        assert _rel(a.grad, b.grad) < 1e-4, (name, _rel(a.grad, b.grad))
+
+
+@pytest.mark.gpu
+def test_k6_tie_case_bitwise(cuda):
+    """K6 on the tie case (``chip_smoke.tie_case``: duplicated triangles
+    hit at equal distances), in the tree as built and with every node's
+    children swapped: the lowest id, bit for bit as the plain traversal
+    and the unculled sweep."""
+    p0, e1, e2, ro, rd, low = (torch.from_numpy(x).to(cuda)
+                               for x in tie_case())
+    act = torch.ones(ro.shape[0], dtype=torch.bool, device=cuda)
+    h = bvh.build_bvh(p0, e1, e2)
+    brute = ix.ray_intersect_brute(p0, e1, e2, ro, rd, act)
+    assert (brute[0] == low.to(torch.int32)).float().mean() > 0.5
+    for tree in (h, swapped_children(h)):
+        t, ids, uv = bvh.bvh_cuda(tree, ro, rd, act)
+        plain = bvh.ray_intersect_bvh_plain(tree, ro, rd, act)
+        for x, y, z in zip((ids, ids >= 0, uv, t), plain, brute):
+            assert torch.equal(x, y) and torch.equal(y, z)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n_spheres, subdiv, kernel", [(4, 2, "K5"),
-                                                       (4, 3, "K6")])
+                                                       (4, 3, "K6"),
+                                                       (80, 3, "K6")])
 def test_k5_k6_match_plain_bitwise(cuda, n_spheres, subdiv, kernel):
-    """K5 (1,292 triangles) and K6 (5,132) against their plain versions and
-    the unculled sweep, bit for bit, through the routing entry."""
+    """K5 (1,292 triangles) and K6 (5,132 and 102,412) against their plain
+    versions and the unculled sweep, bit for bit, through the routing
+    entry."""
     sd = _gallery(cuda, n_spheres, subdiv).data
     tri = sd.tri
     o, d, act = mixed_rays(sd, 1 << 16,
@@ -335,8 +415,8 @@ def test_k5_k6_match_plain_bitwise(cuda, n_spheres, subdiv, kernel):
     assert _cuda.LAUNCHES[kernel] == before[kernel] + 1
     assert sum(_cuda.LAUNCHES.values()) == sum(before.values()) + 1
     brute = ix.ray_intersect_brute(tri.p0, tri.e1, tri.e2, o, d, act)
-    plain = (brute if kernel == "K5" else bvh.ray_intersect_bvh_plain(
-        bvh.build_bvh(tri.p0, tri.e1, tri.e2), o, d, act))
+    plain = (brute if kernel == "K5" else
+             bvh.ray_intersect_bvh_plain(sd.bvh, o, d, act))
     for x, y, z in zip(out, plain, brute):
         assert torch.equal(x, y) and torch.equal(y, z)
     assert not out[1][~act].any() and out[1].float().mean() > 0.5
