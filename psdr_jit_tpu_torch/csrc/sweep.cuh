@@ -3,7 +3,8 @@
 // (intersect_super.cu) and K6 (bvh.cu) so that the epsilon, culling and tie
 // policy cannot drift between them. Counterpart of sweep_block in
 // psdr_jit_tpu/ops/intersect_pallas.py; its plain PyTorch version is
-// sweep_plain in psdr_jit_tpu_torch/ops/intersect.py.
+// sweep_plain in psdr_jit_tpu_torch/ops/intersect.py. K1 and K5 run sweep()
+// below, K2 its two culled sweeps (sweep_grouped, sweep_queued), K6 a tree.
 //
 // Tables (one float per entry, component-major, staged in shared memory):
 //   tri (9, f_pad):  p0.xyz, e1.xyz, e2.xyz of each triangle; f_pad is a
@@ -44,6 +45,8 @@ namespace psdr {
 constexpr float kInf = 1e30f;
 constexpr float kRayEpsilon = 1e-3f;
 constexpr int kCluster = 16;
+constexpr int kWarp = 32;
+constexpr unsigned kFullWarp = 0xffffffffu;
 
 struct Hit {
   float t;
@@ -212,6 +215,239 @@ __device__ __forceinline__ void sweep_into(Hit& h, const float* __restrict__ tri
                tri[6 * stride + j], tri[7 * stride + j], tri[8 * stride + j],
                ox, oy, oz, dx, dy, dz);
   }
+}
+
+// ---- K2's two-level sweep over a vector-loaded table ----------------------
+//
+// K2 stages its triangles as rows of three float4, (p0.x p0.y p0.z e1.x)
+// (e1.y e1.z e2.x e2.y) (e2.z 0 0 0), read with three 128-bit shared loads
+// a test, and its boxes as two float4, (lo.xyz 0) (hi.xyz 0), widened. Each
+// 16-triangle cluster's box is tested, then inside a visited cluster the
+// box of each run of G consecutive triangles (none at G = 16), then the
+// run's triangles: in ascending id, with THE hit test and its strict
+// t < best, as sweep() visits them. All 32 lanes of a warp call it together, and the
+// culling is decided for the warp: a box is entered when any lane that
+// needs a hit enters it, so the warp never diverges on a box, and a lane
+// may test triangles its own box test would have skipped. This pays where
+// a warp's rays are coherent and skip most runs together (see
+// csrc/megakernel.cu). Neither changes a hit: the widened boxes cull no
+// hit, and an extra test finds none that the unculled sweep does not. The
+// plain version is sweep_grouped_plain in psdr_jit_tpu_torch/ops/intersect.py.
+
+// Widened box of rows [first, first + count) of a row-staged table, as
+// group_boxes in psdr_jit_tpu_torch/ops/intersect.py computes it.
+__device__ __forceinline__ void row_box(const float4* __restrict__ tri, int first,
+                                        int count, float4* out) {
+  float lo[3] = {kInf * 10.0f, kInf * 10.0f, kInf * 10.0f};
+  float hi[3] = {-kInf * 10.0f, -kInf * 10.0f, -kInf * 10.0f};
+  for (int k = first; k < first + count; ++k) {
+    const float4 a = tri[3 * k], b = tri[3 * k + 1], c = tri[3 * k + 2];
+    const float p0[3] = {a.x, a.y, a.z};
+    const float e1[3] = {a.w, b.x, b.y};
+    const float e2[3] = {b.z, b.w, c.x};
+    for (int q = 0; q < 3; ++q) {
+      const float v1 = p0[q] + e1[q];
+      const float v2 = p0[q] + e2[q];
+      lo[q] = fminf(lo[q], fminf(fminf(p0[q], v1), v2));
+      hi[q] = fmaxf(hi[q], fmaxf(fmaxf(p0[q], v1), v2));
+    }
+  }
+  float m[3];
+  for (int q = 0; q < 3; ++q) m[q] = box_margin(lo[q], hi[q]);
+  out[0] = make_float4(lo[0] - m[0], lo[1] - m[1], lo[2] - m[2], 0.0f);
+  out[1] = make_float4(hi[0] + m[0], hi[1] + m[1], hi[2] + m[2], 0.0f);
+}
+
+// box_visit of a staged box. `checked`: some ray of the warp has a
+// non-finite origin or inverse direction (an axis-aligned ray has
+// inv = +-inf); otherwise (lo - o) * inv is finite or infinite but never
+// NaN, box_visit's NaN check cannot fire, and the test leaves it out: the
+// same decision in fewer instructions.
+__device__ __forceinline__ bool box_visit4(const float4* __restrict__ b, float ox,
+                                           float oy, float oz, float ix, float iy,
+                                           float iz, float best, bool checked) {
+  const float4 lo = b[0], hi = b[1];
+  if (checked)
+    return box_visit(lo.x, lo.y, lo.z, hi.x, hi.y, hi.z, ox, oy, oz, ix, iy, iz, best);
+  const float tx0 = (lo.x - ox) * ix;
+  const float tx1 = (hi.x - ox) * ix;
+  const float ty0 = (lo.y - oy) * iy;
+  const float ty1 = (hi.y - oy) * iy;
+  const float tz0 = (lo.z - oz) * iz;
+  const float tz1 = (hi.z - oz) * iz;
+  const float tnear =
+      fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)), fminf(tz0, tz1));
+  const float tfar =
+      fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
+  return tnear <= tfar && tfar > 0.0f && tnear < best;
+}
+
+// The `checked` of box_visit4 for a warp: does any lane that needs a hit
+// have a non-finite origin or inverse direction?
+__device__ __forceinline__ bool warp_checked(bool need, float ox, float oy, float oz,
+                                             float ix, float iy, float iz) {
+  return __any_sync(kFullWarp, need && !(isfinite(ix) && isfinite(iy) && isfinite(iz) &&
+                                         isfinite(ox) && isfinite(oy) && isfinite(oz)));
+}
+
+// What one of K2's sweeps ran, for K2's counting build (PSDR_K2_COUNTS
+// defined, csrc/megakernel.cu): the box tests and the (ray, triangle) tests
+// the warp ran, the same in every lane. PSDR_TALLY adds to it there and
+// does nothing, not even evaluate its arguments, in any other build.
+struct Tally {
+  unsigned box = 0;
+  unsigned tri = 0;
+};
+#ifdef PSDR_K2_COUNTS
+#define PSDR_TALLY(t, n_box, n_tri) ((t).box += (n_box), (t).tri += (n_tri))
+#else
+#define PSDR_TALLY(t, n_box, n_tri) ((void)(t))
+#endif
+
+template <int G>
+__device__ __forceinline__ Hit sweep_grouped(const float4* __restrict__ tri,
+                                             const float4* __restrict__ cbox,
+                                             const float4* __restrict__ gbox, int nc,
+                                             bool need, float ox, float oy, float oz,
+                                             float dx, float dy, float dz, Tally& tally) {
+  static_assert(kCluster % G == 0, "runs tile a cluster");
+  constexpr int kRuns = kCluster / G;
+  Hit h{kInf, -1, 0.0f, 0.0f};
+  const float ix = 1.0f / dx;
+  const float iy = 1.0f / dy;
+  const float iz = 1.0f / dz;
+  const bool checked = warp_checked(need, ox, oy, oz, ix, iy, iz);
+  for (int c = 0; c < nc; ++c) {
+    PSDR_TALLY(tally, __any_sync(kFullWarp, need) ? 1u : 0u, 0u);
+    const bool in_c =
+        need && box_visit4(cbox + 2 * c, ox, oy, oz, ix, iy, iz, h.t, checked);
+    if (!__any_sync(kFullWarp, in_c)) continue;
+#pragma unroll 1
+    for (int j = c * kRuns; j < (c + 1) * kRuns; ++j) {
+      PSDR_TALLY(tally, kRuns > 1 ? 1u : 0u, 0u);
+      const bool in_j = kRuns == 1 || (need && box_visit4(gbox + 2 * j, ox, oy, oz, ix,
+                                                          iy, iz, h.t, checked));
+      if (!__any_sync(kFullWarp, in_j)) continue;
+      PSDR_TALLY(tally, 0u, static_cast<unsigned>(G));
+#pragma unroll
+      for (int k = j * G; k < (j + 1) * G; ++k) {
+        const float4 a = tri[3 * k], b = tri[3 * k + 1], e = tri[3 * k + 2];
+        hit_test(h, k, a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, e.x, ox, oy, oz, dx,
+                 dy, dz);
+      }
+    }
+  }
+  if (!(h.t < kInf) || !need) h = Hit{kInf, -1, 0.0f, 0.0f};
+  return h;
+}
+
+// ---- K2's compacted sweep for scattered rays --------------------------------
+//
+// Where a warp's rays scatter, the warp-decided culling above tests nearly
+// every run for every lane. Here each lane tests its own ray against the
+// boxes (clusters, then the runs of a visited cluster, with no closest hit
+// to cull against yet), and the warp queues the (ray, run) pairs the lanes
+// enter and tests them 32 at a time, one pair a lane: the warp runs the
+// tests its lanes need, not their union. A pair's closest hit goes into
+// its ray's slot with an atomic minimum of the key (t bits, id), which is
+// (t, id) in lexicographic order because t > 0: the least t, the lowest id
+// at equal t, as the ascending sweep's strict t < best keeps. The winning
+// triangle is then tested once more by its own lane for (t, u, v), the
+// same arithmetic as the test that found it. Culling with widened boxes
+// removes no hit, so the hits are sweep()'s bit for bit.
+
+// One warp's scratch in shared memory.
+struct WarpQueue {
+  float4 ray[kWarp][2];            // origin, direction of each lane's ray
+  unsigned long long best[kWarp];  // (t bits, id) of each ray's closest hit
+  int item[2 * kWarp];             // queued (ray, run) pairs: lane << 8 | run
+};
+
+__device__ __forceinline__ unsigned long long hit_key(float t, int id) {
+  return (static_cast<unsigned long long>(__float_as_uint(t)) << 32) |
+         static_cast<unsigned>(id);
+}
+
+// Test the queued pairs [0, count), one a lane.
+template <int G>
+__device__ __forceinline__ void test_queued(const float4* __restrict__ tri, WarpQueue& q,
+                                            int lane, int count) {
+  if (lane < count) {
+    const int item = q.item[lane];
+    const int r = item >> 8, j = item & 255;
+    const float4 o = q.ray[r][0], d = q.ray[r][1];
+    Hit h{kInf, -1, 0.0f, 0.0f};
+#pragma unroll
+    for (int k = j * G; k < (j + 1) * G; ++k) {
+      const float4 a = tri[3 * k], b = tri[3 * k + 1], e = tri[3 * k + 2];
+      hit_test(h, k, a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, e.x, o.x, o.y, o.z, d.x,
+               d.y, d.z);
+    }
+    if (h.id >= 0) atomicMin(&q.best[r], hit_key(h.t, h.id));
+  }
+  __syncwarp();
+}
+
+// All 32 lanes of the warp call it together; `need`: this lane's ray is
+// swept (a lane that needs no hit gets a miss). Runs are numbered below
+// 256 (f_pad / G <= 256).
+template <int G>
+__device__ __forceinline__ Hit sweep_queued(const float4* __restrict__ tri,
+                                            const float4* __restrict__ cbox,
+                                            const float4* __restrict__ gbox, int nc,
+                                            WarpQueue& q, bool need, float ox, float oy,
+                                            float oz, float dx, float dy, float dz,
+                                            Tally& tally) {
+  static_assert(kCluster % G == 0, "runs tile a cluster");
+  constexpr int kRuns = kCluster / G;
+  const int lane = threadIdx.x & (kWarp - 1);
+  const unsigned below = (1u << lane) - 1u;
+  q.ray[lane][0] = make_float4(ox, oy, oz, 0.0f);
+  q.ray[lane][1] = make_float4(dx, dy, dz, 0.0f);
+  q.best[lane] = ~0ull;
+  __syncwarp();
+  const float ix = 1.0f / dx;
+  const float iy = 1.0f / dy;
+  const float iz = 1.0f / dz;
+  const bool checked = warp_checked(need, ox, oy, oz, ix, iy, iz);
+  int pending = 0;  // the same in every lane
+  for (int c = 0; c < nc; ++c) {
+    PSDR_TALLY(tally, __any_sync(kFullWarp, need) ? 1u : 0u, 0u);
+    const bool in_c =
+        need && box_visit4(cbox + 2 * c, ox, oy, oz, ix, iy, iz, kInf, checked);
+    if (!__any_sync(kFullWarp, in_c)) continue;
+#pragma unroll 1
+    for (int j = c * kRuns; j < (c + 1) * kRuns; ++j) {
+      PSDR_TALLY(tally, kRuns > 1 ? 1u : 0u, 0u);
+      const bool in_j = in_c && (kRuns == 1 || box_visit4(gbox + 2 * j, ox, oy, oz, ix,
+                                                          iy, iz, kInf, checked));
+      const unsigned m = __ballot_sync(kFullWarp, in_j);
+      if (in_j) q.item[pending + __popc(m & below)] = lane << 8 | j;
+      pending += __popc(m);
+      __syncwarp();
+      if (pending >= kWarp) {
+        PSDR_TALLY(tally, 0u, static_cast<unsigned>(G));
+        test_queued<G>(tri, q, lane, kWarp);
+        pending -= kWarp;
+        const int moved = lane < pending ? q.item[kWarp + lane] : 0;
+        __syncwarp();
+        if (lane < pending) q.item[lane] = moved;
+        __syncwarp();
+      }
+    }
+  }
+  PSDR_TALLY(tally, 0u, pending > 0 ? static_cast<unsigned>(G) : 0u);
+  test_queued<G>(tri, q, lane, pending);
+  Hit h{kInf, -1, 0.0f, 0.0f};
+  const unsigned long long key = q.best[lane];
+  PSDR_TALLY(tally, 0u, __any_sync(kFullWarp, key != ~0ull) ? 1u : 0u);
+  if (key != ~0ull) {
+    const int k = static_cast<int>(key & 0xffffffffu);
+    const float4 a = tri[3 * k], b = tri[3 * k + 1], e = tri[3 * k + 2];
+    hit_test(h, k, a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, e.x, ox, oy, oz, dx, dy, dz);
+  }
+  __syncwarp();
+  return h;
 }
 
 __device__ __forceinline__ Hit sweep(const float* __restrict__ tri,

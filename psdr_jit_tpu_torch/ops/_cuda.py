@@ -124,7 +124,7 @@ def library(csrc: Path = CSRC) -> ctypes.CDLL:
     lib.psdr_intersect.restype = _I
     lib.psdr_li_mega.argtypes = [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
                                  _P, _P, ctypes.c_uint, _LL, _I, _I, _I, _I,
-                                 _P, _P, _P, _P, _P]
+                                 _I, _P, _P, _P, _P, _P]
     lib.psdr_li_mega.restype = _I
     shade = [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, ctypes.c_uint,
              _LL, _I, _I, _I]

@@ -22,6 +22,9 @@ sweep :func:`sweep_plain` (through :func:`ray_intersect_brute`) for K1 and
 K5, ``bvh.ray_intersect_bvh_plain`` for K6. On CUDA tensors each launches
 its kernel or raises. Non-finite and inactive rays report a miss.
 
+K2 (``ops/megakernel.py``) sweeps with two levels of widened boxes;
+:func:`sweep_grouped_plain` is the plain version of those sweeps.
+
 Every version runs THE hit test of ``csrc/sweep.cuh`` (Moller-Trumbore
 with ``|a| > 1e-12, u >= 0, v >= 0, u + v <= 1, RAY_EPSILON < t < best``)
 and keeps the lowest id of equal distances (the sweeps visit triangles in
@@ -192,6 +195,93 @@ def sweep_plain(tri, o, d):
         for b in range(0, f, PLAIN_TRI_BLOCK):
             best = merge_hits(best, _sweep_block(
                 tri[:, b:b + PLAIN_TRI_BLOCK], *comps), b)
+        parts.append(finish_hits(*best))
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def group_boxes(tri, group: int):
+    """Widened boxes ``(lo, hi)``, each ``(F_pad // group, 3)``, of the runs
+    of ``group`` consecutive triangles of a packed ``(9, F_pad)`` table,
+    computed as K2 computes them when it stages the table
+    (``csrc/megakernel.cu``): the vertices ``p0``, ``p0 + e1``, ``p0 + e2``
+    in f32, their least and greatest coordinate over the run, widened by
+    :func:`widen_boxes`. At ``group = CLUSTER`` they are the cluster boxes
+    of :func:`pack_triangles`, widened."""
+    p0, e1, e2 = tri[0:3].T, tri[3:6].T, tri[6:9].T
+    v1, v2 = p0 + e1, p0 + e2
+    lo = torch.minimum(torch.minimum(p0, v1), v2).reshape(-1, group, 3)
+    hi = torch.maximum(torch.maximum(p0, v1), v2).reshape(-1, group, 3)
+    return widen_boxes(lo.amin(1), hi.amax(1))
+
+
+def sweep_grouped_plain(tri, o, d, group: int, stats=None, live=None,
+                        compact: bool = False):
+    """K2's culled sweeps in plain PyTorch. Each 16-triangle cluster's
+    widened box is tested, then inside a visited cluster each
+    ``group``-triangle run's widened box (:func:`group_boxes`; none at
+    ``group = CLUSTER``), then the run's triangles. By default against the
+    running hit, in ascending id with its strict ``t < best``, as
+    ``csrc/sweep.cuh`` ``sweep_grouped`` and ``sweep`` visit them;
+    ``compact``: with no hit to cull against, the closest of the tested
+    hits kept by ``(t, id)``, as ``sweep_queued``. Rays as in
+    :func:`sweep_plain`, whose hits both return bit for bit: culling with
+    widened boxes changes no hit.
+
+    ``stats``, a dict, gets the visits added up over the rays that
+    ``live`` (n,) bool selects (all by default): ``rays``, ``box_tests``
+    (cluster and run boxes) and ``tri_tests`` of each ray, and
+    ``warp_tri_tests``, the tests each lane of a warp runs, the warp being
+    rays ``32 w .. 32 w + 31`` in the given order: by default ``group``
+    times the runs any of its live rays visits (the warp-decided culling),
+    ``compact``: ``group`` times the rounds of 32 (ray, run) pairs its live
+    rays queue."""
+    n = o[0].shape[0]
+    f = tri.shape[1]
+    clo, chi = group_boxes(tri, CLUSTER)
+    glo, ghi = group_boxes(tri, group)
+    per = CLUSTER // group
+    two_level = group != CLUSTER
+    parts = []
+    for s in range(0, max(n, 1), PLAIN_RAY_CHUNK):
+        comps = [c[s:s + PLAIN_RAY_CHUNK] for c in (*o, *d)]
+        ro = torch.stack(comps[:3], -1)
+        inv = 1.0 / torch.stack(comps[3:], -1)
+        m = ro.shape[0]
+        on = (torch.ones(m, dtype=torch.bool, device=ro.device)
+              if live is None else live[s:s + PLAIN_RAY_CHUNK])
+        pad = -m % 32
+        best = miss_like(comps[0])
+        nowhere = torch.full_like(comps[0], INF)
+        pairs = torch.zeros((m + pad) // 32, dtype=torch.int64,
+                            device=ro.device)
+        boxes = tests = warp_tests = 0
+        for c in range(f // CLUSTER):
+            vis_c = box_visit(clo[c], chi[c], ro, inv,
+                              nowhere if compact else best[0])
+            boxes += int(on.sum()) + (per * int((vis_c & on).sum())
+                                      if two_level else 0)
+            for j in range(c * per, (c + 1) * per):
+                vis = (vis_c & box_visit(glo[j], ghi[j], ro, inv,
+                                         nowhere if compact else best[0])
+                       if two_level else vis_c)
+                cand = _sweep_block(tri[:, j * group:(j + 1) * group], *comps)
+                cand = tuple(torch.where(vis, x, y)
+                             for x, y in zip(cand, miss_like(comps[0])))
+                best = merge_hits(best, cand, j * group)
+                counted = torch.nn.functional.pad(vis & on, (0, pad)).reshape(
+                    -1, 32)
+                tests += group * int(counted.sum())
+                if compact:
+                    pairs += counted.sum(1)
+                else:
+                    warp_tests += group * int(counted.any(1).sum())
+        if compact:
+            warp_tests = group * int(((pairs + 31) // 32).sum())
+        if stats is not None:
+            for k, v in (("rays", int(on.sum())), ("box_tests", boxes),
+                         ("tri_tests", tests), ("warp_tri_tests",
+                                                warp_tests)):
+                stats[k] = stats.get(k, 0) + v
         parts.append(finish_hits(*best))
     return tuple(torch.cat(p) for p in zip(*parts))
 

@@ -21,6 +21,13 @@ K2 has three modes, one kernel (a runtime argument picks the mode):
   bilinear points ``p0 + e1 u + e2 v`` of the path-space formulation, not
   ``o + d t``; the camera hit keeps ``o + d t``.
 
+K2 culls each sweep with widened boxes of 16-triangle clusters and of
+runs of 2 triangles inside them (``kGroup``), for the whole warp or per
+lane (``csrc/megakernel.cu``); :func:`.intersect.sweep_grouped_plain` is the
+plain version of those sweeps and returns the unculled sweep's hits bit for
+bit. The plain versions here sweep unculled, and can record every sweep
+(:class:`Sweep`) for the counts and bounds of ``chip_smoke.py``.
+
 Scope (:func:`applicable`): every BSDF a one-sided constant
 ``DiffuseBSDF``, exactly one emitter (an ``AreaLight``) and at most
 ``MEGA_MAX_TRIS`` triangles. Each entry launches K2 on CUDA tensors and
@@ -29,6 +36,8 @@ same per-lane program) on CPU tensors.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -44,9 +53,14 @@ from .intersect import CLUSTER, _fma, pack_triangles, sweep_plain
 
 _TINY = 1e-20
 # K2 stages all tables in shared memory: at 192 triangles (and at most as
-# many light triangles) they take 31 KiB, under the 48 KiB a block gets
-# without opting in.
+# many light triangles) they take at most 37 KiB, under the 48 KiB a block
+# gets without opting in.
 MEGA_MAX_TRIS = 192
+# How many of a path's first sweeps K2 culls for the whole warp (the rest
+# it compacts, csrc/megakernel.cu): the camera and first NEE rays of a warp
+# are one pixel's samples, coherent, in single and stash mode; an edge
+# sample's rays scatter from the start.
+COHERENT_SWEEPS = {"K2": 2, "K2-pair": 0, "K2-stash": 2}
 ATTR_ROWS = 17   # n0(3) n1(3) n2(3) fnmask albedo(3) emission(3) is_emitter
 LIGHT_ROWS = 14  # cdf pmf p0(3) e1(3) e2(3) face normal(3)
 
@@ -130,12 +144,31 @@ def _bilinear_point(tri, bi, bu, bv):
                  for k in range(3))
 
 
+class Sweep(NamedTuple):
+    """One closest-hit sweep of K2's lanes, as :func:`_li_plain` records
+    it: the rays ``o``, ``d`` (N, 3), their hits ``t``, ``id``, ``u``,
+    ``v`` (N,), and ``active`` (N,), the lanes whose result the radiance
+    uses (the camera sweep's active lanes, each NEE sweep's lanes that
+    are active off an emitter, each bounce sweep's active lanes facing
+    their surface): the lanes K2 sweeps in single and pair mode. Stash
+    mode outputs every lane's hits and sweeps them all."""
+    o: torch.Tensor
+    d: torch.Tensor
+    t: torch.Tensor
+    active: torch.Tensor
+    id: torch.Tensor
+    u: torch.Tensor
+    v: torch.Tensor
+
+
 def _li_plain(tri, attr, light, misc, ray_o, ray_d, active, lane,
               seed: int, depth: int, cnt0: int, hide_emitters: bool,
-              stash: bool):
+              stash: bool, record=None):
     """The per-lane program of K2: ``(radiance (N, 3), hits)``, where
     ``hits`` is ``(ids, u, v)``, each ``(1 + 2 depth, N)``, in stash mode
-    and ``None`` otherwise."""
+    and ``None`` otherwise. ``record``, a list, gets a :class:`Sweep` of
+    each of the ``1 + 2 depth`` sweeps in order (camera, then NEE and
+    bounce of each depth)."""
     n_light = light.shape[1]
     total_mass, inv_area = misc[0], misc[1]
     lane = lane.to(torch.int64) & 0xFFFFFFFF
@@ -145,10 +178,13 @@ def _li_plain(tri, attr, light, misc, ray_o, ray_d, active, lane,
     def draw(cnt):
         return [u32_to_unit_float(x) for x in pcg4d(lane, cnt, seed, SALT)]
 
-    def closest_hit(o, d):
+    def closest_hit(o, d, live):
         t, bi, bu, bv = sweep_plain(tri, o, d)
         if stash:
             hits.append((bi, bu, bv))
+        if record is not None:
+            record.append(Sweep(torch.stack(o, -1), torch.stack(d, -1), t,
+                                live, bi, bu, bv))
         return t, bi, bu, bv
 
     def resolve(bi, bu, bv):
@@ -192,7 +228,7 @@ def _li_plain(tri, attr, light, misc, ray_o, ray_d, active, lane,
     o = tuple(ray_o[:, k] for k in range(3))
     d = tuple(ray_d[:, k] for k in range(3))
     cnt = cnt0
-    t, bi, bu, bv = closest_hit(o, d)
+    t, bi, bu, bv = closest_hit(o, d, active)
     active = active & (bi >= 0)
     ns, fn, alb, emit, is_em = resolve(bi, bu, bv)
     zero = torch.zeros_like(t)
@@ -218,7 +254,7 @@ def _li_plain(tri, attr, light, misc, ray_o, ray_d, active, lane,
         dist = safe_sqrt(dist_sqr)
         inv_dist = safe_div(torch.ones_like(dist), dist)
         wod = tuple(w * inv_dist for w in wod)
-        t1, bi1, bu1, bv1 = closest_hit(p, wod)
+        t1, bi1, bu1, bv1 = closest_hit(p, wod, active_direct)
         ns1, fn1, _, emit1, is_em1 = resolve(bi1, bu1, bv1)
         hit_light = (active_direct & (bi1 >= 0)
                      & (t1 > dist - SHADOW_EPSILON) & is_em1)
@@ -243,7 +279,7 @@ def _li_plain(tri, attr, light, misc, ray_o, ray_d, active, lane,
                     for x in coordinate_system(torch.stack(ns, dim=-1)))
         wo = tuple(s_f[k] * lx + t_f[k] * ly + ns[k] * lz for k in range(3))
         bs_valid = active & (wiz_cam > 0.0)
-        t2, bi2, bu2, bv2 = closest_hit(p, wo)
+        t2, bi2, bu2, bv2 = closest_hit(p, wo, bs_valid)
         valid2 = bi2 >= 0
         active = bs_valid & valid2
         ns2, fn2, alb2, emit2, is_em2 = resolve(bi2, bu2, bv2)
@@ -272,38 +308,40 @@ def _li_plain(tri, attr, light, misc, ray_o, ray_d, active, lane,
 
 def li_mega_plain(tri, box, attr, light, misc, ray_o, ray_d, active, lane,
                   seed: int, depth: int, cnt0: int,
-                  hide_emitters: bool = False):
+                  hide_emitters: bool = False, record=None):
     """Plain PyTorch K2, single mode: the same per-lane program with index
     gathers in place of shared-memory table reads and the unculled sweep
     (``box`` is unused). Returns ``(N, 3)`` radiance, 0 for inactive
-    lanes."""
+    lanes. ``record``: as in :func:`_li_plain`."""
     del box
     return _li_plain(tri, attr, light, misc, ray_o, ray_d, active, lane,
-                     seed, depth, cnt0, hide_emitters, False)[0]
+                     seed, depth, cnt0, hide_emitters, False, record)[0]
 
 
 def li_mega_pair_plain(tri, box, attr, light, misc, ray_o_n, ray_d_n,
                        ray_o_p, ray_d_p, active, lane, seed: int,
-                       depth: int, cnt0: int, hide_emitters: bool = False):
+                       depth: int, cnt0: int, hide_emitters: bool = False,
+                       record=None):
     """Plain K2, pair mode: ``Li(ray_n) - Li(ray_p)``, ray_p drawing from
-    ``cnt0 + 2 depth``."""
+    ``cnt0 + 2 depth``. ``record`` gets ray_n's sweeps, then ray_p's."""
     del box
     li_n = _li_plain(tri, attr, light, misc, ray_o_n, ray_d_n, active, lane,
-                     seed, depth, cnt0, hide_emitters, False)[0]
+                     seed, depth, cnt0, hide_emitters, False, record)[0]
     li_p = _li_plain(tri, attr, light, misc, ray_o_p, ray_d_p, active, lane,
-                     seed, depth, cnt0 + 2 * depth, hide_emitters, False)[0]
+                     seed, depth, cnt0 + 2 * depth, hide_emitters, False,
+                     record)[0]
     return li_n - li_p
 
 
 def li_mega_stash_plain(tri, box, attr, light, misc, ray_o, ray_d, active,
                         lane, seed: int, depth: int, cnt0: int,
-                        hide_emitters: bool = False):
+                        hide_emitters: bool = False, record=None):
     """Plain K2, stash mode: ``(radiance (N, 3), (ids, u, v))`` with
     ``(1 + 2 depth, N)`` int32 ids (-1 = miss) and float32
-    barycentrics."""
+    barycentrics. ``record``: as in :func:`_li_plain`."""
     del box
     return _li_plain(tri, attr, light, misc, ray_o, ray_d, active, lane,
-                     seed, depth, cnt0, hide_emitters, True)
+                     seed, depth, cnt0, hide_emitters, True, record)
 
 
 # ---- the kernel -------------------------------------------------------------
@@ -317,7 +355,9 @@ def _lane_i32(lane):
 
 def _launch_k2(mode: str, tri, box, attr, light, misc, ray_o, ray_d, ray2,
                active, lane, seed: int, depth: int, cnt0: int,
-               hide_emitters: bool):
+               hide_emitters: bool, coherent_sweeps: int | None = None):
+    """Launch K2 in ``mode``; ``coherent_sweeps`` overrides
+    ``COHERENT_SWEEPS[mode]`` (the hits are the same either way)."""
     dev = ray_o.device
     f_pad = tri.shape[1]
     n_light = light.shape[1]
@@ -362,7 +402,9 @@ def _launch_k2(mode: str, tri, box, attr, light, misc, ray_o, ray_d, ray2,
                 ray_o.data_ptr(), ray_d.data_ptr(), o2.data_ptr(),
                 d2.data_ptr(), active.data_ptr(), lane32.data_ptr(),
                 int(seed) & 0xFFFFFFFF, n, depth, cnt0, int(hide_emitters),
-                _K2_MODES[mode], out.data_ptr(), ids.data_ptr(),
+                _K2_MODES[mode], COHERENT_SWEEPS[mode]
+                if coherent_sweeps is None else coherent_sweeps,
+                out.data_ptr(), ids.data_ptr(),
                 su.data_ptr(), sv.data_ptr(), _cuda.stream_of(dev))
         _cuda.check(err, f"{mode} launch")
         _cuda.LAUNCHES[mode] += 1

@@ -12,11 +12,15 @@ a summary. Each run measures, on its checkout's kernels:
   spp 4, ``PathTracer(2).renderC``): the frame's host time (median of 5)
   and peak device memory, and K6 alone on each of the frame's launches
   (CUDA events, recorded inputs), per launch and summed;
+* the Cornell-box frame of ``chip_smoke.py`` (512x512, spp 32,
+  ``PathTracer(3).renderC``): its host time (median of 5) and peak device
+  memory, and K2 (single mode) alone on the frame's launch;
 * the Cornell-box training step of ``chip_smoke.py`` (512x512, spp 32,
   sppe 32, ``PathTracer(3).loss_and_grad``): its host time (median of 3)
-  and peak device memory, and K4 alone on each of the step's launches;
-* ptxas's registers, stack and spills of K4 and K6 from the checkout's
-  build;
+  and peak device memory, and K4, K2 stash and K2 pair alone on each of
+  the step's launches;
+* ptxas's registers, stack and spills of K2, K4 and K6 from the
+  checkout's build;
 * K6's own (ray, triangle) tests per ray: from its counting build where it
   has one, else (the block/cluster hierarchy it replaced) the 64-triangle
   clusters its rays enter before their hits, times 64.
@@ -25,7 +29,12 @@ The tests that any hierarchy of boxes must make (``chip_smoke``
 ``triangle_box_tests``) and the bytes any closest hit must move (the rays,
 and ``TRI_BYTES`` a triangle) depend on the rays, hits and triangles only,
 so one count, and one bound, serves both checkouts; it is computed in the
-B runs.
+B runs. So are K2's: its bound counts every sweep of each launch
+(``chip_smoke.k2_bound_terms`` on the sweeps its plain version records),
+with the tests a lane a sweep any hierarchy of boxes needs (from the same
+count) and a model of those that K2's one-level sweep of every lane ran
+before its redesign (``parent_model_tests``; K2's own counts come from its
+counting build, ``torch_kernel_variants.py K2``).
 
 Imports no JAX; exits non-zero without a CUDA card.
 """
@@ -50,6 +59,7 @@ def measure(tree: Path) -> dict:
     import chip_smoke as cs
     import psdr_jit_tpu_torch as pt
     from psdr_jit_tpu_torch.ops import _cuda, bvh
+    from psdr_jit_tpu_torch.ops import megakernel as mk
     from psdr_jit_tpu_torch.ops import shade_mega as sm
 
     assert Path(pt.__file__).resolve().is_relative_to(tree.resolve())
@@ -57,8 +67,8 @@ def measure(tree: Path) -> dict:
     _cuda.library()
     out = {"tree": str(tree), "card": cs.card_line()}
     report = (_cuda.build().parent / "ptxas.txt").read_text()
-    out["ptxas"] = {k: _this_smoke().ptxas_report(k, report)
-                    for k in ("shade_bwd_kernel", "bvh_kernel")}
+    out["ptxas"] = {k: _this_smoke().ptxas_report(k, report) for k in (
+        "li_mega_kernel", "shade_bwd_kernel", "bvh_kernel")}
 
     # ---- the gallery frame ------------------------------------------------
     big = pt.Scene.from_arrays(cs.gallery_arrays(256, 256, 4), device=dev)
@@ -99,23 +109,97 @@ def measure(tree: Path) -> dict:
     torch.cuda.synchronize()
     out["frame_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
 
+    # ---- the Cornell-box frame --------------------------------------------
+    cbox = pt.Scene.from_arrays(np.load(cs.SCENE_NPZ), device=dev)
+    integ = pt.PathTracer(cs.DEPTH)
+    integ.renderC(cbox, 0, seed=cs.SEED)
+    k2 = {"K2": (mk, "li_mega_cuda"), "K2-pair": (mk, "li_mega_pair_cuda"),
+          "K2-stash": (mk, "li_mega_stash_cuda")}
+    with cs.KernelCalls({"K2": k2["K2"]}) as rec:
+        integ.renderC(cbox, 0, seed=cs.SEED)
+        torch.cuda.synchronize()
+    calls = dict(rec.calls)
+    out["K2_frame_ms"] = sum(cs.cuda_ms(lambda: fn(*args), 5)
+                             for fn, args, _ in calls["K2"])
+    out["cbox_frame_ms"] = cs.wall_ms(lambda: integ.renderC(
+        cbox, 0, seed=cs.SEED), 5)
+    torch.cuda.reset_peak_memory_stats(dev)
+    integ.renderC(cbox, 0, seed=cs.SEED)
+    torch.cuda.synchronize()
+    out["cbox_frame_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+
     # ---- the training step ------------------------------------------------
     scene = pt.Scene.from_arrays(np.load(cs.SCENE_NPZ), device=dev)
     scene.opts.sppe = cs.SPPE
     step = cs.train_step_fn(pt.PathTracer(cs.DEPTH), scene)
     step()
-    with cs.KernelCalls({"K4": (sm, "shade_adjoint_cuda")}) as rec:
+    with cs.KernelCalls({"K4": (sm, "shade_adjoint_cuda"),
+                         "K2-pair": k2["K2-pair"],
+                         "K2-stash": k2["K2-stash"]}) as rec:
         step()
         torch.cuda.synchronize()
+    calls.update(rec.calls)
     k4 = [cs.cuda_ms(lambda: fn(*args), 5) for fn, args, _ in rec.calls["K4"]]
     out["K4_launch_ms"] = k4
     out["K4_step_ms"] = sum(k4)
+    for mode in ("K2-pair", "K2-stash"):
+        out[f"{mode}_step_ms"] = sum(cs.cuda_ms(lambda: fn(*args), 5)
+                                     for fn, args, _ in calls[mode])
+    if hasattr(cs, "k2_bound_terms"):
+        out["K2_counts"] = k2_counts(cs, mk, calls)
     out["step_ms"] = cs.wall_ms(step, 3)
     torch.cuda.reset_peak_memory_stats(dev)
     step()
     torch.cuda.synchronize()
     out["step_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     return out
+
+
+def k2_counts(cs, mk, calls) -> dict:
+    """K2's bound (ms, by) in each mode, on its launches of the frame or the
+    step, and the tests a lane a sweep needed and modelled for the
+    one-level sweep (``parent_model_tests``) on those launches, from the
+    plain version's record of their sweeps."""
+    plain = {"K2": mk.li_mega_plain, "K2-pair": mk.li_mega_pair_plain,
+             "K2-stash": mk.li_mega_stash_plain}
+    out = {}
+    for mode, launches in calls.items():
+        if mode not in plain:
+            continue
+        nbytes = flops = tests = parent = sweeps = 0
+        for _, args, _ in launches:
+            record = []
+            plain[mode](*args, record=record)
+            b, f, t = cs.k2_bound_terms(args, record, mode == "K2-pair",
+                                        mode == "K2-stash")
+            nbytes += b
+            flops += f
+            tests += t
+            parent += parent_model_tests(args[0], record)
+            sweeps += len(record) * args[5].shape[0]
+        out[f"{mode}_bound"] = cs.bound(nbytes, flops)
+        out[f"{mode}_needed_tests"] = tests / sweeps
+        out[f"{mode}_parent_model_tests"] = parent / sweeps
+    return out
+
+
+def parent_model_tests(tri, record) -> int:
+    """The (ray, triangle) tests that K2 ran before its redesign on the
+    sweeps of ``record``, modelled, not counted (that kernel has no
+    counting build): its one-level sweep of every lane, one thread a lane
+    (ray_n's sweeps, then ray_p's, in pair mode), so that a warp is 32
+    consecutive lanes of one recorded sweep and runs a cluster's 16 tests
+    when any of its lanes enters the cluster's box (``sweep_grouped_plain``
+    at ``CLUSTER``)."""
+    from psdr_jit_tpu_torch.ops import intersect as ix
+
+    tests = 0
+    for s in record:
+        stats = {}
+        ix.sweep_grouped_plain(tri, s.o.unbind(-1), s.d.unbind(-1),
+                               ix.CLUSTER, stats)
+        tests += 32 * stats["warp_tri_tests"]
+    return tests
 
 
 def _this_smoke():
@@ -157,15 +241,19 @@ def main() -> int:
         print(json.dumps(runs[-1]), flush=True)
         print(f"[run] {tree.name or tree}: {time.perf_counter() - t0:.1f} s",
               flush=True)
-    keys = ("K6_frame_ms", "K6_tests_per_ray", "frame_ms", "frame_peak_gb",
-            "K4_step_ms", "step_ms", "step_peak_gb")
+    keys = ("K2_frame_ms", "cbox_frame_ms", "cbox_frame_peak_gb",
+            "K2-pair_step_ms", "K2-stash_step_ms", "K6_frame_ms",
+            "K6_tests_per_ray", "frame_ms", "frame_peak_gb", "K4_step_ms",
+            "step_ms", "step_peak_gb")
     for k in keys:
         print(f"{k:18s} A {statistics.mean([runs[0][k], runs[3][k]]):10.4f} "
               f"({runs[0][k]:.4f}, {runs[3][k]:.4f})  B "
               f"{statistics.mean([runs[1][k], runs[2][k]]):10.4f} "
               f"({runs[1][k]:.4f}, {runs[2][k]:.4f})")
-    for k in ("needed_tests_per_ray", "K6_bound_ms"):
+    for k in ("needed_tests_per_ray", "K6_bound_ms", "K2_counts"):
         print(f"{k:18s} {runs[1].get(k)}")
+    for k in ("ptxas",):
+        print(f"{k:18s} A {runs[0][k]}  B {runs[1][k]}")
     return 0
 
 

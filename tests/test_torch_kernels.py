@@ -7,8 +7,9 @@ imports no JAX (the card's machine has none): run it there with
 
 The kernels are built without FMA contraction (their fmas are explicit and
 the plain versions write the same ones), so K1 must equal its plain version
-bit for bit and K2 in all three modes and K3 must agree with theirs to f32
-rounding; K4 sums its table cotangents across a warp, then with float
+bit for bit and K2 in all three modes (at 32 and 172 triangles, and on a
+case of exact ties through each of its two sweeps) and K3 must agree with
+theirs to f32 rounding; K4 sums its table cotangents across a warp, then with float
 atomics in no fixed order, so it agrees with autograd of the plain K3 to a
 reordered sum. K5 and K6 equal their plain versions and the unculled
 sweep bit for bit. The
@@ -262,6 +263,62 @@ def test_k2_pair_and_stash_match_plain(cuda, depth):
     assert same.float().mean() > 0.999
     assert torch.equal(us[same], us_p[same]) and torch.equal(vs[same],
                                                              vs_p[same])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["pair", "stash"])
+def test_k2_at_172_triangles(cuda, mode):
+    """K2 pair and stash at the top of its scope, the 172-triangle gallery
+    (eleven clusters), against the plain versions: every stashed hit and
+    its barycentrics equal (but for f32 ties), the radiance within 1e-3."""
+    sd = _gallery(cuda, 2, 1, width=32, spp=8).data
+    assert sd.tri.p0.shape[0] == 172 and mk.applicable(sd)
+    tables = mk.build_tables(sd)
+    o, d, sampler = _camera_rays(sd, 8, 2, torch.arange(32 * 32,
+                                                        device=cuda))
+    act = torch.ones(o.shape[0], dtype=torch.bool, device=cuda)
+    act[::5] = False
+    tail = (act, sampler.lane, 2, 3, sampler.cnt)
+    if mode == "pair":
+        args = (*tables, o, d, o.flip(0).contiguous(), d.flip(0).contiguous(),
+                *tail)
+        out, ref = mk.li_mega_pair(*args), mk.li_mega_pair_plain(*args)
+        assert torch.isfinite(out).all() and (out[::5] == 0).all()
+        assert _rel(out, ref) < 1e-3
+        return
+    args = (*tables, o, d, *tail)
+    li, (ids, us, vs) = mk.li_mega_stash(*args)
+    li_p, (ids_p, us_p, vs_p) = mk.li_mega_stash_plain(*args)
+    assert _rel(li, li_p) < 1e-3
+    same = ids == ids_p
+    assert same.float().mean() > 0.999
+    assert torch.equal(us[same], us_p[same]) and torch.equal(vs[same],
+                                                             vs_p[same])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("coherent_sweeps", [1, 0],
+                         ids=["warp_decided", "compacted"])
+def test_k2_tie_case(cuda, coherent_sweeps):
+    """K2 in stash mode at depth 0, used as a closest hit, on the tie case
+    cut to 180 triangles, through each of its two sweeps: the unculled
+    sweep's hits bit for bit, the lowest id of equal distances."""
+    p0, e1, e2, ro, rd, low = (torch.from_numpy(x).to(cuda) for x in
+                               tie_case(n_tri=180, n_pairs=60, seed=3))
+    tri, box = ix.pack_triangles(p0, e1, e2)
+    n = ro.shape[0]
+    _, (ids, us, vs) = mk._launch_k2(
+        "K2-stash", tri, box,
+        torch.zeros((mk.ATTR_ROWS, tri.shape[1]), device=cuda),
+        torch.zeros((mk.LIGHT_ROWS, 1), device=cuda),
+        torch.zeros(2, device=cuda), ro, rd, None,
+        torch.ones(n, dtype=torch.bool, device=cuda),
+        torch.arange(n, device=cuda), 0, 0, 0, False,
+        coherent_sweeps=coherent_sweeps)
+    t, want, u, v = ix.sweep_plain(tri, ro.unbind(-1), rd.unbind(-1))
+    assert torch.equal(ids[0], want) and torch.equal(us[0], u)
+    assert torch.equal(vs[0], v)
+    assert (want == low.to(torch.int32)).float().mean() > 0.5
 
 
 @pytest.mark.gpu
