@@ -7,8 +7,9 @@ Builds the port's kernels from ``psdr_jit_tpu_torch/csrc`` with ``nvcc``,
 holds each kernel against its plain PyTorch version on the card (K1; K2 in
 its single, pair and stash modes, also at the 172 triangles of a small
 gallery and on exact ties through both of its sweeps; K3, the attached
-shade; K4, its adjoint; K5, the streamed super-block sweep; K6, the tree
-traversal), checks a
+shade; K4, its adjoint; K5, the tree walk on a tree split by surface area,
+also at the top of its range and on exact ties; K6, the same walk on a
+tree split at the middle), checks a
 32x32 render against ``tests/golden_cbox32.npy``, then drives three main
 paths at full size as a user would, each with the launch counts set to 0
 just before it and read just after:
@@ -41,6 +42,7 @@ JSON record. Exits non-zero when no CUDA card is visible. Imports no JAX.
 
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -176,8 +178,9 @@ TRI_BYTES = 36
 def ptxas_report(kernel: str, report: str | None = None) -> str:
     """Registers, stack and spills of each compiled instance of ``kernel``
     in ptxas's ``report`` (by default that of the package's build,
-    ``ptxas.txt``), as ``"<template argument>:<registers>r/<stack>B/<spill
-    stores>+<spill loads>B"`` joined by commas."""
+    ``ptxas.txt``), as ``"<template arguments>:<registers>r/<stack>B/<spill
+    stores>+<spill loads>B"`` joined by commas (the arguments joined by
+    ``-``, ``-`` alone for none)."""
     import re
 
     from psdr_jit_tpu_torch.ops import _cuda
@@ -200,8 +203,10 @@ def ptxas_report(kernel: str, report: str | None = None) -> str:
             continue
         m = re.search(r"Used (\d+) registers", ln)
         if m and stack is not None:
-            args = re.search(kernel + r"IL\w(\d+)EE", name)
-            out.append(f"{args.group(1) if args else '-'}:{m.group(1)}r/"
+            args = re.search(kernel + r"I((?:L\w\d+E)+)E", name)
+            args = ("-".join(re.findall(r"L\w(\d+)E", args.group(1)))
+                    if args else "-")
+            out.append(f"{args}:{m.group(1)}r/"
                        f"{stack[0]}B/{stack[1]}+{stack[2]}B")
             name = stack = None
     return ",".join(out)
@@ -278,6 +283,19 @@ def triangle_box_tests(p0, e1, e2, o, d, t, active=None, cluster: int = 64,
         total += int((box_visit(lo[j], hi[j], o[r, None], inv[r, None],
                                 t[r, None]) & ok).sum())
     return total
+
+
+def hit_bound_terms(p0, e1, e2, o, d, t, active=None):
+    """``(bytes, operations, tests)`` of one closest-hit launch for its
+    bound, whatever kernel computes it (K1, K5, K6): the rays in and the
+    hits out (``RAY_BYTES``, and a byte for the active flag where the
+    launch reads one: K5 and K6, not K1) and ``TRI_BYTES`` a triangle,
+    each once, and ``TEST_FLOPS`` for each test that any hierarchy of
+    boxes must make (``triangle_box_tests``)."""
+    tests = triangle_box_tests(p0, e1, e2, o, d, t, active)
+    ray_bytes = RAY_BYTES + (active is not None)
+    return (o.shape[0] * ray_bytes + TRI_BYTES * p0.shape[0],
+            tests * TEST_FLOPS, tests)
 
 
 def k2_bound_terms(args, record, pair: bool, stash: bool):
@@ -813,7 +831,9 @@ class KernelCalls:
     ``sites`` (``{name: (module, wrapper name)}``; by default K2-stash, K3,
     K4 and K2-pair) while active, by wrapping the module globals their
     dispatchers call, so each launch of a run can be held against its plain
-    version on exactly the inputs the run gave it."""
+    version on exactly the inputs the run gave it. A recorded function
+    keeps the keyword arguments of its call (the tree walk's
+    ``kernel``)."""
 
     def __init__(self, sites=None):
         from psdr_jit_tpu_torch.ops import megakernel as mk
@@ -834,12 +854,14 @@ class KernelCalls:
     def _recorded(self, kernel, fn):
         import torch
 
-        def wrapper(*args):
-            out = fn(*args)
+        def wrapper(*args, **kwargs):
+            out = fn(*args, **kwargs)
             # a copy: autograd may add into a cotangent the kernel returned
             kept = torch.utils._pytree.tree_map(
                 lambda t: t.clone() if isinstance(t, torch.Tensor) else t, out)
-            self.calls[kernel].append((fn, args, kept))
+            self.calls[kernel].append(
+                (functools.partial(fn, **kwargs) if kwargs else fn, args,
+                 kept))
             return out
         return wrapper
 
@@ -1094,19 +1116,19 @@ def require_agreement(what: str, a: dict):
             f"{what}: hits differ from the plain version beyond f32 ties")
 
 
-def k5_plain(tri, box, o, d, active):
-    """K5's plain version with K5's signature: the unculled sweep."""
-    import torch
+def k5_plain(tree, o, d, active):
+    """K5's plain version with the walk's signature: the unculled sweep of
+    the tree's triangles."""
     from psdr_jit_tpu_torch.ops import intersect as ix
 
-    t, ids, u, v = ix.sweep_plain(tri, o.unbind(-1), d.unbind(-1))
-    t, ids, u, v = (torch.where(active, x, m)
-                    for x, m in zip((t, ids, u, v), ix.miss_like(t)))
-    return t, ids, torch.stack([u, v], dim=-1)
+    tri = tree.tri4
+    ids, _, uv, t = ix.ray_intersect_brute(tri[:, 0:3], tri[:, 3:6],
+                                           tri[:, 6:9], o, d, active)
+    return t, ids, uv
 
 
 def k6_plain(h, o, d, active, stats=None):
-    """K6's plain version with K6's signature."""
+    """K6's plain version with the walk's signature."""
     from psdr_jit_tpu_torch.ops import bvh
 
     ids, _, uv, t = bvh.ray_intersect_bvh_plain(h, o, d, active, stats)
@@ -1115,31 +1137,33 @@ def k6_plain(h, o, d, active, stats=None):
 
 class PlainRoute:
     """Sends K5's and K6's launches to their plain versions, on the card's
-    tensors, while active (by replacing the module globals the routing
-    calls), so a render can be repeated with only the kernels swapped."""
+    tensors, while active (by replacing the module global the routing
+    calls, ``bvh.walk_cuda``), so a render can be repeated with only the
+    kernels swapped."""
 
     def __enter__(self):
         from psdr_jit_tpu_torch.ops import bvh
-        from psdr_jit_tpu_torch.ops import intersect as ix
 
-        self.saved = [(ix, "intersect_super_cuda", ix.intersect_super_cuda),
-                      (bvh, "bvh_cuda", bvh.bvh_cuda)]
-        ix.intersect_super_cuda = k5_plain
-        bvh.bvh_cuda = k6_plain
+        self.saved = bvh.walk_cuda
+
+        def plain(tree, o, d, active, kernel="K6"):
+            return (k5_plain if kernel == "K5" else k6_plain)(tree, o, d,
+                                                              active)
+        bvh.walk_cuda = plain
         return self
 
     def __exit__(self, *exc):
-        for m, n, fn in self.saved:
-            setattr(m, n, fn)
+        from psdr_jit_tpu_torch.ops import bvh
+
+        bvh.walk_cuda = self.saved
 
 
-def intersect_record(name, source, replaces, calls, plain, tests_of,
-                     table_bytes):
-    """Hold each recorded launch ``(fn, args, (t, id, uv))`` of an
-    intersection kernel against its plain version on the same inputs and
-    time both: ``(record for the kernels' JSON, agreement, needed tests,
-    each launch's ms)``. ``tests_of(args, t)`` counts a launch's needed
-    tests, ``table_bytes(args)`` the bytes of the scene it must read."""
+def intersect_record(name, source, replaces, calls, plain):
+    """Hold each recorded launch ``(fn, args, (t, id, uv))`` of a tree walk
+    (K5, K6: ``args = (tree, o, d, active)``) against its plain version on
+    the same inputs and time both: ``(record for the kernels' JSON,
+    agreement, needed tests, each launch's ms)``, the bound from
+    ``hit_bound_terms``."""
     ms = plain_ms = 0.0
     launch_ms = []
     nbytes = flops = 0
@@ -1160,8 +1184,11 @@ def intersect_record(name, source, replaces, calls, plain, tests_of,
         launch_ms.append(cuda_ms(lambda: fn(*args), 3))
         ms += launch_ms[-1]
         plain_ms += p_ms
-        nbytes += out[0].shape[0] * (RAY_BYTES + 1) + table_bytes(args)
-        flops += tests_of(args, out[0]) * TEST_FLOPS
+        tri = args[0].tri4
+        b, f, _ = hit_bound_terms(tri[:, 0:3], tri[:, 3:6], tri[:, 6:9],
+                                  *args[1:3], out[0], args[3])
+        nbytes += b
+        flops += f
     bound_ms, bound_by = bound(nbytes, flops)
     rec = dict(name=name, route="cuda", source=source, replaces=replaces,
                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -1184,55 +1211,88 @@ def large_scene_phases(kernels, dev, gen) -> dict:
     n_pix = W * H
     lanes = n_pix * SPP
     integ = pt.PathTracer(LARGE_DEPTH)
-    k5_src, k6_src = ("psdr_jit_tpu_torch/csrc/intersect_super.cu",
-                      "psdr_jit_tpu_torch/csrc/bvh.cu")
+    k5_src = k6_src = "psdr_jit_tpu_torch/csrc/bvh.cu"
     k5_rep, k6_rep = ("psdr_jit_tpu/ops/intersect_pallas.py:234",
                       "psdr_jit_tpu/ops/bvh.py:309")
 
-    def k5_tests(args, t):
-        tab, box, o, d, act = args
+    def cluster_tests(tree, o, d, t, act):
+        """The tests of the parent K5's shape: the 16-triangle clusters a
+        ray enters before its hit, times 16 (``needed_tests``)."""
+        _, box = ix.pack_triangles(tree.tri4[:, 0:3], tree.tri4[:, 3:6],
+                                   tree.tri4[:, 6:9])
         lo, hi = ix.widen_boxes(box[:3].T, box[3:].T)
         return needed_tests(lo, hi, ix.CLUSTER, o, d, t, act)
 
-    def k6_tests(args, t):
-        h, o, d, act = args
-        return triangle_box_tests(h.tri4[:, 0:3], h.tri4[:, 3:6],
-                                  h.tri4[:, 6:9], o, d, t, act)
+    k5_walk = functools.partial(bvh.walk_cuda, kernel="K5")
 
-    def k5_bytes(args):
-        return 4 * (args[0].numel() + args[1].numel())
-
-    def k6_bytes(args):
-        return TRI_BYTES * args[0].tri4.shape[0]
-
-    def k6_counted(args):
-        """K6's own (triangle tests, node visits) for a launch's inputs,
-        from its counting build, outside any counted run."""
+    def walk_counted(args, kernel):
+        """K5's or K6's own (triangle tests, node visits) for a launch's
+        inputs, from the walk's counting build, outside any counted
+        run."""
         c = torch.zeros((args[1].shape[0], 2), dtype=torch.int32,
                         device=dev)
-        bvh.bvh_cuda(*args, counts=c)
+        bvh.walk_cuda(*args, counts=c, kernel=kernel)
         return c.sum(0).tolist()
 
-    # ---- [K5]: the 1,292-triangle gallery ----------------------------------
+    def k5_check(phase, sd, ties: bool):
+        """[K5] and [K5-top]: K5 on ``CHECK_RAYS`` mixed rays against the
+        scene data ``sd``, bit for bit against its plain version (and, with
+        ``ties``, on the tie case in two visit orders). Returns the K5
+        record for the kernels' JSON."""
+        f = sd.tri.p0.shape[0]
+        require(ix.K1_MAX_TRIS < f <= ix.K5_MAX_TRIS,
+                f"{phase}: scene out of K5's range")
+        o, d, act = mixed_rays(sd, CHECK_RAYS, gen, dev)
+        args = (sd.bvh, o, d, act)
+        rec, a, tests, _ = intersect_record(
+            "K5", k5_src, k5_rep,
+            [(k5_walk, args, k5_walk(*args))], k5_plain)
+        own_tests, visits = walk_counted(args, "K5")
+        out = k5_walk(*args)
+        extra = {}
+        if ties:
+            tp0, te1, te2, tro, trd, low = (torch.from_numpy(x).to(dev)
+                                            for x in tie_case(3000))
+            tie_tree = ix.routing_tree(tp0, te1, te2)
+            tie_act = torch.ones(tro.shape[0], dtype=torch.bool, device=dev)
+            tie_ref = k5_plain(tie_tree, tro, trd, tie_act)
+            tie_ok = all(hit_agreement(
+                k5_walk(tr, tro, trd, tie_act), tie_ref)["bitwise"]
+                for tr in (tie_tree, swapped_children(tie_tree)))
+            tie_hits = int((tie_ref[1] == low.to(torch.int32)).sum())
+            extra = dict(tie_case_bitwise=tie_ok,
+                         tie_rays_on_lowest_id=tie_hits)
+            require(tie_ok, f"{phase}: the tie case differs from the plain "
+                    "version")
+            require(tie_hits > tro.shape[0] // 2,
+                    f"{phase}: the tie case has few ties")
+        log(phase, rays=o.shape[0], triangles=f, leaf=ix.K5_LEAF,
+            depth=sd.bvh.depth, nodes=sd.bvh.node.shape[0],
+            ptxas=ptxas_report("bvh_kernel"),
+            bitwise_equal_to_plain=a["bitwise"],
+            id_match=f"{a['id_match']:.6f}", mismatches=a["mismatches"],
+            mismatches_are_ties=a["ties_ok"],
+            t_max_rel=f"{a['t_max_rel']:.3e}", **extra, ms=f"{rec['ms']:.4f}",
+            plain_ms=f"{rec['plain_ms']:.4f}",
+            tests_per_ray=f"{own_tests / o.shape[0]:.1f}",
+            node_visits_per_ray=f"{visits / o.shape[0]:.1f}",
+            parent_shape_tests_per_ray=(
+                f"{cluster_tests(sd.bvh, o, d, out[0], act) / o.shape[0]:.1f}"),
+            needed_tests_per_ray=f"{tests / o.shape[0]:.1f}",
+            bound_ms=f"{rec['bound_ms']:.4f}", bound_by=rec["bound_by"])
+        require(a["bitwise"], f"{phase}: not bitwise equal to the plain "
+                "version")
+        require(sd.bvh.depth <= bvh.STACK, f"{phase}: the tree does not fit "
+                "the walk's stack")
+        return rec
+
+    # ---- [K5]: the 1,292-triangle gallery; [K5-top]: 3,852 triangles -------
     mid = pt.Scene.from_arrays(gallery_arrays(W, H, SPP, 4, 2), device=dev)
     sd5 = mid.configure()
     f5 = sd5.tri.p0.shape[0]
-    require(ix.K1_MAX_TRIS < f5 <= ix.K5_MAX_TRIS, "K5 scene out of range")
-    o, d, act = mixed_rays(sd5, CHECK_RAYS, gen, dev)
-    tab, box = ix.pack_triangles(sd5.tri.p0, sd5.tri.e1, sd5.tri.e2, ix.SUPER)
-    args = (tab, box, o, d, act)
-    rec, a, tests, _ = intersect_record(
-        "K5", k5_src, k5_rep,
-        [(ix.intersect_super_cuda, args, ix.intersect_super_cuda(*args))],
-        k5_plain, k5_tests, k5_bytes)
-    log("K5", rays=o.shape[0], triangles=f5, bitwise_equal_to_plain=a[
-        "bitwise"], id_match=f"{a['id_match']:.6f}",
-        mismatches=a["mismatches"], mismatches_are_ties=a["ties_ok"],
-        t_max_rel=f"{a['t_max_rel']:.3e}", ms=f"{rec['ms']:.4f}",
-        plain_ms=f"{rec['plain_ms']:.4f}",
-        tests_per_ray=f"{tests / o.shape[0]:.1f}",
-        bound_ms=f"{rec['bound_ms']:.4f}")
-    require_agreement("K5", a)
+    k5_check("K5", sd5, True)
+    top = pt.Scene.from_arrays(gallery_arrays(64, 64, 32, 12, 2), device=dev)
+    k5_top = k5_check("K5-top", top.configure(), False)
 
     # ---- [K6]: the 102,412-triangle gallery ----------------------------------
     big = pt.Scene.from_arrays(gallery_arrays(W, H, SPP), device=dev)
@@ -1242,7 +1302,7 @@ def large_scene_phases(kernels, dev, gen) -> dict:
     o, d, act = mixed_rays(sd6, CHECK_RAYS, gen, dev)
     torch.cuda.synchronize()
     h, tree_ms = _synced_ms(lambda: sd6.bvh)
-    out = bvh.bvh_cuda(h, o, d, act)
+    out = bvh.walk_cuda(h, o, d, act)
     sub = torch.randperm(o.shape[0], generator=gen, device=dev)[:PLAIN_RAYS]
     sub_args = (h, o[sub].contiguous(), d[sub].contiguous(), act[sub])
     stats = {}
@@ -1254,14 +1314,15 @@ def large_scene_phases(kernels, dev, gen) -> dict:
     tie_tree = bvh.build_bvh(tp0, te1, te2)
     tie_act = torch.ones(tro.shape[0], dtype=torch.bool, device=dev)
     tie_ref = k6_plain(tie_tree, tro, trd, tie_act)
-    tie_ok = all(hit_agreement(bvh.bvh_cuda(tr, tro, trd, tie_act),
+    tie_ok = all(hit_agreement(bvh.walk_cuda(tr, tro, trd, tie_act),
                                tie_ref)["bitwise"]
                  for tr in (tie_tree, swapped_children(tie_tree)))
     tie_hits = int((tie_ref[1] == low.to(torch.int32)).sum())
-    k6_ms = cuda_ms(lambda: bvh.bvh_cuda(h, o, d, act), 10)
-    k6_sub_ms = cuda_ms(lambda: bvh.bvh_cuda(*sub_args), 10)
-    tests = k6_tests((h, o, d, act), out[0])
-    own_tests, visits = k6_counted((h, o, d, act))
+    k6_ms = cuda_ms(lambda: bvh.walk_cuda(h, o, d, act), 10)
+    k6_sub_ms = cuda_ms(lambda: bvh.walk_cuda(*sub_args), 10)
+    tests = hit_bound_terms(h.tri4[:, 0:3], h.tri4[:, 3:6], h.tri4[:, 6:9],
+                            o, d, out[0], act)[2]
+    own_tests, visits = walk_counted((h, o, d, act), "K6")
     log("K6", rays=o.shape[0], triangles=f6, leaf=bvh.LEAF, depth=h.depth,
         ptxas=ptxas_report("bvh_kernel"),
         tree_build_ms=f"{tree_ms:.2f}", plain_rays=sub.shape[0],
@@ -1325,19 +1386,19 @@ def large_scene_phases(kernels, dev, gen) -> dict:
     require(crop_exact, "large renderC: crop rows differ from the frame")
 
     # ---- [large-frame]: every K6 launch of a frame against its plain version -
-    with KernelCalls({"K6": (bvh, "bvh_cuda")}) as rec_calls:
+    with KernelCalls({"K6": (bvh, "walk_cuda")}) as rec_calls:
         integ.renderC(big, 0, seed=SEED)
         torch.cuda.synchronize()
     calls = rec_calls.calls["K6"]
     require(len(calls) == (1 + 2 * LARGE_DEPTH) * chunks,
             "large-frame: K6 launches != 5 a chunk")
     k6, a, tests, k6_launch_ms = intersect_record(
-        "K6 tree traversal", k6_src, k6_rep, calls, k6_plain, k6_tests,
-        k6_bytes)
+        "K6 tree traversal", k6_src, k6_rep, calls, k6_plain)
     require_agreement("large-frame", a)
     require(a["bitwise"], "large-frame: K6 not bitwise equal to its plain "
             "traversal")
-    own = [sum(x) for x in zip(*(k6_counted(c[1]) for c in calls))]
+    own = [sum(x) for x in zip(*(walk_counted(c[1], "K6")
+                                 for c in calls))]
     frame_ms = wall_ms(lambda: integ.renderC(big, 0, seed=SEED), 3)
     torch.cuda.reset_peak_memory_stats(dev)
     integ.renderC(big, 0, seed=SEED)
@@ -1369,16 +1430,20 @@ def large_scene_phases(kernels, dev, gen) -> dict:
     # ---- [K5-frame]: renderC of the 1,292-triangle gallery through K5 --------
     torch.cuda.synchronize()
     with PlainCalls() as plain, KernelCalls(
-            {"K5": (ix, "intersect_super_cuda")}) as rec_calls:
+            {"K5": (bvh, "walk_cuda")}) as rec_calls:
         _cuda.reset_launches()
         img5 = integ.renderC(mid, 0, seed=SEED)
         torch.cuda.synchronize()
         launches5 = dict(_cuda.LAUNCHES)
     with PlainRoute():
         img5_plain = integ.renderC(mid, 0, seed=SEED)
+    k5_calls = rec_calls.calls["K5"]
     k5, a, tests, _ = intersect_record(
-        "K5 streamed super-block sweep", k5_src, k5_rep,
-        rec_calls.calls["K5"], k5_plain, k5_tests, k5_bytes)
+        "K5 tree walk, surface-area tree", k5_src, k5_rep, k5_calls,
+        k5_plain)
+    own5 = [sum(x) for x in zip(*(walk_counted(c[1], "K5")
+                                  for c in k5_calls))]
+    n_rays5 = sum(c[2][0].shape[0] for c in k5_calls)
     k5_frame_ms = wall_ms(lambda: integ.renderC(mid, 0, seed=SEED), 3)
     log("K5-frame", triangles=f5, K5_LAUNCHES=launches5["K5"],
         chunks=chunks, plain_calls=plain.count,
@@ -1387,7 +1452,10 @@ def large_scene_phases(kernels, dev, gen) -> dict:
         launches_bitwise=a["bitwise"], K5_ms=f"{k5['ms']:.3f}",
         K5_plain_ms=f"{k5['plain_ms']:.1f}",
         K5_bound_ms=f"{k5['bound_ms']:.4f}", K5_bound_by=k5["bound_by"],
-        ms=f"{k5_frame_ms:.2f}")
+        tests_per_ray=f"{own5[0] / n_rays5:.1f}",
+        node_visits_per_ray=f"{own5[1] / n_rays5:.1f}",
+        needed_tests_per_ray=f"{tests / n_rays5:.1f}",
+        K5_top_ms=f"{k5_top['ms']:.4f}", ms=f"{k5_frame_ms:.2f}")
     require(launches5["K5"] == (1 + 2 * LARGE_DEPTH) * chunks,
             "K5-frame: K5 launches != 5 a chunk")
     require(all(v == 0 for k, v in launches5.items() if k != "K5"),
@@ -1397,7 +1465,8 @@ def large_scene_phases(kernels, dev, gen) -> dict:
             "K5-frame: non-finite or black image")
     require(rel_l1(img5, img5_plain) < 1e-6,
             "K5-frame: the render differs from its plain-version render")
-    require_agreement("K5-frame", a)
+    require(a["bitwise"], "K5-frame: K5 not bitwise equal to its plain "
+            "version")
     kernels["K5"] = k5
     return {"K5": launches5["K5"], "K6": launches["K6"]}
 
@@ -1500,17 +1569,18 @@ def main() -> int:
     k1_ms = cuda_ms(lambda: ix.intersect_cuda(tri_tab, box_tab, o1, d1), 20)
     k1_plain_ms = cuda_ms(lambda: ix.ray_intersect_brute(
         tri.p0, tri.e1, tri.e2, o1, d1), 5)
+    k1_bytes, k1_flops, k1_tests = hit_bound_terms(tri.p0, tri.e1, tri.e2,
+                                                   o1, d1, t_c)
+    k1_bound = bound(k1_bytes, k1_flops)
     log("K1", rays=n1, bitwise_equal_to_plain=bitwise,
         id_match=f"{match:.6f}", mismatches=int(ties.sum()),
         mismatches_are_ties=tie_ok, t_max_rel=f"{t_rel:.3e}",
         ms=f"{k1_ms:.4f}", plain_ms=f"{k1_plain_ms:.4f}",
-        ms_pick_rays=f"{k1_ms_main:.4f}")
+        ms_pick_rays=f"{k1_ms_main:.4f}",
+        needed_tests_per_ray=f"{k1_tests / n1:.2f}",
+        bound_ms=f"{k1_bound[0]:.4f}", bound_by=k1_bound[1])
     require(match >= 0.999 and tie_ok, "K1: ids differ beyond f32 ties")
     require(t_rel <= 1e-5, "K1: t differs beyond rtol 1e-5")
-    lo, hi = ix.widen_boxes(box_tab[:3].T, box_tab[3:].T)
-    k1_bound = bound(n1 * RAY_BYTES + 4 * (tri_tab.numel() + box_tab.numel()),
-                     needed_tests(lo, hi, ix.CLUSTER, o1, d1, t_c)
-                     * TEST_FLOPS)
     kernels["K1"] = dict(
         name="K1 closest-hit sweep", route="cuda",
         source="psdr_jit_tpu_torch/csrc/intersect.cu",

@@ -2,7 +2,9 @@
 // traversal of a binary tree over the Morton-ordered triangles: leaves of a
 // few consecutive ids, each internal node holding its two children's widened
 // boxes and links (built once per scene compile by
-// psdr_jit_tpu_torch/ops/bvh.py build_bvh).
+// psdr_jit_tpu_torch/ops/bvh.py build_bvh). K5, the closest hit for 512 < F
+// <= 4096, is this kernel on a tree of its own, split by surface area
+// (psdr_jit_tpu_torch/ops/intersect.py intersect_super_cuda).
 //
 // Replaces the TPU kernel _kernel_indexed / _call_indexed of
 // psdr_jit_tpu/ops/bvh.py (:253-353) and the machinery around it (ray sort,

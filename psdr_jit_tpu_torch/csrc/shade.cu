@@ -32,8 +32,16 @@
 //    array of the lane's state sits in local memory (what is left there is
 //    spill at the 128-register cap).
 //
-// What bounds them on an H100: arithmetic. K3 reads 12 B per hit and 28 B
-// per lane and does ~250 f32 operations per depth; K4 recomputes the
+// What bounds them on an H100: instructions. K3 reads 12 B per hit and 29 B
+// per lane and writes 12, which a copy of its reads and writes moves in
+// under half its time; the rest is issuing its instructions, a dozen for
+// each IEEE division or square root (some twenty a depth; nvcc contracts
+// nothing, so the plain version's bits hold). So K3's lanes leave the depth
+// loop once their path is dead, the depths take the two lane-invariant
+// reciprocals from Scalars and compute safe_div(a, a) without dividing,
+// and five blocks share an SM (PERF.md). A persistent grid, an unrolled
+// depth loop, loading the next depth's hits early and compacting a block's
+// live paths through shared memory each made it slower. K4 recomputes the
 // forward and sweeps back through it, adding up to ~60 cotangents a depth.
 // Added lane by lane, those shared-memory atomics took 18 of K4's 21.8 ms a
 // training step: a pixel's 32 samples (one warp) share their camera hit and
@@ -50,7 +58,9 @@ using psdr::V3;
 namespace sh = psdr::shade;
 
 constexpr int kThreads = 256;
-// K4 caps its registers at 128 a thread so that two blocks fit an SM.
+// K3 caps its registers at 48 a thread so that five blocks fit an SM (a few
+// bytes spill), K4 at 128 so that two do.
+constexpr int kFwdBlocksPerSm = 5;
 constexpr int kBwdBlocksPerSm = 2;
 
 __device__ __forceinline__ void stage(const float* __restrict__ table_g,
@@ -64,14 +74,18 @@ __device__ __forceinline__ void stage(const float* __restrict__ table_g,
   for (int k = threadIdx.x; k < sh::kMisc; k += blockDim.x) s_misc[k] = misc_g[k];
 }
 
-__device__ __forceinline__ sh::Lane lane_of(const float* s_light, const float* s_misc,
+__device__ __forceinline__ sh::Lane lane_of(const float* s_light, const sh::Scalars& m,
                                             int n_light, uint32_t lane, uint32_t seed,
                                             int cnt0, int hide_emitters) {
   return sh::Lane{lane, seed, static_cast<uint32_t>(cnt0), hide_emitters != 0, s_light,
-                  n_light, sh::Scalars{s_misc[0], s_misc[1], s_misc[2], s_misc[3]}};
+                  n_light, m};
 }
 
-__global__ void __launch_bounds__(kThreads)
+// K3: one thread a lane, one block for each kThreads lanes. A path that is
+// no longer active adds nothing at the depths after (NEE and the bounce
+// both require it), so its lane leaves the depth loop and reads none of
+// their hits; a warp leaves when all its lanes have.
+__global__ void __launch_bounds__(kThreads, kFwdBlocksPerSm)
     shade_fwd_kernel(const float* __restrict__ table_g, const float* __restrict__ light_g,
                      const float* __restrict__ misc_g, int n_tab, int n_light,
                      const int* __restrict__ ids, const float* __restrict__ us,
@@ -87,19 +101,29 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const sh::Lane ln = lane_of(s_light, s_misc, n_light, lanes[i], seed, cnt0, hide_emitters);
-  const V3 res = sh::lane_forward(ln, s_table, ids, us, vs, n, i,
-                                  {ray_o[3 * i], ray_o[3 * i + 1], ray_o[3 * i + 2]},
-                                  {ray_d[3 * i], ray_d[3 * i + 1], ray_d[3 * i + 2]},
-                                  act[i] != 0, depth);
+  const sh::Lane ln =
+      lane_of(s_light, sh::scalars_of(s_misc), n_light, lanes[i], seed, cnt0, hide_emitters);
+  const sh::Camera c = sh::camera_forward(sh::load_hit(s_table, ids[i], us[i], vs[i]),
+                                          {ray_o[3 * i], ray_o[3 * i + 1], ray_o[3 * i + 2]},
+                                          {ray_d[3 * i], ray_d[3 * i + 1], ray_d[3 * i + 2]},
+                                          act[i] != 0, ln.hide_emitters);
+  V3 res = sh::camera_emission(c);
+  sh::DepthIn in = sh::camera_in(c);
+  for (int k = 0; k < depth && in.active; ++k) {
+    const sh::DepthFwd s =
+        sh::depth_forward(ln, in, k, sh::nee_hit(s_table, ids, us, vs, n, i, k),
+                          sh::bounce_hit(s_table, ids, us, vs, n, i, k));
+    res = add3(add3(res, s.nee), s.bounce);
+    in = s.next;
+  }
   out[3 * i] = res.x;
   out[3 * i + 1] = res.y;
   out[3 * i + 2] = res.z;
 }
 
-// A persistent grid: about as many blocks as the SMs hold, each looping over
-// lanes, so each block stages the tables, zeroes its partials and flushes
-// them once per launch.
+// K4 runs a persistent grid: about as many blocks as the SMs hold, each
+// looping over lanes, so that each block stages the tables, zeroes its
+// partials and flushes them once per launch.
 template <int DEPTH>
 __global__ void __launch_bounds__(kThreads, kBwdBlocksPerSm)
     shade_bwd_kernel(const float* __restrict__ table_g, const float* __restrict__ light_g,
@@ -123,11 +147,11 @@ __global__ void __launch_bounds__(kThreads, kBwdBlocksPerSm)
   __syncthreads();
   const sh::Grads gr{p_all, p_all + n_tab * sh::kRows,
                      p_all + n_tab * sh::kRows + sh::kLightRows * n_light, n_light};
+  const sh::Scalars m = sh::scalars_of(s_misc);
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
        i += stride) {
-    const sh::Lane ln =
-        lane_of(s_light, s_misc, n_light, lanes[i], seed, cnt0, hide_emitters);
+    const sh::Lane ln = lane_of(s_light, m, n_light, lanes[i], seed, cnt0, hide_emitters);
     V3 go, gd;
     sh::lane_backward<DEPTH>(ln, s_table, ids, us, vs, n, i,
                              {ray_o[3 * i], ray_o[3 * i + 1], ray_o[3 * i + 2]},

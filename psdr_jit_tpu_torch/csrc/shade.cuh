@@ -214,9 +214,25 @@ PSDR_HD float safe_sqrt_bwd(float x, float g) {
   return (x >= kTiny && g != 0.0f) ? g * 0.5f / sqrtf(x) : 0.0f;
 }
 
+// The misc scalars, with the two reciprocals that every depth uses taken
+// once: inv_ps_pdf = safe_div(1, ps_pdf), inv_total_area = safe_div(1,
+// total_area).
 struct Scalars {
   float total_mass, total_area, sampling_weight, ps_pdf;
+  float inv_ps_pdf, inv_total_area;
 };
+
+PSDR_HD Scalars scalars_of(const float* misc) {
+  return {misc[0], misc[1], misc[2], misc[3], safe_div(1.0f, misc[3]),
+          safe_div(1.0f, misc[1])};
+}
+
+// safe_div(a, a) without its division: x / x is exactly 1 for a finite
+// nonzero x and NaN for an infinite one (K3 is bound by its instructions,
+// and an IEEE division is a dozen of them; PERF.md).
+PSDR_HD float self_ratio(float a) {
+  return fabsf(a) > kTiny ? (fabsf(a) <= 3.40282347e38f ? 1.0f : a - a) : 0.0f;
+}
 
 struct Lane {
   uint32_t lane, seed, cnt0;
@@ -318,7 +334,7 @@ PSDR_HD DepthFwd depth_forward(const Lane& ln, const DepthIn& in, int i, const H
   const V3 pl{p0l.x + s.e1l.x * s.b0 + s.e2l.x * s.b1,
               p0l.y + s.e1l.y * s.b0 + s.e2l.y * s.b1,
               p0l.z + s.e1l.z * s.b0 + s.e2l.z * s.b1};
-  s.ps_j = safe_div(s.area_l, s.area_l);
+  s.ps_j = self_ratio(s.area_l);
   bool active_direct = in.active && !(in.valid && in.isem);
   s.w = sub3(pl, in.p);
   s.dist_sqr = dot3(s.w, s.w);
@@ -337,7 +353,7 @@ PSDR_HD DepthFwd depth_forward(const Lane& ln, const DepthIn& in, int i, const H
   s.cos_o = dot3(in.sh_n, s.wodn);
   s.ev_ok = active_direct && in.wi_z > 0.0f && s.cos_o > 0.0f;
   s.sc1 = s.ev_ok ? kInvPi * s.cos_o : 0.0f;
-  s.sc2 = s.g_val * s.ps_j * safe_div(1.0f, ln.m.ps_pdf);
+  s.sc2 = s.g_val * s.ps_j * ln.m.inv_ps_pdf;
   s.bsdf_scale = s.sc1 * s.sc2;
   const float pdf1 = (s.ev_ok ? kInvPi * s.cos_o : 0.0f) * s.g_val;
   s.ok_nee = active_direct && pdf1 != 0.0f;
@@ -360,7 +376,7 @@ PSDR_HD DepthFwd depth_forward(const Lane& ln, const DepthIn& in, int i, const H
   s.cos_val2 = -dot3(row3(f2.r, kFn), s.wo);
   s.den2 = s.t2 * s.t2;
   s.g2r = safe_div(fabsf(s.cos_val2), s.den2);
-  s.j2 = f2.valid ? safe_div(f2.r[kArea], f2.r[kArea]) : 1.0f;
+  s.j2 = f2.valid ? self_ratio(f2.r[kArea]) : 1.0f;
   s.g2 = f2.valid ? s.g2r : 1.0f;
   s.pdf0 = bs_pdf * s.g2;
   s.active2 = in.active && in.wi_z > 0.0f && f2.valid;
@@ -371,7 +387,7 @@ PSDR_HD DepthFwd depth_forward(const Lane& ln, const DepthIn& in, int i, const H
   s.x = s.g2 * s.j2 * s.ipdf0;
   s.tmask = s.t2 < kEpsilon;
   s.bvs = s.tmask ? 0.0f : s.ev_scale * s.x;
-  s.inva = safe_div(1.0f, ln.m.total_area);
+  s.inva = ln.m.inv_total_area;
   s.e_pdf = (s.active2 && f2.isem()) ? ln.m.sampling_weight * s.inva : 0.0f;
   s.weight2 = mis_weight(s.pdf0, s.e_pdf);
   s.thr2 = scale3(mul3(in.thr, in.alb), s.bvs);
@@ -495,7 +511,7 @@ PSDR_HD DepthGrad depth_backward(const Lane& ln, const DepthIn& in, const DepthF
   if (d_bs == 0.0f) return g;
   const float d_sc1 = d_bs * s.sc2;
   const float d_sc2 = d_bs * s.sc1;
-  const float d_gp = d_sc2 * safe_div(1.0f, ln.m.ps_pdf);
+  const float d_gp = d_sc2 * ln.m.inv_ps_pdf;
   const float d_gval = d_gp * s.ps_j;
   float d_area_l = 0.0f;
   safe_div_bwd(s.area_l, s.area_l, d_gp * s.g_val, &d_area_l, nullptr);
@@ -536,35 +552,39 @@ PSDR_HD DepthGrad depth_backward(const Lane& ln, const DepthIn& in, const DepthF
   return g;
 }
 
-// The attached Li of one lane (K3). hits: ids/us/vs of (1 + 2 depth, n).
-PSDR_HD V3 lane_forward(const Lane& ln, const float* table, const int* ids, const float* us,
-                        const float* vs, long long n, long long i, V3 o, V3 d, bool act,
-                        int depth) {
-  const Camera c = camera_forward(load_hit(table, ids[i], us[i], vs[i]), o, d, act,
-                                  ln.hide_emitters);
-  V3 res = c.ok_emit ? row3(c.f0.r, kEmit) : V3{0.0f, 0.0f, 0.0f};
-  DepthIn in{c.p, c.sh_n, row3(c.f0.r, kAlb), {1.0f, 1.0f, 1.0f}, c.wi_z, c.active,
-             c.f0.valid, c.f0.isem()};
-  for (int k = 0; k < depth; ++k) {
-    const long long a = (1 + 2 * k) * n + i, b = (2 + 2 * k) * n + i;
-    const DepthFwd s = depth_forward(ln, in, k, load_hit(table, ids[a], us[a], vs[a]),
-                                     load_hit(table, ids[b], us[b], vs[b]));
-    res = add3(add3(res, s.nee), s.bounce);
-    in = s.next;
-  }
-  return res;
+// The camera hit's part of the attached Li (K3): its emission toward the
+// camera, and the first depth's inputs (K3 and K4).
+PSDR_HD V3 camera_emission(const Camera& c) {
+  return c.ok_emit ? row3(c.f0.r, kEmit) : V3{0.0f, 0.0f, 0.0f};
+}
+PSDR_HD DepthIn camera_in(const Camera& c) {
+  return {c.p, c.sh_n, row3(c.f0.r, kAlb), {1.0f, 1.0f, 1.0f}, c.wi_z, c.active,
+          c.f0.valid, c.f0.isem()};
 }
 
-// The adjoint of lane_forward for the cotangent ct (K4): table, light and
-// misc cotangents into `gr`, the ray's into *d_o, *d_d.
+// Depth k's two stashed hits of lane i: NEE (row 1 + 2k) and bounce (2 + 2k).
+PSDR_HD Hit nee_hit(const float* table, const int* ids, const float* us, const float* vs,
+                    long long n, long long i, int k) {
+  const long long a = (1 + 2 * k) * n + i;
+  return load_hit(table, ids[a], us[a], vs[a]);
+}
+PSDR_HD Hit bounce_hit(const float* table, const int* ids, const float* us, const float* vs,
+                       long long n, long long i, int k) {
+  const long long b = (2 + 2 * k) * n + i;
+  return load_hit(table, ids[b], us[b], vs[b]);
+}
+
+// The adjoint of the attached Li of lane i (the camera hit, then depth by
+// depth: camera_emission, depth_forward's nee and bounce) for the cotangent
+// ct (K4): table, light and misc cotangents into `gr`, the ray's into *d_o,
+// *d_d.
 template <int DEPTH>
 PSDR_HD void lane_backward(const Lane& ln, const float* table, const int* ids, const float* us,
                            const float* vs, long long n, long long i, V3 o, V3 d, bool act,
                            V3 ct, const Grads& gr, V3* d_o, V3* d_d) {
   const Camera c = camera_forward(load_hit(table, ids[i], us[i], vs[i]), o, d, act,
                                   ln.hide_emitters);
-  const DepthIn in0{c.p, c.sh_n, row3(c.f0.r, kAlb), {1.0f, 1.0f, 1.0f}, c.wi_z, c.active,
-                    c.f0.valid, c.f0.isem()};
+  const DepthIn in0 = camera_in(c);
   // Depth k's inputs are recomputed from the camera hit before its adjoint
   // (k forwards) rather than kept for every depth: D (D + 1) / 2 forwards,
   // as many as keeping them and recomputing each depth's locals, with no
@@ -573,14 +593,12 @@ PSDR_HD void lane_backward(const Lane& ln, const float* table, const int* ids, c
   for (int k = DEPTH - 1; k >= 0; --k) {
     DepthIn in = in0;
     for (int m = 0; m < k; ++m) {
-      const long long a = (1 + 2 * m) * n + i, b = (2 + 2 * m) * n + i;
-      in = depth_forward(ln, in, m, load_hit(table, ids[a], us[a], vs[a]),
-                         load_hit(table, ids[b], us[b], vs[b]))
+      in = depth_forward(ln, in, m, nee_hit(table, ids, us, vs, n, i, m),
+                         bounce_hit(table, ids, us, vs, n, i, m))
                .next;
     }
-    const long long a = (1 + 2 * k) * n + i, b = (2 + 2 * k) * n + i;
-    const DepthFwd s = depth_forward(ln, in, k, load_hit(table, ids[a], us[a], vs[a]),
-                                     load_hit(table, ids[b], us[b], vs[b]));
+    const DepthFwd s = depth_forward(ln, in, k, nee_hit(table, ids, us, vs, n, i, k),
+                                     bounce_hit(table, ids, us, vs, n, i, k));
     g = depth_backward(ln, in, s, ct, g, gr);
   }
   // ---- camera hit, in reverse ----

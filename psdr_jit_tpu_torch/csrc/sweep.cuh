@@ -1,10 +1,10 @@
 // The closest-hit sweep: THE ray/triangle hit test and THE box slab test
-// of the port, shared by K1 (intersect.cu), K2 (megakernel.cu), K5
-// (intersect_super.cu) and K6 (bvh.cu) so that the epsilon, culling and tie
-// policy cannot drift between them. Counterpart of sweep_block in
-// psdr_jit_tpu/ops/intersect_pallas.py; its plain PyTorch version is
-// sweep_plain in psdr_jit_tpu_torch/ops/intersect.py. K1 and K5 run sweep()
-// below, K2 its two culled sweeps (sweep_grouped, sweep_queued), K6 a tree.
+// of the port, shared by K1 (intersect.cu), K2 (megakernel.cu), K5 and K6
+// (bvh.cu) so that the epsilon, culling and tie policy cannot drift between
+// them. Counterpart of sweep_block in psdr_jit_tpu/ops/intersect_pallas.py;
+// its plain PyTorch version is sweep_plain in
+// psdr_jit_tpu_torch/ops/intersect.py. K1 runs sweep() below, K2 its two
+// culled sweeps (sweep_grouped, sweep_queued), K5 and K6 a tree.
 //
 // Tables (one float per entry, component-major, staged in shared memory):
 //   tri (9, f_pad):  p0.xyz, e1.xyz, e2.xyz of each triangle; f_pad is a
@@ -14,9 +14,9 @@
 // Hit test (reference utils.h:83-93): Moller-Trumbore with |a| > 1e-12,
 // u >= 0, v >= 0, u + v <= 1, t > RAY_EPSILON and t < best. Triangles are
 // visited in ascending id and a hit must be strictly closer, so ties go to
-// the lowest id, as in the plain version's argmin. K6, whose tree visits
-// triangles in no fixed order, keeps the same hit with its own variants
-// (hit_test_any_order, box_enter).
+// the lowest id, as in the plain version's argmin. K5 and K6, whose trees
+// visit triangles in no fixed order, keep the same hit with their own
+// variants (hit_test_any_order, box_enter).
 //
 // Rounding. The cross and dot products are fused multiply-adds placed
 // where the JAX package's CPU backend contracts the same expressions
@@ -191,30 +191,6 @@ __device__ __forceinline__ bool box_enter(float lox, float loy, float loz,
       fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)), fmaxf(tz0, tz1));
   *tnear_out = undecided ? __int_as_float(0xff800000) : tnear;  // -inf
   return undecided || (tnear <= tfar && tfar > 0.0f && tnear <= best);
-}
-
-// Sweep a (9, stride) triangle table and its (6, stride / 16) box table,
-// both staged, into the running hit h; triangle j has the id base + j.
-__device__ __forceinline__ void sweep_into(Hit& h, const float* __restrict__ tri,
-                                           const float* __restrict__ box,
-                                           int stride, int base, float ox,
-                                           float oy, float oz, float dx,
-                                           float dy, float dz) {
-  const int nc = stride / kCluster;
-  const float ix = 1.0f / dx;
-  const float iy = 1.0f / dy;
-  const float iz = 1.0f / dz;
-  for (int c = 0; c < nc; ++c) {
-    if (!box_visit(box[c], box[nc + c], box[2 * nc + c], box[3 * nc + c],
-                   box[4 * nc + c], box[5 * nc + c], ox, oy, oz, ix, iy, iz,
-                   h.t))
-      continue;
-    for (int j = c * kCluster; j < (c + 1) * kCluster; ++j)
-      hit_test(h, base + j, tri[j], tri[stride + j], tri[2 * stride + j],
-               tri[3 * stride + j], tri[4 * stride + j], tri[5 * stride + j],
-               tri[6 * stride + j], tri[7 * stride + j], tri[8 * stride + j],
-               ox, oy, oz, dx, dy, dz);
-  }
 }
 
 // ---- K2's two-level sweep over a vector-loaded table ----------------------
@@ -450,12 +426,29 @@ __device__ __forceinline__ Hit sweep_queued(const float4* __restrict__ tri,
   return h;
 }
 
+// Sweep a staged (9, f_pad) triangle table and its (6, f_pad / 16) box
+// table: each cluster whose box the ray enters before its best hit, in
+// ascending id.
 __device__ __forceinline__ Hit sweep(const float* __restrict__ tri,
                                      const float* __restrict__ box, int f_pad,
                                      float ox, float oy, float oz, float dx,
                                      float dy, float dz) {
   Hit h{kInf, -1, 0.0f, 0.0f};
-  sweep_into(h, tri, box, f_pad, 0, ox, oy, oz, dx, dy, dz);
+  const int nc = f_pad / kCluster;
+  const float ix = 1.0f / dx;
+  const float iy = 1.0f / dy;
+  const float iz = 1.0f / dz;
+  for (int c = 0; c < nc; ++c) {
+    if (!box_visit(box[c], box[nc + c], box[2 * nc + c], box[3 * nc + c],
+                   box[4 * nc + c], box[5 * nc + c], ox, oy, oz, ix, iy, iz,
+                   h.t))
+      continue;
+    for (int j = c * kCluster; j < (c + 1) * kCluster; ++j)
+      hit_test(h, j, tri[j], tri[f_pad + j], tri[2 * f_pad + j],
+               tri[3 * f_pad + j], tri[4 * f_pad + j], tri[5 * f_pad + j],
+               tri[6 * f_pad + j], tri[7 * f_pad + j], tri[8 * f_pad + j],
+               ox, oy, oz, dx, dy, dz);
+  }
   if (!(h.t < kInf)) h.id = -1;
   return h;
 }

@@ -18,10 +18,11 @@ kernel wants a fused multiply-add it writes ``fmaf`` explicitly.
 
 ``LAUNCHES`` counts the launches of each kernel (``K1``: closest hit;
 ``K2``, ``K2-pair``, ``K2-stash``: the detached Li in its three modes;
-``K3``: the attached shade; ``K4``: its adjoint; ``K5``: the streamed
-super-block sweep; ``K6``: the tree traversal); each wrapper adds one
-where it launches its kernel and nowhere else, so a run can show that it
-went through the kernels.
+``K3``: the attached shade; ``K4``: its adjoint; ``K5`` and ``K6``: the
+tree walk of ``bvh.cu``, on a tree split by surface area for 512 < F <=
+4096 triangles and on one split at the middle above); each wrapper adds
+one where it launches its kernel and nowhere else, so a run can show that
+it went through the kernels.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "build"
 SOURCES = ("common.cuh", "sweep.cuh", "shade.cuh", "intersect.cu",
-           "megakernel.cu", "shade.cu", "intersect_super.cu", "bvh.cu")
+           "megakernel.cu", "shade.cu", "bvh.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libpsdr_kernels.so"
@@ -132,9 +133,6 @@ def library(csrc: Path = CSRC) -> ctypes.CDLL:
     lib.psdr_shade_fwd.restype = _I
     lib.psdr_shade_bwd.argtypes = shade + [_P, _P, _P, _P, _P, _P, _P]
     lib.psdr_shade_bwd.restype = _I
-    lib.psdr_intersect_super.argtypes = [_P, _P, _I, _P, _P, _P, _LL, _P,
-                                         _P, _P, _P]
-    lib.psdr_intersect_super.restype = _I
     lib.psdr_bvh.argtypes = [_P, _P, _P, _P, _P, _P, _LL, _P, _P, _P, _P, _P]
     lib.psdr_bvh.restype = _I
     lib.psdr_error_string.argtypes = [_I]

@@ -1,13 +1,18 @@
-"""Closest hit for scenes above 4096 triangles: a per-ray traversal of a
+"""Closest hit for scenes above 512 triangles: a per-ray traversal of a
 binary tree over the Morton-ordered triangles (counterpart of
-``ray_intersect_bvh`` in ``psdr_jit_tpu/ops/bvh.py``).
+``ray_intersect_bvh`` in ``psdr_jit_tpu/ops/bvh.py`` and, below 4,097
+triangles, of the super-block sweep of ``intersect_pallas.py``).
 
 The triangles arrive in the scene's Morton order, so consecutive ids are
-spatially close. :func:`build_bvh` cuts them, as they are, into leaves of
-``LEAF`` consecutive ids and builds a binary tree over the leaves by
-splitting each range of leaves at its midpoint. The topology depends on
-the triangle count and the leaf size alone (:func:`tree_topology`, cached);
-the boxes are a bottom-up reduction of the triangles' widened boxes
+spatially close. Both trees cut them, as they are, into leaves of
+consecutive ids and build a binary tree over the leaves: K6's
+(:func:`build_bvh`), leaves of ``LEAF`` ids and each range of leaves
+split at its midpoint, a topology that depends on the triangle count and
+the leaf size alone (:func:`tree_topology`, cached); K5's
+(:func:`build_sah_bvh`), leaves of at most ``intersect.K5_LEAF`` ids, each
+range split where the surface-area cost is least (:func:`sah_topology`,
+on the host), which halved K5's node visits (PERF.md). The boxes are a
+bottom-up reduction of the triangles' widened boxes
 (``intersect.widen_boxes``, the margin of every culling box of the port),
 one level at a time, on the triangles' device. ``SceneData.bvh`` builds
 the tree once per scene compile.
@@ -22,8 +27,10 @@ id)`` is lexicographically smaller, which is the ascending sweep's choice
 while ``tnear <= best``, so an equal-distance hit with a lower id is still
 reached. So every version equals the unculled sweep bit for bit.
 
-* :func:`bvh_cuda` launches kernel K6 (``csrc/bvh.cu``): one thread per
-  ray walks the tree with a short stack, nearer child first.
+* :func:`walk_cuda` launches the walk of ``csrc/bvh.cu``: one thread per
+  ray walks the tree with a short stack, nearer child first. It is K5 on
+  K5's tree and K6 on K6's (``intersect.routing_tree``), and counts its
+  launches under the name it is given.
 * :func:`ray_intersect_bvh_plain` is its plain PyTorch version: a frontier
   of (ray, node) pairs expanded level by level, children culled against
   each ray's best so far, leaves swept with the hit test of
@@ -43,22 +50,26 @@ import numpy as np
 import torch
 
 from . import _cuda
-from .intersect import (INF, PLAIN_RAY_CHUNK, box_visit, finish_hits,
-                        hit_test, miss_like, widen_boxes)
+from .intersect import (INF, K1_MAX_TRIS, K5_LEAF, K5_MAX_TRIS,
+                        PLAIN_RAY_CHUNK, box_visit, finish_hits, hit_test,
+                        miss_like, widen_boxes)
 
 # Triangles per leaf (the last leaf may hold fewer). Chosen on the card
 # among 4, 6 and 8 (PERF.md); the kernel reads each leaf's count from the
 # table, so any size runs without a rebuild.
 LEAF = 4
-# K6's traversal stack: a tree of depth <= 32 (up to 2^32 leaves) never
-# pushes more entries than that.
+# The walk's stack: a tree of depth <= 32 (up to 2^32 leaves) never
+# pushes more entries than that; sah_topology builds no deeper tree.
 STACK = 32
+# The cost of an internal node's visit (two box tests) in triangle tests,
+# for sah_topology's choice between a leaf and a split.
+SAH_NODE_COST = 1.0
 _I32_MAX = torch.iinfo(torch.int32).max
 
 
 @dataclasses.dataclass
 class BVH:
-    """K6's tree, all on one device.
+    """The tree K5 and K6 walk, all on one device.
 
     ``tri4`` (F, 12) float32: p0, e1, e2 of each triangle, padded to three
     float4. ``node`` (n_internal, 16) float32: for each internal node the
@@ -116,28 +127,123 @@ def tree_topology(f: int, leaf: int = LEAF):
     return child, heights, depth
 
 
+def sah_topology(lo, hi, max_leaf: int):
+    """A tree over triangles with boxes ``(lo, hi)`` ((F, 3) numpy) in
+    their given order, split by surface area: ``(child (n_int, 2), heights
+    (n_int,), depth, runs (n_leaves, 2))``, child and heights as in
+    :func:`tree_topology`, leaf ``k`` (node ``n_int + k``) holding the
+    ``runs[k, 1]`` triangles from ``runs[k, 0]``.
+
+    Each range of triangles splits where ``area(left) * |left| +
+    area(right) * |right|`` is least; a range of at most ``max_leaf``
+    triangles stays a leaf where testing its triangles costs no more than
+    a node visit (``SAH_NODE_COST`` triangle tests) and the tests its
+    children would cost, area-weighted. No path holds more than ``STACK``
+    internal nodes, the walk's stack: a split leaves each side at most
+    ``max_leaf * 2 ** (budget - 1)`` triangles."""
+    f = lo.shape[0]
+    if f > max_leaf << STACK:
+        raise ValueError(f"{f} triangles do not fit a tree {STACK} deep")
+    child, heights, runs = [], [], []
+
+    def area(a, b):
+        e = b - a
+        return (e[..., 0] * e[..., 1] + e[..., 1] * e[..., 2]
+                + e[..., 2] * e[..., 0])
+
+    def split(first, end, budget):
+        """Triangles [first, end) -> (node, height); a leaf is -1 - its
+        index until every internal node is numbered."""
+        m = end - first
+        if m == 1 or budget == 0:
+            runs.append((first, m))
+            return -len(runs), 0
+        a, b = lo[first:end], hi[first:end]
+        left = area(np.minimum.accumulate(a)[:-1],
+                    np.maximum.accumulate(b)[:-1])
+        right = area(np.minimum.accumulate(a[::-1])[::-1][1:],
+                     np.maximum.accumulate(b[::-1])[::-1][1:])
+        k = np.arange(1, m)
+        cap = max_leaf << (budget - 1)
+        cost = np.where((k <= cap) & (m - k <= cap),
+                        left * k + right * (m - k), np.inf)
+        at = int(np.argmin(cost))
+        whole = area(a.min(0), b.max(0))
+        split_cost = SAH_NODE_COST + cost[at] / max(whole, 1e-30)
+        if m <= max_leaf and m <= split_cost:
+            runs.append((first, m))
+            return -len(runs), 0
+        me = len(child)
+        child.append(None)
+        heights.append(0)
+        (c0, h0), (c1, h1) = (split(first, first + 1 + at, budget - 1),
+                              split(first + 1 + at, end, budget - 1))
+        child[me] = (c0, c1)
+        heights[me] = 1 + max(h0, h1)
+        return me, heights[me]
+
+    depth = split(0, f, STACK)[1]
+    child = np.array(child, np.int64).reshape(-1, 2)
+    child = np.where(child < 0, len(child) - 1 - child, child)
+    return (child, np.array(heights, np.int64), int(depth),
+            np.array(runs, np.int64).reshape(-1, 2))
+
+
+def _triangle_boxes(p0, e1, e2):
+    """The widened boxes ``(lo, hi)`` of (F, 3) triangles."""
+    v1, v2 = p0 + e1, p0 + e2
+    return widen_boxes(torch.minimum(torch.minimum(p0, v1), v2),
+                       torch.maximum(torch.maximum(p0, v1), v2))
+
+
 def build_bvh(p0, e1, e2, leaf: int = LEAF) -> BVH:
     """K6's tree over (F, 3) triangles in their given order, on their
-    device."""
+    device: leaves of ``leaf`` consecutive triangles, each range of leaves
+    split at its middle (:func:`tree_topology`)."""
     f = p0.shape[0]
-    dev = p0.device
-    child_np, heights_np, depth = tree_topology(f, leaf)
-    n_int = child_np.shape[0]
-    n_leaves = n_int + 1
-    v1, v2 = p0 + e1, p0 + e2
-    lo, hi = widen_boxes(torch.minimum(torch.minimum(p0, v1), v2),
-                         torch.maximum(torch.maximum(p0, v1), v2))
+    lo, hi = _triangle_boxes(p0, e1, e2)
+    child, heights, depth = tree_topology(f, leaf)
+    n_leaves = child.shape[0] + 1
     pad = n_leaves * leaf - f
 
     def leaves(x, fill, reduce):
         x = torch.cat([x, x.new_full((pad, 3), fill)])
         return reduce(x.reshape(n_leaves, leaf, 3), 1)
 
+    first = torch.arange(n_leaves, device=p0.device) * leaf
+    return _assemble(p0, e1, e2, leaves(lo, float("inf"), torch.amin),
+                     leaves(hi, float("-inf"), torch.amax), first,
+                     torch.clamp(f - first, max=leaf), child, heights, depth)
+
+
+def build_sah_bvh(p0, e1, e2, leaf: int = K5_LEAF) -> BVH:
+    """K5's tree over (F, 3) triangles in their given order, on their
+    device: leaves of at most ``leaf`` consecutive triangles, each range
+    split by surface area (:func:`sah_topology`, at most ``STACK``
+    deep)."""
+    dev = p0.device
+    lo, hi = (x.cpu().numpy() for x in _triangle_boxes(p0, e1, e2))
+    child, heights, depth, runs = sah_topology(
+        lo.astype(np.float64), hi.astype(np.float64), leaf)
+    first, count = torch.from_numpy(runs).to(dev).unbind(1)
+    llo, lhi = (torch.from_numpy(r.reduceat(x, runs[:, 0])).to(dev)
+                for r, x in ((np.minimum, lo), (np.maximum, hi)))
+    return _assemble(p0, e1, e2, llo, lhi, first, count, child, heights,
+                     depth)
+
+
+def _assemble(p0, e1, e2, llo, lhi, first, count, child_np, heights_np,
+              depth) -> BVH:
+    """The tree's tables from its leaves (boxes ``llo``, ``lhi``, the
+    ``count`` triangles from ``first`` of each) and its topology
+    (``child``, ``heights``, ``depth`` as :func:`tree_topology` gives
+    them)."""
+    f = p0.shape[0]
+    dev = p0.device
+    n_int = child_np.shape[0]
     # boxes of every node: internal first, then the leaves
-    blo = torch.cat([lo.new_zeros((n_int, 3)),
-                     leaves(lo, float("inf"), torch.amin)])
-    bhi = torch.cat([hi.new_zeros((n_int, 3)),
-                     leaves(hi, float("-inf"), torch.amax)])
+    blo = torch.cat([llo.new_zeros((n_int, 3)), llo])
+    bhi = torch.cat([lhi.new_zeros((n_int, 3)), lhi])
     child = torch.tensor(child_np, device=dev)  # copies of the cached arrays
     heights = torch.tensor(heights_np, device=dev)
     for h in range(1, depth + 1):
@@ -146,11 +252,10 @@ def build_bvh(p0, e1, e2, leaf: int = LEAF) -> BVH:
         blo[ids] = torch.minimum(blo[c[:, 0]], blo[c[:, 1]])
         bhi[ids] = torch.maximum(bhi[c[:, 0]], bhi[c[:, 1]])
 
-    first = torch.arange(n_leaves, device=dev) * leaf
     link = torch.cat([
         torch.stack([torch.arange(n_int, device=dev),
                      torch.zeros(n_int, dtype=torch.long, device=dev)], 1),
-        torch.stack([first, -torch.clamp(f - first, max=leaf)], 1),
+        torch.stack([first, -count], 1),
     ]).to(torch.int32).view(torch.float32)
 
     def ref(nodes):
@@ -255,17 +360,25 @@ def _sweep_leaves(bvh: BVH, o, d, ray, first, count, best) -> int:
     return int(ok.sum())
 
 
-def bvh_cuda(bvh: BVH, ray_o, ray_d, active, counts=None):
-    """Launch K6: ``(t (N,), id (N,) int32, uv (N, 2))``; lanes with
-    ``active`` False report a miss untraced. Equals the plain version bit
-    for bit. ``counts``, an (N, 2) int32 tensor if given, receives each
-    ray's triangle tests and internal-node visits (a counting build of the
-    same traversal)."""
+def walk_cuda(bvh: BVH, ray_o, ray_d, active, counts=None, kernel="K6"):
+    """Launch the tree walk of ``csrc/bvh.cu`` on ``bvh`` as ``kernel``,
+    adding one to ``_cuda.LAUNCHES[kernel]``: ``"K5"`` on K5's tree over
+    ``K1_MAX_TRIS < F <= K5_MAX_TRIS`` triangles, ``"K6"`` on any tree
+    (the routing gives it K6's, above ``K5_MAX_TRIS``). Returns ``(t (N,),
+    id (N,) int32, uv (N, 2))``; lanes with ``active`` False report a
+    miss untraced. Equals the plain versions bit for bit. ``counts``, an
+    (N, 2) int32 tensor if given, receives each ray's triangle tests and
+    internal-node visits (a counting build of the same traversal)."""
     dev = ray_o.device
-    if bvh.depth > STACK:
-        raise ValueError(f"K6's stack holds {STACK} entries; the tree is "
-                         f"{bvh.depth} deep")
     f = bvh.tri4.shape[0]
+    if kernel not in ("K5", "K6"):
+        raise ValueError(f"the tree walk is K5 or K6, not {kernel!r}")
+    if kernel == "K5" and not K1_MAX_TRIS < f <= K5_MAX_TRIS:
+        raise ValueError(f"K5 takes {K1_MAX_TRIS + 1}..{K5_MAX_TRIS} "
+                         f"triangles, got {f}")
+    if bvh.depth > STACK:
+        raise ValueError(f"the walk's stack holds {STACK} entries; the tree "
+                         f"is {bvh.depth} deep")
     _cuda.require(bvh.tri4, "tri4", torch.float32, (f, 12), dev)
     _cuda.require(bvh.node, "node", torch.float32, (None, 16), dev)
     _cuda.require(bvh.root, "root", torch.float32, (8,), dev)
@@ -276,7 +389,7 @@ def bvh_cuda(bvh: BVH, ray_o, ray_d, active, counts=None):
     if counts is not None:
         _cuda.require(counts, "counts", torch.int32, (n, 2), dev)
     if any(x.data_ptr() % 16 for x in (bvh.tri4, bvh.node, bvh.root)):
-        raise ValueError("K6 reads its tables as float4: they must be "
+        raise ValueError("the walk reads its tables as float4: they must be "
                          "16-byte aligned")
     t = torch.empty(n, dtype=torch.float32, device=dev)
     ids = torch.empty(n, dtype=torch.int32, device=dev)
@@ -291,6 +404,6 @@ def bvh_cuda(bvh: BVH, ray_o, ray_d, active, counts=None):
             t.data_ptr(), ids.data_ptr(), uv.data_ptr(),
             None if counts is None else counts.data_ptr(),
             _cuda.stream_of(dev))
-    _cuda.check(err, "K6 launch")
-    _cuda.LAUNCHES["K6"] += 1
+    _cuda.check(err, f"{kernel} launch")
+    _cuda.LAUNCHES[kernel] += 1
     return t, ids, uv

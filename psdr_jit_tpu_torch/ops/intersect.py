@@ -11,16 +11,18 @@ count F, with the JAX package's thresholds:
 
 * F <= 512: kernel K1 (``csrc/intersect.cu``), the whole table staged in
   shared memory;
-* 512 < F <= 4096: kernel K5 (``csrc/intersect_super.cu``), the table
-  streamed through shared memory in 512-triangle super-blocks;
-* F > 4096: kernel K6 (``csrc/bvh.cu``, ``ops/bvh.py``), a per-ray
-  traversal of a binary tree over the triangles, built once per scene
-  compile (``SceneData.bvh``) or, for bare triangles, per call.
+* 512 < F <= 4096: kernel K5, the per-ray walk of ``csrc/bvh.cu`` on a
+  binary tree over the triangles split by surface area (leaves of at most
+  ``K5_LEAF``);
+* F > 4096: kernel K6 (``csrc/bvh.cu``, ``ops/bvh.py``), the same walk on
+  a tree split at the middle (leaves of ``bvh.LEAF``).
 
-On CPU tensors each route runs its plain PyTorch version: the unculled
-sweep :func:`sweep_plain` (through :func:`ray_intersect_brute`) for K1 and
-K5, ``bvh.ray_intersect_bvh_plain`` for K6. On CUDA tensors each launches
-its kernel or raises. Non-finite and inactive rays report a miss.
+Both trees come from :func:`routing_tree`, once per scene compile
+(``SceneData.bvh``) or, for bare triangles, per call. On CPU tensors each
+route runs its plain PyTorch version: the unculled sweep
+:func:`sweep_plain` (through :func:`ray_intersect_brute`) for K1 and K5,
+``bvh.ray_intersect_bvh_plain`` for K6. On CUDA tensors each launches its
+kernel or raises. Non-finite and inactive rays report a miss.
 
 K2 (``ops/megakernel.py``) sweeps with two levels of widened boxes;
 :func:`sweep_grouped_plain` is the plain version of those sweeps.
@@ -42,7 +44,7 @@ from ..core.types import RAY_EPSILON
 from . import _cuda
 
 INF = 1e30
-# Triangles per culling cluster of K1 and K5: the table layout of the JAX
+# Triangles per culling cluster of K1 and K2: the table layout of the JAX
 # package's build_tables (16-triangle clusters, one AABB each), kept so the
 # tables of the two packages compare one to one. The CUDA sweeps cull per
 # ray.
@@ -50,26 +52,25 @@ CLUSTER = 16
 # K1 stages the whole (9, F) triangle table in shared memory: 512
 # triangles are 18 KiB, under the 48 KiB a block gets without opting in.
 K1_MAX_TRIS = 512
-# K5 streams 512-triangle super-blocks (18 KiB each) through shared memory;
-# above K5_MAX_TRIS triangles K6's hierarchy takes over (the JAX package's
-# BVH_MIN_TRIS).
-SUPER = 512
+# K5 walks a tree split by surface area with leaves of at most K5_LEAF
+# triangles (chosen on the card, PERF.md); above K5_MAX_TRIS triangles (the
+# JAX package's BVH_MIN_TRIS) K6 walks one split at the middle.
 K5_MAX_TRIS = 4096
+K5_LEAF = 2
 # Rays and triangles per block of the plain sweep: its (rays, triangles)
 # temporaries stay at 2^24 entries whatever the scene's size.
 PLAIN_RAY_CHUNK = 1 << 15
 PLAIN_TRI_BLOCK = 512
 
 
-def pack_triangles(p0, e1, e2, multiple: int = CLUSTER):
+def pack_triangles(p0, e1, e2):
     """(F, 3) triangle SoA -> ``(tri (9, F_pad), box (6, F_pad // 16))``.
 
     ``tri`` rows are p0, e1, e2 by component; F is padded to a multiple of
-    ``multiple`` (of 16) with degenerate (never hit) triangles at the
-    origin. ``box`` rows are each 16-triangle cluster's AABB lower then
-    upper corner."""
+    16 with degenerate (never hit) triangles at the origin. ``box`` rows
+    are each 16-triangle cluster's AABB lower then upper corner."""
     f = p0.shape[0]
-    f_pad = -(-f // multiple) * multiple
+    f_pad = -(-f // CLUSTER) * CLUSTER
 
     def pad(x):
         return torch.cat([x, x.new_zeros((f_pad - f, 3))]) if f_pad != f else x
@@ -328,46 +329,35 @@ def intersect_cuda(tri, box, ray_o, ray_d):
     return t, ids, uv
 
 
-def intersect_super_cuda(tri, box, ray_o, ray_d, active):
-    """Launch K5 on a ``(9, F_pad)`` table padded to whole 512-triangle
-    super-blocks and its ``(6, F_pad // 16)`` cluster boxes: ``(t (N,), id
-    (N,) int32, uv (N, 2))``. Lanes with
-    ``active`` False report a miss untraced. Equals the plain sweep bit for
-    bit."""
-    dev = ray_o.device
-    f_pad = tri.shape[1]
-    if f_pad % SUPER or f_pad == 0:
-        raise ValueError(f"K5 takes triangles padded to a positive multiple "
-                         f"of {SUPER}, got {f_pad}")
-    _cuda.require(tri, "tri", torch.float32, (9, f_pad), dev)
-    _cuda.require(box, "box", torch.float32, (6, f_pad // CLUSTER), dev)
-    _cuda.require(ray_o, "ray_o", torch.float32, (None, 3), dev)
-    n = ray_o.shape[0]
-    _cuda.require(ray_d, "ray_d", torch.float32, (n, 3), dev)
-    _cuda.require(active, "active", torch.bool, (n,), dev)
-    t = torch.empty(n, dtype=torch.float32, device=dev)
-    ids = torch.empty(n, dtype=torch.int32, device=dev)
-    uv = torch.empty((n, 2), dtype=torch.float32, device=dev)
-    if n == 0:
-        return t, ids, uv
-    lib = _cuda.library()
-    with torch.cuda.device(dev):
-        err = lib.psdr_intersect_super(
-            tri.data_ptr(), box.data_ptr(), f_pad, ray_o.data_ptr(), ray_d.data_ptr(),
-            active.data_ptr(), n, t.data_ptr(), ids.data_ptr(),
-            uv.data_ptr(), _cuda.stream_of(dev))
-    _cuda.check(err, "K5 launch")
-    _cuda.LAUNCHES["K5"] += 1
-    return t, ids, uv
+def needs_tree(f: int, device) -> bool:
+    """Whether :func:`ray_intersect_detached` walks a tree for ``f``
+    triangles on ``device``: K5 and K6 on the card above ``K1_MAX_TRIS``,
+    only K6's plain version on the CPU, above ``K5_MAX_TRIS`` (K5's plain
+    version is the unculled sweep)."""
+    cpu = torch.device(device).type == "cpu"
+    return f > (K5_MAX_TRIS if cpu else K1_MAX_TRIS)
+
+
+def routing_tree(p0, e1, e2):
+    """The tree :func:`ray_intersect_detached` walks for these (F, 3)
+    triangles above ``K1_MAX_TRIS``: ``bvh.build_sah_bvh`` (leaves of at
+    most ``K5_LEAF`` split by surface area) for K5, F <= ``K5_MAX_TRIS``;
+    ``bvh.build_bvh`` (leaves of ``bvh.LEAF`` split at the middle) for
+    K6."""
+    from . import bvh
+
+    if p0.shape[0] <= K5_MAX_TRIS:
+        return bvh.build_sah_bvh(p0, e1, e2, K5_LEAF)
+    return bvh.build_bvh(p0, e1, e2)
 
 
 def ray_intersect_detached(p0, e1, e2, ray, active=None, tree=None):
     """Closest hit of ``ray`` (``(..., 3)`` o/d) against (F, 3) triangles,
     routed on F (module docstring): the kernels for CUDA tensors, their
     plain versions for CPU tensors. Non-finite and inactive rays report a
-    miss (``tri_id = -1``, ``valid = False``). ``tree``, K6's
-    ``bvh.build_bvh`` of these triangles, is built here when F > 4096 and
-    none is given.
+    miss (``tri_id = -1``, ``valid = False``). ``tree``, the
+    :func:`routing_tree` of these triangles, is built here where the route
+    walks one (:func:`needs_tree`) and none is given.
     Returns ``(tri_id, valid, uv (..., 2), t)``."""
     from . import bvh
 
@@ -383,8 +373,8 @@ def ray_intersect_detached(p0, e1, e2, ray, active=None, tree=None):
     d = torch.where(finite[:, None], d.reshape(-1, 3), unit_z)
     p0, e1, e2 = p0.detach(), e1.detach(), e2.detach()
     f = p0.shape[0]
-    if f > K5_MAX_TRIS and tree is None:
-        tree = bvh.build_bvh(p0, e1, e2)
+    if tree is None and needs_tree(f, o.device):
+        tree = routing_tree(p0, e1, e2)
     if o.device.type == "cpu":
         if f <= K5_MAX_TRIS:
             tri_id, valid, uv, t = ray_intersect_brute(p0, e1, e2, o, d,
@@ -397,11 +387,10 @@ def ray_intersect_detached(p0, e1, e2, ray, active=None, tree=None):
         if f <= K1_MAX_TRIS:
             tri, box = pack_triangles(p0, e1, e2)
             t, tri_id, uv = intersect_cuda(tri, box, o, d)
-        elif f <= K5_MAX_TRIS:
-            tri, box = pack_triangles(p0, e1, e2, SUPER)
-            t, tri_id, uv = intersect_super_cuda(tri, box, o, d, finite)
         else:
-            t, tri_id, uv = bvh.bvh_cuda(tree, o, d, finite)
+            t, tri_id, uv = bvh.walk_cuda(
+                tree, o, d, finite,
+                kernel="K5" if f <= K5_MAX_TRIS else "K6")
         valid = tri_id >= 0
     valid = valid & finite
     tri_id = torch.where(valid, tri_id, -1)

@@ -48,7 +48,6 @@ from ..bsdf.bsdf import (BSDF, eval_dispatch, material_table, pdf_dispatch,
                          sample_dispatch)
 from ..emitter.area import AreaLight, AreaLightData, area_light_weight
 from ..ops import intersect
-from ..ops.bvh import build_bvh
 
 # Scenes above this many faces get the Morton triangle order (the JAX
 # package's threshold, scene.py _compute_tri_perm).
@@ -128,7 +127,8 @@ class SceneData:
         Without texture coordinates the shading frame is
         ``Frame.from_normal`` of the shading normal."""
         tri = self.tri
-        tree = self.bvh if tri.p0.shape[0] > intersect.K5_MAX_TRIS else None
+        tree = (self.bvh if intersect.needs_tree(tri.p0.shape[0],
+                                                 tri.p0.device) else None)
         tri_id, valid, uv, _ = intersect.ray_intersect_detached(
             tri.p0, tri.e1, tri.e2, ray, active, tree)
         idx = torch.clamp(tri_id, min=0).long()
@@ -167,11 +167,13 @@ class SceneData:
 
     @functools.cached_property
     def bvh(self):
-        """K6's tree over the triangles (``ops/bvh.py build_bvh``), built on
-        the scene's device at first use from the detached geometry; a new
-        scene compile makes a new SceneData, and with it a new tree."""
+        """The tree K5 or K6 walks over the triangles
+        (``intersect.routing_tree``), built on the scene's device at first
+        use from the detached geometry; a new scene compile makes a new
+        SceneData, and with it a new tree."""
         tri = self.tri
-        return build_bvh(tri.p0.detach(), tri.e1.detach(), tri.e2.detach())
+        return intersect.routing_tree(tri.p0.detach(), tri.e1.detach(),
+                                      tri.e2.detach())
 
     @functools.cached_property
     def materials(self):

@@ -12,15 +12,20 @@ a summary. Each run measures, on its checkout's kernels:
   spp 4, ``PathTracer(2).renderC``): the frame's host time (median of 5)
   and peak device memory, and K6 alone on each of the frame's launches
   (CUDA events, recorded inputs), per launch and summed;
+* the 1,292- and 3,852-triangle galleries (``gallery_arrays(256, 256, 4,
+  n_spheres, 2)`` with 4 and 12 spheres, ``PathTracer(2).renderC``): the
+  frame's host time and peak memory, K5 alone on each of the frame's
+  launches, and K6 as it is (its own tree, leaves of ``bvh.LEAF``) on the
+  same rays;
 * the Cornell-box frame of ``chip_smoke.py`` (512x512, spp 32,
   ``PathTracer(3).renderC``): its host time (median of 5) and peak device
   memory, and K2 (single mode) alone on the frame's launch;
 * the Cornell-box training step of ``chip_smoke.py`` (512x512, spp 32,
   sppe 32, ``PathTracer(3).loss_and_grad``): its host time (median of 3)
-  and peak device memory, and K4, K2 stash and K2 pair alone on each of
-  the step's launches;
-* ptxas's registers, stack and spills of K2, K4 and K6 from the
-  checkout's build;
+  and peak device memory, and K3, K4, K2 stash and K2 pair alone on each
+  of the step's launches;
+* ptxas's registers, stack and spills of K2, K3, K4, K5 (before its
+  redesign; since, K5 is K6's kernel) and K6 from the checkout's build;
 * K6's own (ray, triangle) tests per ray: from its counting build where it
   has one, else (the block/cluster hierarchy it replaced) the 64-triangle
   clusters its rays enter before their hits, times 64.
@@ -28,8 +33,9 @@ a summary. Each run measures, on its checkout's kernels:
 The tests that any hierarchy of boxes must make (``chip_smoke``
 ``triangle_box_tests``) and the bytes any closest hit must move (the rays,
 and ``TRI_BYTES`` a triangle) depend on the rays, hits and triangles only,
-so one count, and one bound, serves both checkouts; it is computed in the
-B runs. So are K2's: its bound counts every sweep of each launch
+so one count, and one bound, serves both checkouts, for K5 and K6 alike
+(``chip_smoke.hit_bound_terms``); it is computed in the B runs. So are
+K2's: its bound counts every sweep of each launch
 (``chip_smoke.k2_bound_terms`` on the sweeps its plain version records),
 with the tests a lane a sweep any hierarchy of boxes needs (from the same
 count) and a model of those that K2's one-level sweep of every lane ran
@@ -68,14 +74,19 @@ def measure(tree: Path) -> dict:
     out = {"tree": str(tree), "card": cs.card_line()}
     report = (_cuda.build().parent / "ptxas.txt").read_text()
     out["ptxas"] = {k: _this_smoke().ptxas_report(k, report) for k in (
-        "li_mega_kernel", "shade_bwd_kernel", "bvh_kernel")}
+        "li_mega_kernel", "shade_fwd_kernel", "shade_bwd_kernel",
+        "intersect_super_kernel", "bvh_kernel")}
+
+    # ---- the K5 galleries -------------------------------------------------
+    for n_spheres in (4, 12):
+        out.update(k5_frame(cs, pt, dev, n_spheres))
 
     # ---- the gallery frame ------------------------------------------------
     big = pt.Scene.from_arrays(cs.gallery_arrays(256, 256, 4), device=dev)
     big.configure()
     integ = pt.PathTracer(2)
     integ.renderC(big, 0, seed=0)
-    with cs.KernelCalls({"K6": (bvh, "bvh_cuda")}) as rec:
+    with cs.KernelCalls({"K6": walk_site(bvh)}) as rec:
         integ.renderC(big, 0, seed=0)
         torch.cuda.synchronize()
     calls = rec.calls["K6"]
@@ -133,7 +144,8 @@ def measure(tree: Path) -> dict:
     scene.opts.sppe = cs.SPPE
     step = cs.train_step_fn(pt.PathTracer(cs.DEPTH), scene)
     step()
-    with cs.KernelCalls({"K4": (sm, "shade_adjoint_cuda"),
+    with cs.KernelCalls({"K3": (sm, "shade_cuda"),
+                         "K4": (sm, "shade_adjoint_cuda"),
                          "K2-pair": k2["K2-pair"],
                          "K2-stash": k2["K2-stash"]}) as rec:
         step()
@@ -142,6 +154,9 @@ def measure(tree: Path) -> dict:
     k4 = [cs.cuda_ms(lambda: fn(*args), 5) for fn, args, _ in rec.calls["K4"]]
     out["K4_launch_ms"] = k4
     out["K4_step_ms"] = sum(k4)
+    k3 = [cs.cuda_ms(lambda: fn(*args), 10) for fn, args, _ in rec.calls["K3"]]
+    out["K3_launch_ms"] = k3
+    out["K3_step_ms"] = sum(k3)
     for mode in ("K2-pair", "K2-stash"):
         out[f"{mode}_step_ms"] = sum(cs.cuda_ms(lambda: fn(*args), 5)
                                      for fn, args, _ in calls[mode])
@@ -153,6 +168,64 @@ def measure(tree: Path) -> dict:
     torch.cuda.synchronize()
     out["step_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     return out
+
+
+def k5_frame(cs, pt, dev, n_spheres: int) -> dict:
+    """The ``n_spheres`` gallery's frame through K5: host ms and peak
+    memory, K5 alone on each launch, K6 as it is on the same rays, and
+    (where the checkout's ``chip_smoke`` has ``hit_bound_terms``) the
+    bound and the needed tests a ray, keyed ``K5_<F>_...``."""
+    import torch
+    from psdr_jit_tpu_torch.ops import bvh
+    from psdr_jit_tpu_torch.ops import intersect as ix
+
+    sc = pt.Scene.from_arrays(cs.gallery_arrays(256, 256, 4, n_spheres, 2),
+                              device=dev)
+    sd = sc.configure()
+    tri = sd.tri
+    key = f"K5_{tri.p0.shape[0]}"
+    integ = pt.PathTracer(2)
+    integ.renderC(sc, 0, seed=0)
+    # before the walk counted its own launches, K5 had a wrapper of its own
+    k5_site = ((ix, "intersect_super_cuda")
+               if hasattr(ix, "intersect_super_cuda") else (bvh, "walk_cuda"))
+    with cs.KernelCalls({"K5": k5_site}) as rec:
+        integ.renderC(sc, 0, seed=0)
+        torch.cuda.synchronize()
+    calls = rec.calls["K5"]
+    tree = bvh.build_bvh(tri.p0, tri.e1, tri.e2)
+    k6 = getattr(*walk_site(bvh))
+    out = {f"{key}_launches": len(calls),
+           f"{key}_frame_ms": sum(cs.cuda_ms(lambda: fn(*args), 5)
+                                  for fn, args, _ in calls),
+           f"{key}_K6_as_is_frame_ms": sum(
+               cs.cuda_ms(lambda: k6(tree, *args[-3:]), 5)
+               for _, args, _ in calls)}
+    if hasattr(cs, "hit_bound_terms"):
+        nbytes = flops = tests = rays = 0
+        for _, args, res in calls:
+            b, f, t = cs.hit_bound_terms(tri.p0, tri.e1, tri.e2, *args[-3:-1],
+                                         res[0], args[-1])
+            nbytes, flops, tests = nbytes + b, flops + f, tests + t
+            rays += args[-3].shape[0]
+        out[f"{key}_bound"] = cs.bound(nbytes, flops)
+        out[f"{key}_needed_tests_per_ray"] = tests / rays
+    out[f"{key}_host_frame_ms"] = cs.wall_ms(
+        lambda: integ.renderC(sc, 0, seed=0), 5)
+    torch.cuda.reset_peak_memory_stats(dev)
+    integ.renderC(sc, 0, seed=0)
+    torch.cuda.synchronize()
+    out[f"{key}_host_frame_peak_gb"] = (torch.cuda.max_memory_allocated(dev)
+                                        / 1e9)
+    return out
+
+
+def walk_site(bvh):
+    """``(module, name)`` of the checkout's K6 wrapper: ``bvh.bvh_cuda``
+    before K5 and K6 shared ``bvh.walk_cuda``, which launches as K6 by
+    default."""
+    return (bvh, "bvh_cuda") if hasattr(bvh, "bvh_cuda") else (bvh,
+                                                                "walk_cuda")
 
 
 def k2_counts(cs, mk, calls) -> dict:
@@ -243,14 +316,19 @@ def main() -> int:
               flush=True)
     keys = ("K2_frame_ms", "cbox_frame_ms", "cbox_frame_peak_gb",
             "K2-pair_step_ms", "K2-stash_step_ms", "K6_frame_ms",
-            "K6_tests_per_ray", "frame_ms", "frame_peak_gb", "K4_step_ms",
-            "step_ms", "step_peak_gb")
+            "K6_tests_per_ray", "frame_ms", "frame_peak_gb", "K3_step_ms",
+            "K4_step_ms", "step_ms", "step_peak_gb") + tuple(
+                f"K5_{f}_{k}" for f in (1292, 3852) for k in (
+                    "frame_ms", "K6_as_is_frame_ms", "host_frame_ms",
+                    "host_frame_peak_gb"))
     for k in keys:
-        print(f"{k:18s} A {statistics.mean([runs[0][k], runs[3][k]]):10.4f} "
+        print(f"{k:26s} A {statistics.mean([runs[0][k], runs[3][k]]):10.4f} "
               f"({runs[0][k]:.4f}, {runs[3][k]:.4f})  B "
               f"{statistics.mean([runs[1][k], runs[2][k]]):10.4f} "
               f"({runs[1][k]:.4f}, {runs[2][k]:.4f})")
-    for k in ("needed_tests_per_ray", "K6_bound_ms", "K2_counts"):
+    for k in ("needed_tests_per_ray", "K6_bound_ms", "K2_counts",
+              "K5_1292_bound", "K5_1292_needed_tests_per_ray",
+              "K5_3852_bound", "K5_3852_needed_tests_per_ray"):
         print(f"{k:18s} {runs[1].get(k)}")
     for k in ("ptxas",):
         print(f"{k:18s} A {runs[0][k]}  B {runs[1][k]}")

@@ -25,16 +25,19 @@ step slower than an unsplit one.
 ``gallery_arrays``, 256x256, spp 4, ``PathTracer(2)``, the general Li
 through K6): the frame's host time over 10 runs, the device's busy time
 per frame with the kernels by device time and K6's share of it; K6 a
-frame with leaves of 2, 4, 6 and 8 triangles; the
-frame at 512x512 spp 8 at each general-path chunk size (2^18..2^21
-lanes) with its peak device memory; and, on the 1,292-triangle gallery,
-K5 against K6 on the same 262,144 rays and in the whole frame.
+frame with leaves of 2, 4, 6 and 8 triangles, and on K5's tree split by
+surface area (``bvh.build_sah_bvh``, leaves of at most 2 and 4) with the
+time to build each tree; the frame at 512x512 spp 8 at each
+general-path chunk size (2^18..2^21 lanes) with its peak device memory;
+and, on the 1,292-triangle gallery, K5 against K6 on the same 262,144
+rays and in the whole frame.
 
 Imports no JAX; exits non-zero without a CUDA card.
 """
 
 from __future__ import annotations
 
+import functools
 import statistics
 import subprocess
 import sys
@@ -219,22 +222,32 @@ def large(dev) -> int:
     print(prof.key_averages().table(sort_by="self_device_time_total",
                                     row_limit=15, max_name_column_width=60))
 
-    # K6 at other leaf sizes: each launch of one frame, re-run on a tree
-    # of that leaf size (the same hits)
-    with KernelCalls({"K6": (bvh, "bvh_cuda")}) as rec:
+    # K6 at other leaf sizes, and on K5's surface-area tree (built on the
+    # host: its build time is printed): each launch of one frame, re-run
+    # on that tree (the same hits)
+    with KernelCalls({"K6": (bvh, "walk_cuda")}) as rec:
         frame()
         torch.cuda.synchronize()
-    for leaf in (2, 4, 6, 8):
-        tree = bvh.build_bvh(sd.tri.p0, sd.tri.e1, sd.tri.e2, leaf)
+    trees = {f"leaves of {leaf}": lambda leaf=leaf: bvh.build_bvh(
+        sd.tri.p0, sd.tri.e1, sd.tri.e2, leaf) for leaf in (2, 4, 6, 8)}
+    trees.update({f"a surface-area tree, leaves of at most {leaf}": (
+        lambda leaf=leaf: bvh.build_sah_bvh(sd.tri.p0, sd.tri.e1, sd.tri.e2,
+                                            leaf)) for leaf in (2, 4)})
+    for name, build in trees.items():
+        t0 = time.perf_counter()
+        tree = build()
+        torch.cuda.synchronize()
+        build_ms = (time.perf_counter() - t0) * 1e3
         ms = tests = rays = 0
         for _, (_, o, d, act), _ in rec.calls["K6"]:
-            ms += cuda_ms(lambda: bvh.bvh_cuda(tree, o, d, act), 10)
+            ms += cuda_ms(lambda: bvh.walk_cuda(tree, o, d, act), 10)
             counts = torch.zeros((o.shape[0], 2), dtype=torch.int32,
                                  device=dev)
-            bvh.bvh_cuda(tree, o, d, act, counts)
+            bvh.walk_cuda(tree, o, d, act, counts)
             tests += int(counts[:, 0].sum())
             rays += o.shape[0]
-        print(f"K6 with leaves of {leaf}: {ms:.4f} ms a frame, tree depth "
+        print(f"K6 on {name}: {ms:.4f} ms a frame, built in "
+              f"{build_ms:.1f} ms, tree depth "
               f"{tree.depth}, {tests / rays:.1f} tests a ray")
 
     wide = pt.Scene.from_arrays(gallery_arrays(*WIDE), device=dev)
@@ -257,33 +270,34 @@ def large(dev) -> int:
     gen = torch.Generator(device=dev).manual_seed(7)
     o, d, act = mixed_rays(sdm, CHECK_RAYS, gen, dev)
     tri = sdm.tri
-    tab, box = ix.pack_triangles(tri.p0, tri.e1, tri.e2, ix.SUPER)
     h = bvh.build_bvh(tri.p0, tri.e1, tri.e2)
-    k5_ms = cuda_ms(lambda: ix.intersect_super_cuda(tab, box, o, d, act), 20)
-    k6_ms = cuda_ms(lambda: bvh.bvh_cuda(h, o, d, act), 20)
+    k5_walk = functools.partial(bvh.walk_cuda, kernel="K5")
+    k5_ms = cuda_ms(lambda: k5_walk(sdm.bvh, o, d, act), 20)
+    k6_ms = cuda_ms(lambda: bvh.walk_cuda(h, o, d, act), 20)
     same = all(torch.equal(a, b) for a, b in zip(
-        ix.intersect_super_cuda(tab, box, o, d, act), bvh.bvh_cuda(h, o, d,
-                                                                   act)))
+        k5_walk(sdm.bvh, o, d, act), bvh.walk_cuda(h, o, d, act)))
     print(f"{tri.p0.shape[0]} triangles, {o.shape[0]} mixed rays: K5 "
           f"{k5_ms:.4f} ms, K6 {k6_ms:.4f} ms, equal hits {same}")
-    def device_ms(name, owner, wrapper):
-        """The kernel's device ms summed over one frame's launches, each
-        timed alone on its recorded inputs."""
-        with KernelCalls({name: (owner, wrapper)}) as rec:
+    def device_ms(name):
+        """The walk's device ms summed over one frame's launches (as
+        ``name``), each timed alone on its recorded inputs."""
+        with KernelCalls({name: (bvh, "walk_cuda")}) as rec:
             integ.renderC(mid, 0, seed=0)
             torch.cuda.synchronize()
         return sum(cuda_ms(lambda: fn(*args), 10)
                    for fn, args, _ in rec.calls[name])
 
     k5_frame = host_ms(lambda: integ.renderC(mid, 0, seed=0), 5)[0]
-    k5_dev = device_ms("K5", ix, "intersect_super_cuda")
+    k5_dev = device_ms("K5")
     limit = ix.K5_MAX_TRIS
-    ix.K5_MAX_TRIS = ix.K1_MAX_TRIS  # route the same scene to K6
+    ix.K5_MAX_TRIS = ix.K1_MAX_TRIS  # route the same scene to K6 and its tree
     try:
+        mid.configure()
         k6_frame = host_ms(lambda: integ.renderC(mid, 0, seed=0), 5)[0]
-        k6_dev = device_ms("K6", bvh, "bvh_cuda")
+        k6_dev = device_ms("K6")
     finally:
         ix.K5_MAX_TRIS = limit
+        mid.configure()
     print(f"renderC of it at {LARGE[0]}x{LARGE[1]} spp {LARGE[2]}: through "
           f"K5 {k5_frame:.3f} ms, through K6 {k6_frame:.3f} ms (host "
           f"medians); the kernel alone a frame: K5 {k5_dev:.4f} ms, K6 "

@@ -6,14 +6,15 @@ node) pairs expanded level by level), the tree, and the routing of
 
 Both plain versions are held against the JAX package's kernels run by the
 Pallas interpreter, as ``tests/test_bvh.py`` runs them
-(``ray_intersect_pallas`` on 1,200 triangles, which streams super-blocks,
-and ``ray_intersect_bvh`` on 5,000): ids are equal except where two hits
-tie within f32 rounding (the JAX kernels keep the later of equal hits in
-their visit order, the port the lowest id), and t agrees to 1e-5
-relative. Against the port's own unculled sweep they are equal bit for
-bit, which shows that their culling changes no hit, and K6's tie rule
-keeps the lowest id of equal distances in any visit order. The
-cross-block and dead-lane cases mirror ``tests/test_bvh.py``.
+(``ray_intersect_pallas`` on 1,200 and 3,800 triangles, which streams
+super-blocks, and ``ray_intersect_bvh`` on 5,000): ids are equal except
+where two hits tie within f32 rounding (the JAX kernels keep the later of
+equal hits in their visit order, the port the lowest id), and t agrees to
+1e-5 relative. Against the port's own unculled sweep they are equal bit
+for bit, which shows that their culling changes no hit, and the trees'
+tie rule keeps the lowest id of equal distances in any visit order. The
+cross-block and dead-lane cases mirror ``tests/test_bvh.py``; K5's tree
+(split by surface area) is checked as K6's is.
 
 The kernels themselves are held against these plain versions on the card
 (``tests/test_torch_kernels.py``, ``chip_smoke.py``).
@@ -26,7 +27,7 @@ import torch
 import jax.numpy as jnp
 
 import psdr_jit_tpu_torch as pt
-from chip_smoke import swapped_children, tie_case
+from chip_smoke import gallery_arrays, mixed_rays, swapped_children, tie_case
 from psdr_jit_tpu.ops.bvh import ray_intersect_bvh
 from psdr_jit_tpu.ops.intersect_pallas import ray_intersect_pallas
 from psdr_jit_tpu_torch.ops import bvh
@@ -73,11 +74,14 @@ def _on_plane_rays(p0, e1, e2, n, seed):
     return o.astype(np.float32), d.astype(np.float32)
 
 
-@pytest.mark.parametrize("route", ["K5", "K6"])
-def test_plain_matches_jax_kernel(route):
-    """The route's plain version against the JAX kernel it replaces."""
-    p0, e1, e2, ro, rd = _random_scene(n_tri=ROUTES[route], n_ray=700,
-                                       seed=20)
+@pytest.mark.parametrize("route, n_tri, n_ray", [
+    pytest.param("K5", ROUTES["K5"], 700, id="K5"),
+    pytest.param("K5", 3800, 512, id="K5-top"),
+    pytest.param("K6", ROUTES["K6"], 700, id="K6")])
+def test_plain_matches_jax_kernel(route, n_tri, n_ray):
+    """The route's plain version against the JAX kernel it replaces, K5's
+    also near the top of its range."""
+    p0, e1, e2, ro, rd = _random_scene(n_tri=n_tri, n_ray=n_ray, seed=20)
     args = [jnp.asarray(x) for x in (p0, e1, e2, ro, rd)]
     if route == "K5":
         ref = ray_intersect_pallas(*args, interpret=True)
@@ -173,17 +177,26 @@ def test_dead_lanes(route):
     assert part[1][keep].any()
 
 
-@pytest.mark.parametrize("n_tri", [3, 1300])
-def test_bvh_tables(n_tri):
+@pytest.mark.parametrize("n_tri, sah", [
+    pytest.param(3, False, id="3"), pytest.param(1300, False, id="1300"),
+    pytest.param(1300, True, id="1300-sah")])
+def test_bvh_tables(n_tri, sah):
     """The tree: each triangle in exactly one leaf of at most LEAF
-    consecutive ids, every stored box containing its children's boxes and
-    equal to the union of its triangles' widened boxes, the depth that of
-    a midpoint split, and the triangle rows p0, e1, e2."""
+    consecutive ids (K5's surface-area tree: at most K5_LEAF), every
+    stored box containing its children's boxes and equal to the union of
+    its triangles' widened boxes, the depth that of a midpoint split (at
+    most ``bvh.STACK``), and the triangle rows p0, e1, e2."""
     p0, e1, e2, _, _ = _random_scene(n_tri=n_tri, n_ray=1, seed=34)
-    h = bvh.build_bvh(_t(p0), _t(e1), _t(e2))
-    n_leaves = -(-n_tri // bvh.LEAF)
-    assert h.node.shape == (n_leaves - 1, 16)
-    assert h.depth == int(np.ceil(np.log2(n_leaves)))
+    if sah:
+        leaf = ix.K5_LEAF
+        h = bvh.build_sah_bvh(_t(p0), _t(e1), _t(e2), leaf)
+        assert h.depth <= bvh.STACK
+    else:
+        leaf = bvh.LEAF
+        h = bvh.build_bvh(_t(p0), _t(e1), _t(e2), leaf)
+        n_leaves = -(-n_tri // leaf)
+        assert h.node.shape == (n_leaves - 1, 16)
+        assert h.depth == int(np.ceil(np.log2(n_leaves)))
     assert torch.equal(h.tri, torch.cat([_t(p0), _t(e1), _t(e2)], 1).T)
     assert not h.tri4[:, 9:].any()
     v0, v1, v2 = _t(p0), _t(p0) + _t(e1), _t(p0) + _t(e2)
@@ -196,7 +209,7 @@ def test_bvh_tables(n_tri):
         lo, hi = entry[0:3], entry[4:7]
         a, b = (int(x) for x in entry.view(torch.int32)[[3, 7]])
         if b < 0:
-            assert 1 <= -b <= bvh.LEAF and a % bvh.LEAF == 0
+            assert 1 <= -b <= leaf and (sah or a % leaf == 0)
             ids = torch.arange(a, a - b)
         else:
             assert b == 0
@@ -230,3 +243,53 @@ def test_ties_go_to_lowest_id_in_any_visit_order():
         for a, b in zip(out, brute):
             assert torch.equal(a, b)
         assert stats["tri_tests"] < 5000 * ro.shape[0] // 10
+
+
+def test_k5_scene_tree_matches_brute():
+    """K5's tree hangs off the scene compile (``SceneData.bvh``, leaves of
+    at most ``K5_LEAF``, within the walk's stack), and the routing entry
+    given it, the scene's own intersection and the tree's plain walk all
+    give the unculled sweep's hits on a 1,292-triangle gallery."""
+    sd = pt.Scene.from_arrays(gallery_arrays(16, 16, 2, 4, 2),
+                              device="cpu").configure()
+    tri = sd.tri
+    f = tri.p0.shape[0]
+    assert ix.K1_MAX_TRIS < f <= ix.K5_MAX_TRIS
+    tree = sd.bvh
+    assert tree is sd.bvh and tree.depth <= bvh.STACK
+    b = tree.node[:, [7, 15]].contiguous().view(torch.int32)  # child links
+    assert int((-b[b < 0]).max()) == ix.K5_LEAF
+    o, d, act = mixed_rays(sd, 3000, torch.Generator().manual_seed(2),
+                           torch.device("cpu"))
+    brute = ix.ray_intersect_brute(tri.p0, tri.e1, tri.e2, o, d, act)
+    routed = ix.ray_intersect_detached(tri.p0, tri.e1, tri.e2, pt.Ray(o, d),
+                                       act, tree)
+    walked = bvh.ray_intersect_bvh_plain(tree, o, d, act)
+    for x, y, z in zip(routed, walked, brute):
+        assert torch.equal(x, z) and torch.equal(y, z)
+    its = sd.ray_intersect(pt.Ray(o, d), act)
+    assert torch.equal(its.tri_id, brute[0])
+    assert brute[1].float().mean() > 0.5
+
+
+def test_cpu_route_builds_no_tree_in_k5_range():
+    """A tree is built only where the route walks one (``needs_tree``): on
+    the card above ``K1_MAX_TRIS``, on the CPU only above ``K5_MAX_TRIS``
+    (K5's plain version is the unculled sweep). So the scene's own
+    intersection of a 1,292-triangle gallery on the CPU leaves
+    ``SceneData.bvh`` unbuilt and still gives the unculled sweep's hits."""
+    for f, cpu, cuda in ((ix.K1_MAX_TRIS, False, False),
+                         (ix.K1_MAX_TRIS + 1, False, True),
+                         (ix.K5_MAX_TRIS, False, True),
+                         (ix.K5_MAX_TRIS + 1, True, True)):
+        assert ix.needs_tree(f, "cpu") is cpu
+        assert ix.needs_tree(f, torch.device("cuda")) is cuda
+    sd = pt.Scene.from_arrays(gallery_arrays(16, 16, 2, 4, 2),
+                              device="cpu").configure()
+    tri = sd.tri
+    o, d, act = mixed_rays(sd, 500, torch.Generator().manual_seed(3),
+                           torch.device("cpu"))
+    its = sd.ray_intersect(pt.Ray(o, d), act)
+    assert "bvh" not in vars(sd)
+    brute = ix.ray_intersect_brute(tri.p0, tri.e1, tri.e2, o, d, act)
+    assert torch.equal(its.tri_id, brute[0])

@@ -140,14 +140,15 @@ def test_large_scene_launchers_refuse_cpu_tensors():
     sd = _gallery("cpu", 2, 2).data
     o, d, act = mixed_rays(sd, 64, torch.Generator().manual_seed(0),
                            torch.device("cpu"))
-    tri, box = ix.pack_triangles(sd.tri.p0, sd.tri.e1, sd.tri.e2, ix.SUPER)
+    tree = ix.routing_tree(sd.tri.p0, sd.tri.e1, sd.tri.e2)
     with pytest.raises(ValueError, match="CUDA"):
-        ix.intersect_super_cuda(tri, box, o, d, act)
+        bvh.walk_cuda(tree, o, d, act, kernel="K5")
     with pytest.raises(ValueError, match="CUDA"):
-        bvh.bvh_cuda(bvh.build_bvh(sd.tri.p0, sd.tri.e1, sd.tri.e2), o, d,
-                     act)
-    with pytest.raises(ValueError, match="multiple of 512"):
-        ix.intersect_super_cuda(tri[:, :100], box, o, d, act)
+        bvh.walk_cuda(bvh.build_bvh(sd.tri.p0, sd.tri.e1, sd.tri.e2), o, d,
+                      act)
+    small = bvh.build_bvh(sd.tri.p0[:100], sd.tri.e1[:100], sd.tri.e2[:100])
+    with pytest.raises(ValueError, match="513..4096 triangles"):
+        bvh.walk_cuda(small, o, d, act, kernel="K5")
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
@@ -448,20 +449,38 @@ def test_k6_tie_case_bitwise(cuda):
     brute = ix.ray_intersect_brute(p0, e1, e2, ro, rd, act)
     assert (brute[0] == low.to(torch.int32)).float().mean() > 0.5
     for tree in (h, swapped_children(h)):
-        t, ids, uv = bvh.bvh_cuda(tree, ro, rd, act)
+        t, ids, uv = bvh.walk_cuda(tree, ro, rd, act)
         plain = bvh.ray_intersect_bvh_plain(tree, ro, rd, act)
         for x, y, z in zip((ids, ids >= 0, uv, t), plain, brute):
             assert torch.equal(x, y) and torch.equal(y, z)
 
 
 @pytest.mark.gpu
+def test_k5_tie_case_bitwise(cuda):
+    """K5 on the tie case at 3,000 triangles, in its tree as built and with
+    every node's children swapped: the lowest id, bit for bit as the
+    unculled sweep."""
+    p0, e1, e2, ro, rd, low = (torch.from_numpy(x).to(cuda)
+                               for x in tie_case(3000))
+    act = torch.ones(ro.shape[0], dtype=torch.bool, device=cuda)
+    h = ix.routing_tree(p0, e1, e2)
+    brute = ix.ray_intersect_brute(p0, e1, e2, ro, rd, act)
+    assert (brute[0] == low.to(torch.int32)).float().mean() > 0.5
+    for tree in (h, swapped_children(h)):
+        t, ids, uv = bvh.walk_cuda(tree, ro, rd, act, kernel="K5")
+        for x, y in zip((ids, ids >= 0, uv, t), brute):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n_spheres, subdiv, kernel", [(4, 2, "K5"),
+                                                       (12, 2, "K5"),
                                                        (4, 3, "K6"),
                                                        (80, 3, "K6")])
 def test_k5_k6_match_plain_bitwise(cuda, n_spheres, subdiv, kernel):
-    """K5 (1,292 triangles) and K6 (5,132 and 102,412) against their plain
-    versions and the unculled sweep, bit for bit, through the routing
-    entry."""
+    """K5 (1,292 and 3,852 triangles) and K6 (5,132 and 102,412) against
+    their plain versions and the unculled sweep, bit for bit, through the
+    routing entry."""
     sd = _gallery(cuda, n_spheres, subdiv).data
     tri = sd.tri
     o, d, act = mixed_rays(sd, 1 << 16,
