@@ -4,12 +4,14 @@
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
 Builds the port's kernels from ``psdr_jit_tpu_torch/csrc`` with ``nvcc``,
-holds each kernel against its plain PyTorch version on the card (K1; K2 in
+holds each kernel against its plain PyTorch version on the card (K1, the
+tree walk on a tree split by surface area, on each of its ray families at
+32 and 492 triangles, with and without dead lanes, and on exact ties; K2 in
 its single, pair and stash modes, also at the 172 triangles of a small
 gallery and on exact ties through both of its sweeps; K3, the attached
-shade; K4, its adjoint; K5, the tree walk on a tree split by surface area,
-also at the top of its range and on exact ties; K6, the same walk on a
-tree split at the middle), checks a
+shade; K4, its adjoint; K5, the same walk at 513 to 4,096 triangles, also
+at the top of its range and on exact ties; K6, the same walk on a tree
+split at the middle), checks a
 32x32 render against ``tests/golden_cbox32.npy``, then drives three main
 paths at full size as a user would, each with the launch counts set to 0
 just before it and read just after:
@@ -24,7 +26,8 @@ just before it and read just after:
 * serving a large scene, the procedural gallery of ``gallery_arrays``
   (102,412 triangles): a picking query and a frame at 256x256, spp 4,
   ``PathTracer(2)``, through the general Li and K6; and the same frame of
-  the 1,292-triangle gallery through K5.
+  the 1,292-triangle gallery through K5 and of the 492-triangle gallery
+  through K1.
 
 A 64x64 training step of the box and a 64x64 frame of the 5,132-triangle
 gallery run through the kernels and, on the CPU, through the plain
@@ -63,6 +66,9 @@ LARGE = (256, 256, 4)
 LARGE_DEPTH = 2
 WIDE = (512, 512, 8)  # the same scene's larger frame, timed only
 CHECK_RAYS = 1 << 18  # rays of the [K5] and [K6] checks
+# cycles the card spins in cuda_ms while the host queues the timed calls
+# (~5 ms on an H100)
+HOLD_CYCLES = 10_000_000
 PLAIN_RAYS = 1 << 16  # of them, the rays [K6] holds against the plain K6
 
 
@@ -77,13 +83,18 @@ def require(ok: bool, what: str):
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls, after a warm-up."""
+    """Mean device time of ``fn`` over ``reps`` calls, after a warm-up.
+    The card first spins (``torch.cuda._sleep``) while the host queues the
+    calls, so that they run back to back: a call shorter than its host
+    overhead (a Python wrapper's tens of microseconds) is timed on the
+    card, not on the host."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -136,6 +147,74 @@ def on_plane_rays(box, n_per: int, gen, device):
                       -1.0, 1.0)
     d[torch.arange(n_per, device=device), dax] = sgn
     return p.contiguous(), d.contiguous()
+
+
+def edge_rays(sd, n: int, gen, device, dead: float = 0.43):
+    """``(o, d, active)``: a stand-in for the rays of the secondary-edge
+    term, which the port does not run yet. ``n // 2`` points, each drawn
+    uniformly on a uniformly chosen edge of a uniformly chosen triangle,
+    each with a uniform direction, laid out as the JAX package's
+    double-width call (``integrator/edge.py``): the rays ``(p, d)``, then
+    ``(p, -d)``; each point's two rays are inactive with probability
+    ``dead`` (43%: 57% of the Cornell box's boundary samples are valid,
+    ``edge.py``)."""
+    import torch
+
+    q = n // 2
+    tri = sd.tri
+    j = torch.randint(0, tri.p0.shape[0], (q,), generator=gen, device=device)
+    k = torch.randint(0, 3, (q,), generator=gen, device=device)
+    p0 = tri.p0[j]
+    v = torch.stack([p0, p0 + tri.e1[j], p0 + tri.e2[j]], 1)  # (q, 3, 3)
+    rows = torch.arange(q, device=device)
+    a, b = v[rows, k], v[rows, (k + 1) % 3]
+    s = torch.rand((q, 1), generator=gen, device=device)
+    p = a + (b - a) * s
+    dirs = torch.nn.functional.normalize(
+        torch.randn((q, 3), generator=gen, device=device), dim=-1)
+    valid = torch.rand(q, generator=gen, device=device) >= dead
+    return (torch.cat([p, p]).contiguous(), torch.cat([dirs, -dirs]),
+            torch.cat([valid, valid]))
+
+
+# K1's ray families: (a)-(d) make the 1,179,648-ray check set of [K1]; (e)
+# stands in for the secondary-edge rays
+K1_FAMILIES = ("picks", "camera", "on_plane", "random", "edge")
+# the largest gallery K1 takes (492 triangles), routed through the general Li
+K1_GALLERY = dict(width=256, height=256, spp=4, n_spheres=6, subdiv=1)
+
+
+def k1_families(sd, gen, device) -> dict:
+    """``{name: (o, d, active)}`` of K1's ray families (``K1_FAMILIES``) at
+    the scene data ``sd``: (a) the 262,144 pixel-centre picks of a 512x512
+    frame, (b) its 524,288 spp-2 camera rays, (c) 262,144 axis-aligned rays
+    on cluster-box planes (``on_plane_rays``), (d) 131,072 random rays in
+    the scene's box, all active; (e) 262,144 secondary-edge stand-ins
+    (``edge_rays``), 43% inactive."""
+    import torch
+    from psdr_jit_tpu_torch.integrator.base import interior_lane_setup
+    from psdr_jit_tpu_torch.ops import intersect as ix
+
+    w = h = 512
+    picks = pixel_center_rays(sd, w, h, device)
+    _, _, samples = interior_lane_setup(
+        w, h, 2, SEED, torch.arange(w * h, device=device))
+    cam = sd.sensors[0].sample_primary_ray(samples)
+    _, box = ix.pack_triangles(sd.tri.p0, sd.tri.e1, sd.tri.e2)
+    po, pd = on_plane_rays(box, 1 << 18, gen, device)
+    lo, hi = sd.lower, sd.upper
+    ro = lo + (hi - lo) * torch.rand((1 << 17, 3), generator=gen,
+                                     device=device)
+    rd = torch.nn.functional.normalize(
+        torch.randn((1 << 17, 3), generator=gen, device=device), dim=-1)
+    out = {}
+    for name, o, d in (("picks", picks.o, picks.d), ("camera", cam.o, cam.d),
+                       ("on_plane", po, pd), ("random", ro, rd)):
+        out[name] = (o.reshape(-1, 3).contiguous(),
+                     d.reshape(-1, 3).contiguous(),
+                     torch.ones(o.shape[0], dtype=torch.bool, device=device))
+    out["edge"] = edge_rays(sd, 1 << 18, gen, device)
+    return out
 
 
 def pixel_center_rays(sd, width, height, device):
@@ -1117,8 +1196,8 @@ def require_agreement(what: str, a: dict):
 
 
 def k5_plain(tree, o, d, active):
-    """K5's plain version with the walk's signature: the unculled sweep of
-    the tree's triangles."""
+    """K1's and K5's plain version with the walk's signature: the unculled
+    sweep of the tree's triangles."""
     from psdr_jit_tpu_torch.ops import intersect as ix
 
     tri = tree.tri4
@@ -1136,10 +1215,10 @@ def k6_plain(h, o, d, active, stats=None):
 
 
 class PlainRoute:
-    """Sends K5's and K6's launches to their plain versions, on the card's
-    tensors, while active (by replacing the module global the routing
-    calls, ``bvh.walk_cuda``), so a render can be repeated with only the
-    kernels swapped."""
+    """Sends K1's, K5's and K6's launches to their plain versions, on the
+    card's tensors, while active (by replacing the module global the
+    routing calls, ``bvh.walk_cuda``), so a render can be repeated with
+    only the kernels swapped."""
 
     def __enter__(self):
         from psdr_jit_tpu_torch.ops import bvh
@@ -1147,7 +1226,7 @@ class PlainRoute:
         self.saved = bvh.walk_cuda
 
         def plain(tree, o, d, active, kernel="K6"):
-            return (k5_plain if kernel == "K5" else k6_plain)(tree, o, d,
+            return (k6_plain if kernel == "K6" else k5_plain)(tree, o, d,
                                                               active)
         bvh.walk_cuda = plain
         return self
@@ -1158,12 +1237,13 @@ class PlainRoute:
         bvh.walk_cuda = self.saved
 
 
-def intersect_record(name, source, replaces, calls, plain):
-    """Hold each recorded launch ``(fn, args, (t, id, uv))`` of a tree walk
-    (K5, K6: ``args = (tree, o, d, active)``) against its plain version on
-    the same inputs and time both: ``(record for the kernels' JSON,
-    agreement, needed tests, each launch's ms)``, the bound from
-    ``hit_bound_terms``."""
+def intersect_record(name, source, replaces, calls, plain, tri=None):
+    """Hold each recorded launch ``(fn, args, (t, id, uv))`` of a closest
+    hit (``args`` ending in ``o, d, active``: K1's sweep or a walk's
+    ``(tree, o, d, active)``) against its plain version on the same inputs
+    and time both: ``(record for the kernels' JSON, agreement, needed
+    tests, each launch's ms)``, the bound from ``hit_bound_terms`` over the
+    triangles ``tri = (p0, e1, e2)`` (by default the tree's)."""
     ms = plain_ms = 0.0
     launch_ms = []
     nbytes = flops = 0
@@ -1184,9 +1264,9 @@ def intersect_record(name, source, replaces, calls, plain):
         launch_ms.append(cuda_ms(lambda: fn(*args), 3))
         ms += launch_ms[-1]
         plain_ms += p_ms
-        tri = args[0].tri4
-        b, f, _ = hit_bound_terms(tri[:, 0:3], tri[:, 3:6], tri[:, 6:9],
-                                  *args[1:3], out[0], args[3])
+        tris = tri or (args[0].tri4[:, 0:3], args[0].tri4[:, 3:6],
+                       args[0].tri4[:, 6:9])
+        b, f, _ = hit_bound_terms(*tris, *args[-3:-1], out[0], args[-1])
         nbytes += b
         flops += f
     bound_ms, bound_by = bound(nbytes, flops)
@@ -1225,15 +1305,6 @@ def large_scene_phases(kernels, dev, gen) -> dict:
 
     k5_walk = functools.partial(bvh.walk_cuda, kernel="K5")
 
-    def walk_counted(args, kernel):
-        """K5's or K6's own (triangle tests, node visits) for a launch's
-        inputs, from the walk's counting build, outside any counted
-        run."""
-        c = torch.zeros((args[1].shape[0], 2), dtype=torch.int32,
-                        device=dev)
-        bvh.walk_cuda(*args, counts=c, kernel=kernel)
-        return c.sum(0).tolist()
-
     def k5_check(phase, sd, ties: bool):
         """[K5] and [K5-top]: K5 on ``CHECK_RAYS`` mixed rays against the
         scene data ``sd``, bit for bit against its plain version (and, with
@@ -1266,9 +1337,9 @@ def large_scene_phases(kernels, dev, gen) -> dict:
                     "version")
             require(tie_hits > tro.shape[0] // 2,
                     f"{phase}: the tie case has few ties")
-        log(phase, rays=o.shape[0], triangles=f, leaf=ix.K5_LEAF,
+        log(phase, rays=o.shape[0], triangles=f, leaf=ix.SAH_LEAF,
             depth=sd.bvh.depth, nodes=sd.bvh.node.shape[0],
-            ptxas=ptxas_report("bvh_kernel"),
+            ptxas=ptxas_report("walk_kernel"),
             bitwise_equal_to_plain=a["bitwise"],
             id_match=f"{a['id_match']:.6f}", mismatches=a["mismatches"],
             mismatches_are_ties=a["ties_ok"],
@@ -1324,7 +1395,7 @@ def large_scene_phases(kernels, dev, gen) -> dict:
                             o, d, out[0], act)[2]
     own_tests, visits = walk_counted((h, o, d, act), "K6")
     log("K6", rays=o.shape[0], triangles=f6, leaf=bvh.LEAF, depth=h.depth,
-        ptxas=ptxas_report("bvh_kernel"),
+        ptxas=ptxas_report("walk_kernel"),
         tree_build_ms=f"{tree_ms:.2f}", plain_rays=sub.shape[0],
         bitwise_equal_to_plain=a["bitwise"],
         id_match=f"{a['id_match']:.6f}", mismatches=a["mismatches"],
@@ -1471,6 +1542,192 @@ def large_scene_phases(kernels, dev, gen) -> dict:
     return {"K5": launches5["K5"], "K6": launches["K6"]}
 
 
+def walk_counted(args, kernel):
+    """A walk's own (triangle tests, node visits) for a launch's inputs
+    ``args = (tree, o, d, active)``, from its counting build, outside any
+    counted run."""
+    import torch
+    from psdr_jit_tpu_torch.ops import bvh
+
+    c = torch.zeros((args[1].shape[0], 2), dtype=torch.int32,
+                    device=args[1].device)
+    bvh.walk_cuda(*args, counts=c, kernel=kernel)
+    return c.sum(0).tolist()
+
+
+def k1_launcher(p0, e1, e2):
+    """``(K1's kernel as fn(o, d, active) -> (t, id, uv), its table or tree,
+    its name)`` for these triangles, as the routing takes it: the sweep of a
+    packed table up to ``SWEEP_MAX_TRIS`` triangles, above the walk of the
+    area-split tree."""
+    import functools
+
+    from psdr_jit_tpu_torch.ops import bvh
+    from psdr_jit_tpu_torch.ops import intersect as ix
+
+    if p0.shape[0] <= ix.SWEEP_MAX_TRIS:
+        tab, box = ix.pack_triangles(p0, e1, e2)
+        return functools.partial(ix.sweep_cuda, tab, box), (tab, box), "sweep"
+    tree = ix.routing_tree(p0, e1, e2)
+    return (functools.partial(bvh.walk_cuda, tree, kernel="K1"), tree,
+            "walk")
+
+
+def k1_phase(phase, sd, dev, gen, ties: bool) -> dict:
+    """[K1] (the Cornell box, 32 triangles, swept) and [K1-492]
+    (``K1_GALLERY``, walked): K1 on each of its ray families
+    (``k1_families``), alone, bit for bit against its plain version, with
+    and without the dead lanes of (e); the check set (a)-(d) in one launch;
+    with ``ties``, exact ties through the sweep and the walk. Returns the
+    check set's record for the kernels' JSON."""
+    import torch
+    from psdr_jit_tpu_torch.ops import bvh
+    from psdr_jit_tpu_torch.ops import intersect as ix
+
+    tri = sd.tri
+    p0, e1, e2 = tri.p0, tri.e1, tri.e2
+    (k1, table, route), build_ms = _synced_ms(lambda: k1_launcher(p0, e1,
+                                                                  e2))
+
+    def plain(o, d, act):
+        ids, _, uv, t = ix.ray_intersect_brute(p0, e1, e2, o, d, act)
+        return t, ids, uv
+
+    fams = k1_families(sd, gen, dev)
+    fams["edge_all_active"] = (*fams["edge"][:2],
+                               torch.ones_like(fams["edge"][2]))
+    fams["check_set"] = tuple(torch.cat([fams[k][j] for k in (
+        "picks", "camera", "on_plane", "random")]).contiguous()
+        for j in range(3))
+    ms, bitwise = {}, True
+    for name, (o, d, act) in fams.items():
+        a = hit_agreement(k1(o, d, act), plain(o, d, act))
+        bitwise = bitwise and a["bitwise"]
+        ms[name] = cuda_ms(lambda: k1(o, d, act), 20)
+    o, d, act = fams["check_set"]
+    src = ("psdr_jit_tpu_torch/csrc/intersect.cu" if route == "sweep"
+           else "psdr_jit_tpu_torch/csrc/bvh.cu")
+    rec, a, tests, _ = intersect_record(
+        f"K1 closest hit ({route})", src,
+        "psdr_jit_tpu/ops/intersect_pallas.py:267",
+        [(k1, (o, d, act), k1(o, d, act))], plain, (p0, e1, e2))
+    rec["ms"] = ms["check_set"]
+    n = o.shape[0]
+    if route == "sweep":  # the queued sweep's plain model
+        stats = {}
+        ix.sweep_grouped_plain(table[0], o.unbind(-1), d.unbind(-1), 2,
+                               stats, live=act, compact=True)
+        own = dict(tests_per_ray=f"{stats['tri_tests'] / n:.2f}",
+                   warp_tests_per_ray=f"{32 * stats['warp_tri_tests'] / n:.2f}",
+                   box_tests_per_ray=f"{stats['box_tests'] / n:.2f}",
+                   ptxas=ptxas_report("sweep_kernel"))
+    else:
+        own_tests, visits = walk_counted((table, o, d, act), "K1")
+        own = dict(tests_per_ray=f"{own_tests / n:.2f}",
+                   node_visits_per_ray=f"{visits / n:.2f}",
+                   depth=table.depth, nodes=table.node.shape[0],
+                   ptxas=ptxas_report("walk_kernel"))
+    if ties:  # exact ties: equal distances, lowest id
+        for n_tri, n_pairs in ((160, 16), (496, 40)):
+            tp0, te1, te2, tro, trd, low = (
+                torch.from_numpy(x).to(dev)
+                for x in tie_case(n_tri=n_tri, n_pairs=n_pairs))
+            fn, tab, how = k1_launcher(tp0, te1, te2)
+            tie_act = torch.ones(tro.shape[0], dtype=torch.bool, device=dev)
+            tie_ref = ix.ray_intersect_brute(tp0, te1, te2, tro, trd)
+            tie_ref = (tie_ref[3], tie_ref[0], tie_ref[2])
+            outs = [fn(tro, trd, tie_act)]
+            if how == "walk":  # and in the other visit order
+                outs.append(bvh.walk_cuda(swapped_children(tab), tro, trd,
+                                          tie_act, kernel="K1"))
+            tie_ok = all(hit_agreement(x, tie_ref)["bitwise"] for x in outs)
+            tie_hits = int((tie_ref[1] == low.to(torch.int32)).sum())
+            own[f"tie_case_{n_tri}_{how}_bitwise"] = tie_ok
+            own[f"tie_case_{n_tri}_rays_on_lowest_id"] = tie_hits
+            require(tie_ok, f"{phase}: the tie case of {n_tri} triangles "
+                    "differs from the plain version")
+            require(tie_hits > tro.shape[0] // 2,
+                    f"{phase}: the tie case has few ties")
+    dead_share = ms["edge"] / ms["edge_all_active"]
+    log(phase, triangles=p0.shape[0], route=route,
+        table_or_tree_ms=f"{build_ms:.3f}",
+        bitwise_equal_to_plain=bitwise and a["bitwise"],
+        **{f"ms_{k}": f"{v:.4f}" for k, v in ms.items()},
+        edge_dead_over_all_active=f"{dead_share:.3f}",
+        plain_ms=f"{rec['plain_ms']:.4f}", **own,
+        needed_tests_per_ray=f"{tests / n:.2f}",
+        bound_ms=f"{rec['bound_ms']:.4f}", bound_by=rec["bound_by"])
+    require(bitwise and a["bitwise"], f"{phase}: not bitwise equal to the "
+            "plain version")
+    return rec
+
+
+def k1_frame_phase(dev) -> int:
+    """[K1-frame]: ``PathTracer(2).renderC`` of the 492-triangle gallery
+    (``K1_GALLERY``, routed through the general Li) with K1's launches
+    recorded, each held against its plain version bit for bit; K1 must
+    launch five times a chunk and nothing else run, and the image must
+    equal the render with K1 replaced by its plain version. Returns K1's
+    launches."""
+    import torch
+    import psdr_jit_tpu_torch as pt
+    from psdr_jit_tpu_torch.integrator import base
+    from psdr_jit_tpu_torch.ops import _cuda, bvh
+    from psdr_jit_tpu_torch.ops import intersect as ix
+
+    g = K1_GALLERY
+    sc = pt.Scene.from_arrays(gallery_arrays(**g), device=dev)
+    sd = sc.configure()
+    f = sd.tri.p0.shape[0]
+    require(f <= ix.K1_MAX_TRIS, "K1-frame: scene out of K1's range")
+    _, build_ms = _synced_ms(lambda: sd.bvh)
+    integ = pt.PathTracer(LARGE_DEPTH)
+    n_pix = g["width"] * g["height"]
+    chunks = -(-n_pix // max(base.GENERAL_CHUNK_LANES // g["spp"], 1))
+    torch.cuda.synchronize()
+    with PlainCalls() as plain, KernelCalls(
+            {"K1": (bvh, "walk_cuda")}) as rec_calls:
+        _cuda.reset_launches()
+        img = integ.renderC(sc, 0, seed=SEED)
+        torch.cuda.synchronize()
+        launches = dict(_cuda.LAUNCHES)
+    with PlainRoute():
+        img_plain = integ.renderC(sc, 0, seed=SEED)
+    calls = rec_calls.calls["K1"]
+    k1, a, tests, launch_ms = intersect_record(
+        "K1 tree walk, surface-area tree", "psdr_jit_tpu_torch/csrc/bvh.cu",
+        "psdr_jit_tpu/ops/intersect_pallas.py:267", calls, k5_plain)
+    own = [sum(x) for x in zip(*(walk_counted(c[1], "K1") for c in calls))]
+    n_rays = sum(c[2][0].shape[0] for c in calls)
+    live = sum(int(c[1][3].sum()) for c in calls)
+    frame_ms = wall_ms(lambda: integ.renderC(sc, 0, seed=SEED), 3)
+    log("K1-frame", triangles=f, size=f"{g['width']}x{g['height']}",
+        spp=g["spp"], depth=LARGE_DEPTH, K1_LAUNCHES=launches["K1"],
+        chunks=chunks, plain_calls=plain.count,
+        tree_build_ms=f"{build_ms:.3f}",
+        bitwise_equal_to_plain_render=torch.equal(img, img_plain),
+        launches_bitwise=a["bitwise"], K1_ms=f"{k1['ms']:.4f}",
+        K1_launch_ms=",".join(f"{x:.4f}" for x in launch_ms),
+        K1_plain_ms=f"{k1['plain_ms']:.1f}",
+        K1_bound_ms=f"{k1['bound_ms']:.4f}", K1_bound_by=k1["bound_by"],
+        active_share=f"{live / n_rays:.3f}",
+        tests_per_ray=f"{own[0] / n_rays:.2f}",
+        node_visits_per_ray=f"{own[1] / n_rays:.2f}",
+        needed_tests_per_ray=f"{tests / n_rays:.2f}", ms=f"{frame_ms:.2f}")
+    require(launches["K1"] == (1 + 2 * LARGE_DEPTH) * chunks,
+            "K1-frame: K1 launches != 5 a chunk")
+    require(all(v == 0 for k, v in launches.items() if k != "K1"),
+            "K1-frame: another kernel ran")
+    require(plain.count == 0, "K1-frame: a plain version ran")
+    require(bool(torch.isfinite(img).all()) and float(img.sum()) > 0,
+            "K1-frame: non-finite or black image")
+    require(torch.equal(img, img_plain),
+            "K1-frame: the render differs from its plain-version render")
+    require(a["bitwise"], "K1-frame: K1 not bitwise equal to its plain "
+            "version")
+    return launches["K1"]
+
+
 def train_step_fn(integrator, scene):
     """A closure that takes one training step on ``scene``."""
     params, apply_params, pixel_loss = train_setup(scene)
@@ -1527,67 +1784,16 @@ def main() -> int:
     require((W, H, SPP) == FRAME, f"{SCENE_NPZ.name} holds the {FRAME} frame")
     n_pix = W * H
     sd = scene.configure()
-    tri = sd.tri
     tables = mk.build_tables(sd)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
 
     # ---- 2. K1 vs plain ---------------------------------------------------
     picks = pixel_center_rays(sd, W, H, dev)
-    _, sampler, samples = interior_lane_setup(
-        W, H, 2, SEED, torch.arange(n_pix, device=dev))
-    cam = sd.sensors[0].sample_primary_ray(samples)
-    po, pd = on_plane_rays(tables[1], 1 << 18, gen, dev)
-    lo, hi = sd.lower, sd.upper
-    ro = lo + (hi - lo) * torch.rand((1 << 17, 3), generator=gen, device=dev)
-    rd = torch.nn.functional.normalize(
-        torch.randn((1 << 17, 3), generator=gen, device=dev), dim=-1)
-    o1 = torch.cat([picks.o, cam.o, po, ro]).contiguous()
-    d1 = torch.cat([picks.d, cam.d, pd, rd]).contiguous()
-    n1 = o1.shape[0]
-    tri_tab, box_tab = ix.pack_triangles(tri.p0, tri.e1, tri.e2)
-    t_c, id_c, uv_c = ix.intersect_cuda(tri_tab, box_tab, o1, d1)
-    id_p, _, uv_p, t_p = ix.ray_intersect_brute(tri.p0, tri.e1, tri.e2,
-                                                 o1, d1)
-    torch.cuda.synchronize()
-    # the plain sweep visits every triangle: equal bits mean K1's per-ray
-    # cluster culling changed no hit
-    bitwise = (torch.equal(t_c, t_p) and torch.equal(id_c, id_p)
-               and torch.equal(uv_c, uv_p))
-    same = id_c == id_p
-    both = same & (id_c >= 0)
-    t_err = (t_c - t_p).abs()[both]
-    t_rel = (t_err / t_p[both].abs()).max().item()
-    ties = ~same
-    # a mismatch must be a tie: both hit, at the same distance
-    tie_ok = bool(((id_c[ties] >= 0) & (id_p[ties] >= 0)
-                   & ((t_c[ties] - t_p[ties]).abs()
-                      <= 1e-5 * t_p[ties].abs())).all())
-    match = same.float().mean().item()
-    k1_ms_main = cuda_ms(lambda: ix.intersect_cuda(
-        tri_tab, box_tab, picks.o.contiguous(), picks.d.contiguous()), 50)
-    k1_ms = cuda_ms(lambda: ix.intersect_cuda(tri_tab, box_tab, o1, d1), 20)
-    k1_plain_ms = cuda_ms(lambda: ix.ray_intersect_brute(
-        tri.p0, tri.e1, tri.e2, o1, d1), 5)
-    k1_bytes, k1_flops, k1_tests = hit_bound_terms(tri.p0, tri.e1, tri.e2,
-                                                   o1, d1, t_c)
-    k1_bound = bound(k1_bytes, k1_flops)
-    log("K1", rays=n1, bitwise_equal_to_plain=bitwise,
-        id_match=f"{match:.6f}", mismatches=int(ties.sum()),
-        mismatches_are_ties=tie_ok, t_max_rel=f"{t_rel:.3e}",
-        ms=f"{k1_ms:.4f}", plain_ms=f"{k1_plain_ms:.4f}",
-        ms_pick_rays=f"{k1_ms_main:.4f}",
-        needed_tests_per_ray=f"{k1_tests / n1:.2f}",
-        bound_ms=f"{k1_bound[0]:.4f}", bound_by=k1_bound[1])
-    require(match >= 0.999 and tie_ok, "K1: ids differ beyond f32 ties")
-    require(t_rel <= 1e-5, "K1: t differs beyond rtol 1e-5")
-    kernels["K1"] = dict(
-        name="K1 closest-hit sweep", route="cuda",
-        source="psdr_jit_tpu_torch/csrc/intersect.cu",
-        replaces="psdr_jit_tpu/ops/intersect_pallas.py:267",
-        max_abs_err=float(t_err.max()) if t_err.numel() else 0.0,
-        ms=k1_ms, plain_ms=k1_plain_ms, bound_ms=k1_bound[0],
-        bound_by=k1_bound[1], library_ms=None)
+    kernels["K1"] = k1_phase("K1", sd, dev, gen, True)
+    k1_gallery = pt.Scene.from_arrays(gallery_arrays(**K1_GALLERY),
+                                      device=dev)
+    k1_phase("K1-492", k1_gallery.configure(), dev, gen, False)
 
     # ---- 3. K2 vs plain on a 4096-pixel crop of the frame ------------------
     crop = torch.arange(H // 2 * W, (H // 2 + 8) * W, device=dev)
@@ -1785,6 +1991,7 @@ def main() -> int:
 
     # ---- 8. the large-scene path --------------------------------------------
     launches_l = large_scene_phases(kernels, dev, gen)
+    k1_frame_phase(dev)
 
     record = {"kernels": (
         [{**kernels[k], "launches": launches[k]} for k in ("K1", "K2")]

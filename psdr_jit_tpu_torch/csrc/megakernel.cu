@@ -369,31 +369,11 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   float* s_attr = reinterpret_cast<float*>(s_gbox + 2 * (f_pad / kGroup));
   float* s_light = s_attr + kAttrRows * f_pad;
   __shared__ float s_misc[2];
-  float* rows = reinterpret_cast<float*>(s_tri);
-  for (int k = threadIdx.x; k < 12 * f_pad; k += blockDim.x) {
-    const int j = k / 12, q = k % 12;
-    rows[k] = q < 9 ? tri_g[q * f_pad + j] : 0.0f;
-  }
-  for (int k = threadIdx.x; k < nc; k += blockDim.x) {
-    float lo[3], hi[3];
-    for (int q = 0; q < 3; ++q) {
-      lo[q] = box_g[q * nc + k];
-      hi[q] = box_g[(3 + q) * nc + k];
-      const float m = psdr::box_margin(lo[q], hi[q]);
-      lo[q] -= m;
-      hi[q] += m;
-    }
-    s_cbox[2 * k] = make_float4(lo[0], lo[1], lo[2], 0.0f);
-    s_cbox[2 * k + 1] = make_float4(hi[0], hi[1], hi[2], 0.0f);
-  }
   for (int k = threadIdx.x; k < kAttrRows * f_pad; k += blockDim.x) s_attr[k] = attr_g[k];
   for (int k = threadIdx.x; k < kLightRows * n_light; k += blockDim.x)
     s_light[k] = light_g[k];
   for (int k = threadIdx.x; k < 2; k += blockDim.x) s_misc[k] = misc_g[k];
-  __syncthreads();
-  for (int k = threadIdx.x; k < f_pad / kGroup; k += blockDim.x)
-    psdr::row_box(s_tri, k * kGroup, kGroup, s_gbox + 2 * k);
-  __syncthreads();
+  psdr::stage_table<kGroup>(tri_g, box_g, f_pad, s_tri, s_cbox, s_gbox);
 
   const Tables tb{s_tri, s_cbox, s_gbox, s_attr, s_light, f_pad, n_light, s_misc[0],
                   s_misc[1]};

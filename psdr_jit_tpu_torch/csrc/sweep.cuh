@@ -1,22 +1,21 @@
 // The closest-hit sweep: THE ray/triangle hit test and THE box slab test
-// of the port, shared by K1 (intersect.cu), K2 (megakernel.cu), K5 and K6
-// (bvh.cu) so that the epsilon, culling and tie policy cannot drift between
-// them. Counterpart of sweep_block in psdr_jit_tpu/ops/intersect_pallas.py;
-// its plain PyTorch version is sweep_plain in
-// psdr_jit_tpu_torch/ops/intersect.py. K1 runs sweep() below, K2 its two
-// culled sweeps (sweep_grouped, sweep_queued), K5 and K6 a tree.
+// of the port, shared by K2 (megakernel.cu) and by the walk of K1, K5 and
+// K6 (bvh.cu) so that the epsilon, culling and tie policy cannot drift
+// between them. Counterpart of sweep_block in
+// psdr_jit_tpu/ops/intersect_pallas.py; the plain PyTorch version of the
+// test is hit_test in psdr_jit_tpu_torch/ops/intersect.py, of the unculled
+// sweep sweep_plain there. K2 runs its two culled sweeps (sweep_grouped,
+// sweep_queued), the walk a tree.
 //
-// Tables (one float per entry, component-major, staged in shared memory):
-//   tri (9, f_pad):  p0.xyz, e1.xyz, e2.xyz of each triangle; f_pad is a
-//                    multiple of kCluster, padded with degenerate triangles;
-//   box (6, nc):     lower then upper corner of each 16-triangle cluster.
+// Tables of K2's sweeps: rows of three float4 a triangle and two float4 a
+// box (see "K2's two-level sweep" below), staged in shared memory.
 //
 // Hit test (reference utils.h:83-93): Moller-Trumbore with |a| > 1e-12,
-// u >= 0, v >= 0, u + v <= 1, t > RAY_EPSILON and t < best. Triangles are
-// visited in ascending id and a hit must be strictly closer, so ties go to
-// the lowest id, as in the plain version's argmin. K5 and K6, whose trees
-// visit triangles in no fixed order, keep the same hit with their own
-// variants (hit_test_any_order, box_enter).
+// u >= 0, v >= 0, u + v <= 1, t > RAY_EPSILON and t < best. K2's sweeps
+// visit triangles in ascending id and a hit must be strictly closer, so
+// ties go to the lowest id, as in the plain version's argmin. The walk,
+// whose tree visits triangles in no fixed order, keeps the same hit with
+// its own variants (hit_test_any_order, box_enter).
 //
 // Rounding. The cross and dot products are fused multiply-adds placed
 // where the JAX package's CPU backend contracts the same expressions
@@ -33,8 +32,8 @@
 //    the origin lies on the slab plane; NaN would make tnear <= tfar false.
 //    A NaN anywhere in the slab test therefore means "visit".
 //  * f32 rounding of the slab test and of Moller-Trumbore's barycentrics
-//    can put a reported hit a few ulps outside its cluster's box. Boxes are
-//    widened by 1e-3 * (1 + |coordinate|) when they are staged.
+//    can put a reported hit a few ulps outside its box. Boxes are widened
+//    by 1e-3 * (1 + |coordinate|) when they are built or staged.
 #pragma once
 
 #include <cstdint>
@@ -60,23 +59,6 @@ struct Hit {
 // boxes with the same expression (ops/intersect.py widen_boxes).
 __device__ __forceinline__ float box_margin(float lo, float hi) {
   return 1e-3f * (1.0f + fmaxf(fabsf(lo), fabsf(hi)));
-}
-
-// Cooperative copy of the triangle and (widened) box tables to shared
-// memory. The caller synchronises the block afterwards.
-__device__ __forceinline__ void stage_geometry(const float* __restrict__ tri_g,
-                                               const float* __restrict__ box_g,
-                                               int f_pad, float* s_tri,
-                                               float* s_box) {
-  const int nc = f_pad / kCluster;
-  for (int k = threadIdx.x; k < 9 * f_pad; k += blockDim.x) s_tri[k] = tri_g[k];
-  for (int k = threadIdx.x; k < 3 * nc; k += blockDim.x) {
-    const float lo = box_g[k];
-    const float hi = box_g[3 * nc + k];
-    const float m = box_margin(lo, hi);
-    s_box[k] = lo - m;
-    s_box[3 * nc + k] = hi + m;
-  }
 }
 
 // THE slab test of a (widened) box: may a hit closer than `best` lie in
@@ -201,8 +183,8 @@ __device__ __forceinline__ bool box_enter(float lox, float loy, float loz,
 // 16-triangle cluster's box is tested, then inside a visited cluster the
 // box of each run of G consecutive triangles (none at G = 16), then the
 // run's triangles: in ascending id, with THE hit test and its strict
-// t < best, as sweep() visits them. All 32 lanes of a warp call it together, and the
-// culling is decided for the warp: a box is entered when any lane that
+// t < best. All 32 lanes of a warp call it together, and the culling is
+// decided for the warp: a box is entered when any lane that
 // needs a hit enters it, so the warp never diverges on a box, and a lane
 // may test triangles its own box test would have skipped. This pays where
 // a warp's rays are coherent and skip most runs together (see
@@ -232,6 +214,40 @@ __device__ __forceinline__ void row_box(const float4* __restrict__ tri, int firs
   for (int q = 0; q < 3; ++q) m[q] = box_margin(lo[q], hi[q]);
   out[0] = make_float4(lo[0] - m[0], lo[1] - m[1], lo[2] - m[2], 0.0f);
   out[1] = make_float4(hi[0] + m[0], hi[1] + m[1], hi[2] + m[2], 0.0f);
+}
+
+// K2's table staged in shared memory from the packed (9, f_pad) triangle and
+// (6, f_pad / 16) cluster-box tables of ops/intersect.py pack_triangles: each
+// triangle as three float4 rows, each cluster's box and each G-triangle
+// run's box (row_box), widened. Used by K2 (megakernel.cu) and by K1's
+// sweep (intersect.cu); synchronises the block twice.
+template <int G>
+__device__ __forceinline__ void stage_table(const float* __restrict__ tri_g,
+                                            const float* __restrict__ box_g, int f_pad,
+                                            float4* s_tri, float4* s_cbox,
+                                            float4* s_gbox) {
+  const int nc = f_pad / kCluster;
+  float* rows = reinterpret_cast<float*>(s_tri);
+  for (int k = threadIdx.x; k < 12 * f_pad; k += blockDim.x) {
+    const int j = k / 12, q = k % 12;
+    rows[k] = q < 9 ? tri_g[q * f_pad + j] : 0.0f;
+  }
+  for (int k = threadIdx.x; k < nc; k += blockDim.x) {
+    float lo[3], hi[3];
+    for (int q = 0; q < 3; ++q) {
+      lo[q] = box_g[q * nc + k];
+      hi[q] = box_g[(3 + q) * nc + k];
+      const float m = box_margin(lo[q], hi[q]);
+      lo[q] -= m;
+      hi[q] += m;
+    }
+    s_cbox[2 * k] = make_float4(lo[0], lo[1], lo[2], 0.0f);
+    s_cbox[2 * k + 1] = make_float4(hi[0], hi[1], hi[2], 0.0f);
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < f_pad / G; k += blockDim.x)
+    row_box(s_tri, k * G, G, s_gbox + 2 * k);
+  __syncthreads();
 }
 
 // box_visit of a staged box. `checked`: some ray of the warp has a
@@ -330,7 +346,7 @@ __device__ __forceinline__ Hit sweep_grouped(const float4* __restrict__ tri,
 // at equal t, as the ascending sweep's strict t < best keeps. The winning
 // triangle is then tested once more by its own lane for (t, u, v), the
 // same arithmetic as the test that found it. Culling with widened boxes
-// removes no hit, so the hits are sweep()'s bit for bit.
+// removes no hit, so the hits are the unculled sweep's bit for bit.
 
 // One warp's scratch in shared memory.
 struct WarpQueue {
@@ -426,31 +442,13 @@ __device__ __forceinline__ Hit sweep_queued(const float4* __restrict__ tri,
   return h;
 }
 
-// Sweep a staged (9, f_pad) triangle table and its (6, f_pad / 16) box
-// table: each cluster whose box the ray enters before its best hit, in
-// ascending id.
-__device__ __forceinline__ Hit sweep(const float* __restrict__ tri,
-                                     const float* __restrict__ box, int f_pad,
-                                     float ox, float oy, float oz, float dx,
-                                     float dy, float dz) {
-  Hit h{kInf, -1, 0.0f, 0.0f};
-  const int nc = f_pad / kCluster;
-  const float ix = 1.0f / dx;
-  const float iy = 1.0f / dy;
-  const float iz = 1.0f / dz;
-  for (int c = 0; c < nc; ++c) {
-    if (!box_visit(box[c], box[nc + c], box[2 * nc + c], box[3 * nc + c],
-                   box[4 * nc + c], box[5 * nc + c], ox, oy, oz, ix, iy, iz,
-                   h.t))
-      continue;
-    for (int j = c * kCluster; j < (c + 1) * kCluster; ++j)
-      hit_test(h, j, tri[j], tri[f_pad + j], tri[2 * f_pad + j],
-               tri[3 * f_pad + j], tri[4 * f_pad + j], tri[5 * f_pad + j],
-               tri[6 * f_pad + j], tri[7 * f_pad + j], tri[8 * f_pad + j],
-               ox, oy, oz, dx, dy, dz);
-  }
-  if (!(h.t < kInf)) h.id = -1;
-  return h;
+// A hit, or a miss, written to the outputs t, id, uv of ray i.
+__device__ __forceinline__ void store_hit(const Hit& h, long long i, float* t, int* id,
+                                          float* uv) {
+  t[i] = h.t;
+  id[i] = h.id;
+  uv[2 * i] = h.u;
+  uv[2 * i + 1] = h.v;
 }
 
 }  // namespace psdr

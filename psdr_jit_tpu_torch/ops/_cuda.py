@@ -12,17 +12,20 @@ and the trigonometric functions, and with them the visibility tests that
 the kernels must share with their plain PyTorch versions. ``-fmad=false``
 keeps nvcc from contracting ``a * b + c`` into fused multiply-adds, so the
 kernels evaluate the same f32 expressions as the plain versions: with
-contraction, 0.4% of K1's check rays changed their hit beyond an f32 tie
-on the H100 (rays grazing or lying in a triangle's plane; PERF.md). Where a
-kernel wants a fused multiply-add it writes ``fmaf`` explicitly.
+contraction, 0.4% of the closest-hit check rays changed their hit beyond
+an f32 tie on the H100 (rays grazing or lying in a triangle's plane;
+PERF.md). Where a kernel wants a fused multiply-add it writes ``fmaf``
+explicitly. The library also holds one host routine, ``psdr_sah_build``
+(the area-split tree of ``bvh.build_sah_bvh``).
 
-``LAUNCHES`` counts the launches of each kernel (``K1``: closest hit;
+``LAUNCHES`` counts the launches of each kernel (``K1``: the closest hit
+for F <= 512 triangles, the sweep of ``intersect.cu`` up to 192, the walk
+of ``bvh.cu`` above; ``K5`` and ``K6``: the same walk for 512 < F <= 4096
+on a tree split by surface area and above on one split at the middle;
 ``K2``, ``K2-pair``, ``K2-stash``: the detached Li in its three modes;
-``K3``: the attached shade; ``K4``: its adjoint; ``K5`` and ``K6``: the
-tree walk of ``bvh.cu``, on a tree split by surface area for 512 < F <=
-4096 triangles and on one split at the middle above); each wrapper adds
-one where it launches its kernel and nowhere else, so a run can show that
-it went through the kernels.
+``K3``: the attached shade; ``K4``: its adjoint); each wrapper adds one
+where it launches its kernel and nowhere else, so a run can show that it
+went through the kernels.
 """
 
 from __future__ import annotations
@@ -121,8 +124,8 @@ _LL = ctypes.c_longlong
 def library(csrc: Path = CSRC) -> ctypes.CDLL:
     """The loaded kernel library of ``csrc``, built on first call."""
     lib = ctypes.CDLL(str(build(csrc)))
-    lib.psdr_intersect.argtypes = [_P, _P, _I, _P, _P, _LL, _P, _P, _P, _P]
-    lib.psdr_intersect.restype = _I
+    lib.psdr_sweep.argtypes = [_P, _P, _I, _P, _P, _P, _LL, _P, _P, _P, _P]
+    lib.psdr_sweep.restype = _I
     lib.psdr_li_mega.argtypes = [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
                                  _P, _P, ctypes.c_uint, _LL, _I, _I, _I, _I,
                                  _I, _P, _P, _P, _P, _P]
@@ -135,6 +138,9 @@ def library(csrc: Path = CSRC) -> ctypes.CDLL:
     lib.psdr_shade_bwd.restype = _I
     lib.psdr_bvh.argtypes = [_P, _P, _P, _P, _P, _P, _LL, _P, _P, _P, _P, _P]
     lib.psdr_bvh.restype = _I
+    lib.psdr_sah_build.argtypes = [_P, _I, _I, _I, ctypes.c_double, _P, _P,
+                                   _P, _P]
+    lib.psdr_sah_build.restype = _I
     lib.psdr_error_string.argtypes = [_I]
     lib.psdr_error_string.restype = ctypes.c_char_p
     return lib

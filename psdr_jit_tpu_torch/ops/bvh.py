@@ -1,21 +1,22 @@
-"""Closest hit for scenes above 512 triangles: a per-ray traversal of a
-binary tree over the Morton-ordered triangles (counterpart of
-``ray_intersect_bvh`` in ``psdr_jit_tpu/ops/bvh.py`` and, below 4,097
-triangles, of the super-block sweep of ``intersect_pallas.py``).
+"""Closest hit through a per-ray walk of a binary tree over the
+triangles: K1 (192 < F <= 512), K5 (F <= 4096) and K6 (counterpart of
+``ray_intersect_bvh`` in ``psdr_jit_tpu/ops/bvh.py`` and of the dense and
+super-block sweeps of ``intersect_pallas.py``).
 
-The triangles arrive in the scene's Morton order, so consecutive ids are
-spatially close. Both trees cut them, as they are, into leaves of
-consecutive ids and build a binary tree over the leaves: K6's
-(:func:`build_bvh`), leaves of ``LEAF`` ids and each range of leaves
-split at its midpoint, a topology that depends on the triangle count and
-the leaf size alone (:func:`tree_topology`, cached); K5's
-(:func:`build_sah_bvh`), leaves of at most ``intersect.K5_LEAF`` ids, each
-range split where the surface-area cost is least (:func:`sah_topology`,
-on the host), which halved K5's node visits (PERF.md). The boxes are a
-bottom-up reduction of the triangles' widened boxes
-(``intersect.widen_boxes``, the margin of every culling box of the port),
-one level at a time, on the triangles' device. ``SceneData.bvh`` builds
-the tree once per scene compile.
+Both trees cut the triangles, in their given order (the scene's Morton
+order above 256 faces), into leaves of consecutive ids and build a binary
+tree over the leaves: K6's (:func:`build_bvh`), leaves of ``LEAF`` ids and
+each range of leaves split at its midpoint, a topology that depends on the
+triangle count and the leaf size alone (:func:`tree_topology`, cached);
+K1's and K5's (:func:`build_sah_bvh`), leaves of at most
+``intersect.SAH_LEAF`` ids, each range split where the surface-area cost
+is least (:func:`sah_topology`), which halved K5's node visits (PERF.md).
+On the card the area-split tree is built on the host by the kernel
+library's ``psdr_sah_build`` (the same tables bit for bit, in
+microseconds); elsewhere by numpy. The boxes are a bottom-up reduction of
+the triangles' widened boxes (``intersect.widen_boxes``, the margin of
+every culling box of the port). ``SceneData.bvh`` builds the tree once
+per scene compile.
 
 The node table holds no padding: every node is reached by its parent's
 link, so no box is ever tested for a node that does not exist (an inverted
@@ -28,8 +29,10 @@ while ``tnear <= best``, so an equal-distance hit with a lower id is still
 reached. So every version equals the unculled sweep bit for bit.
 
 * :func:`walk_cuda` launches the walk of ``csrc/bvh.cu``: one thread per
-  ray walks the tree with a short stack, nearer child first. It is K5 on
-  K5's tree and K6 on K6's (``intersect.routing_tree``), and counts its
+  active ray walks the tree with a short stack, nearer child first. It is
+  K1 (above
+  ``intersect.SWEEP_MAX_TRIS`` triangles) or K5 on the area-split tree and
+  K6 on the midpoint tree (``intersect.routing_tree``), and counts its
   launches under the name it is given.
 * :func:`ray_intersect_bvh_plain` is its plain PyTorch version: a frontier
   of (ray, node) pairs expanded level by level, children culled against
@@ -43,6 +46,7 @@ and proxy pre-pass exist because TPU lanes cannot index memory per lane
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 
@@ -50,8 +54,8 @@ import numpy as np
 import torch
 
 from . import _cuda
-from .intersect import (INF, K1_MAX_TRIS, K5_LEAF, K5_MAX_TRIS,
-                        PLAIN_RAY_CHUNK, box_visit, finish_hits, hit_test,
+from .intersect import (INF, K1_MAX_TRIS, K5_MAX_TRIS, PLAIN_RAY_CHUNK,
+                        SAH_LEAF, box_visit, finish_hits, hit_test,
                         miss_like, widen_boxes)
 
 # Triangles per leaf (the last leaf may hold fewer). Chosen on the card
@@ -69,7 +73,7 @@ _I32_MAX = torch.iinfo(torch.int32).max
 
 @dataclasses.dataclass
 class BVH:
-    """The tree K5 and K6 walk, all on one device.
+    """The tree K1, K5 and K6 walk, all on one device.
 
     ``tri4`` (F, 12) float32: p0, e1, e2 of each triangle, padded to three
     float4. ``node`` (n_internal, 16) float32: for each internal node the
@@ -216,12 +220,15 @@ def build_bvh(p0, e1, e2, leaf: int = LEAF) -> BVH:
                      torch.clamp(f - first, max=leaf), child, heights, depth)
 
 
-def build_sah_bvh(p0, e1, e2, leaf: int = K5_LEAF) -> BVH:
-    """K5's tree over (F, 3) triangles in their given order, on their
-    device: leaves of at most ``leaf`` consecutive triangles, each range
-    split by surface area (:func:`sah_topology`, at most ``STACK``
-    deep)."""
+def build_sah_bvh(p0, e1, e2, leaf: int = SAH_LEAF) -> BVH:
+    """K1's and K5's tree over (F, 3) triangles in their given order, on
+    their device: leaves of at most ``leaf`` consecutive triangles, each
+    range split by surface area (:func:`sah_topology`, at most ``STACK``
+    deep). For CUDA tensors the kernel library builds it on the host
+    (``psdr_sah_build``, the same tables bit for bit)."""
     dev = p0.device
+    if dev.type == "cuda":
+        return _sah_bvh_native(p0, e1, e2, leaf)
     lo, hi = (x.cpu().numpy() for x in _triangle_boxes(p0, e1, e2))
     child, heights, depth, runs = sah_topology(
         lo.astype(np.float64), hi.astype(np.float64), leaf)
@@ -230,6 +237,31 @@ def build_sah_bvh(p0, e1, e2, leaf: int = K5_LEAF) -> BVH:
                 for r, x in ((np.minimum, lo), (np.maximum, hi)))
     return _assemble(p0, e1, e2, llo, lhi, first, count, child, heights,
                      depth)
+
+
+def _tri4(p0, e1, e2):
+    """The ``(F, 12)`` rows p0, e1, e2, 0 of the triangles."""
+    return torch.cat([p0, e1, e2, p0.new_zeros((p0.shape[0], 3))],
+                     dim=1).contiguous()
+
+
+def _sah_bvh_native(p0, e1, e2, leaf: int) -> BVH:
+    """:func:`build_sah_bvh` through the kernel library's host builder:
+    the triangles are copied to the host once, the tables back once."""
+    f = p0.shape[0]
+    tri = torch.cat([p0, e1, e2], dim=1).to(torch.float32).cpu().numpy()
+    node = np.empty((max(f - 1, 1), 16), np.float32)
+    root = np.empty(8, np.float32)
+    n_int, depth = ctypes.c_int(), ctypes.c_int()
+    lib = _cuda.library()
+    if lib.psdr_sah_build(tri.ctypes.data, f, leaf, STACK, SAH_NODE_COST,
+                          node.ctypes.data, root.ctypes.data,
+                          ctypes.byref(n_int), ctypes.byref(depth)) != 0:
+        raise ValueError(f"{f} triangles do not fit a tree {STACK} deep")
+    dev = p0.device
+    return BVH(tri4=_tri4(p0, e1, e2),
+               node=torch.from_numpy(node[:n_int.value]).to(dev),
+               root=torch.from_numpy(root).to(dev), depth=depth.value)
 
 
 def _assemble(p0, e1, e2, llo, lhi, first, count, child_np, heights_np,
@@ -264,8 +296,7 @@ def _assemble(p0, e1, e2, llo, lhi, first, count, child_np, heights_np,
                           link[nodes, 1:]], dim=1)
 
     node = torch.cat([ref(child[:, 0]), ref(child[:, 1])], dim=1)
-    tri4 = torch.cat([p0, e1, e2, p0.new_zeros((f, 3))], dim=1)
-    return BVH(tri4=tri4.contiguous(), node=node.contiguous(),
+    return BVH(tri4=_tri4(p0, e1, e2), node=node.contiguous(),
                root=ref(child.new_zeros(1))[0].contiguous(), depth=depth)
 
 
@@ -362,20 +393,23 @@ def _sweep_leaves(bvh: BVH, o, d, ray, first, count, best) -> int:
 
 def walk_cuda(bvh: BVH, ray_o, ray_d, active, counts=None, kernel="K6"):
     """Launch the tree walk of ``csrc/bvh.cu`` on ``bvh`` as ``kernel``,
-    adding one to ``_cuda.LAUNCHES[kernel]``: ``"K5"`` on K5's tree over
-    ``K1_MAX_TRIS < F <= K5_MAX_TRIS`` triangles, ``"K6"`` on any tree
-    (the routing gives it K6's, above ``K5_MAX_TRIS``). Returns ``(t (N,),
-    id (N,) int32, uv (N, 2))``; lanes with ``active`` False report a
-    miss untraced. Equals the plain versions bit for bit. ``counts``, an
-    (N, 2) int32 tensor if given, receives each ray's triangle tests and
-    internal-node visits (a counting build of the same traversal)."""
+    adding one to ``_cuda.LAUNCHES[kernel]``: ``"K1"`` or ``"K5"`` on the
+    area-split tree over at most ``K1_MAX_TRIS`` triangles or ``K1_MAX_TRIS
+    < F <= K5_MAX_TRIS``, ``"K6"`` on any tree (the routing gives it K6's,
+    above ``K5_MAX_TRIS``). Returns ``(t (N,), id (N,) int32, uv (N, 2))``;
+    lanes with ``active`` False report a miss and are not walked. Equals
+    the plain versions bit for bit. ``counts``, an (N, 2) int32 tensor if
+    given, receives each ray's triangle tests and internal-node visits (a
+    counting build of the same walk)."""
     dev = ray_o.device
     f = bvh.tri4.shape[0]
-    if kernel not in ("K5", "K6"):
-        raise ValueError(f"the tree walk is K5 or K6, not {kernel!r}")
-    if kernel == "K5" and not K1_MAX_TRIS < f <= K5_MAX_TRIS:
-        raise ValueError(f"K5 takes {K1_MAX_TRIS + 1}..{K5_MAX_TRIS} "
-                         f"triangles, got {f}")
+    ranges = {"K1": (1, K1_MAX_TRIS), "K5": (K1_MAX_TRIS + 1, K5_MAX_TRIS),
+              "K6": (1, None)}
+    if kernel not in ranges:
+        raise ValueError(f"the tree walk is K1, K5 or K6, not {kernel!r}")
+    lo, hi = ranges[kernel]
+    if f < lo or (hi is not None and f > hi):
+        raise ValueError(f"{kernel} takes {lo}..{hi} triangles, got {f}")
     if bvh.depth > STACK:
         raise ValueError(f"the walk's stack holds {STACK} entries; the tree "
                          f"is {bvh.depth} deep")

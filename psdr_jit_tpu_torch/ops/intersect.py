@@ -7,33 +7,37 @@ The payload is the JAX package's ``(tri_id, valid, uv, t)``: global
 triangle ids (-1 = miss), barycentrics and hit distance, all detached.
 
 :func:`ray_intersect_detached` is the entry. It routes on the triangle
-count F, with the JAX package's thresholds:
+count F, with the JAX package's thresholds naming the kernels:
 
-* F <= 512: kernel K1 (``csrc/intersect.cu``), the whole table staged in
-  shared memory;
-* 512 < F <= 4096: kernel K5, the per-ray walk of ``csrc/bvh.cu`` on a
-  binary tree over the triangles split by surface area (leaves of at most
-  ``K5_LEAF``);
-* F > 4096: kernel K6 (``csrc/bvh.cu``, ``ops/bvh.py``), the same walk on
-  a tree split at the middle (leaves of ``bvh.LEAF``).
+* F <= 512: kernel K1. Up to ``SWEEP_MAX_TRIS`` triangles it sweeps K2's
+  staged table with K2's queued culling (``csrc/intersect.cu``,
+  :func:`sweep_cuda`); above, it walks a binary tree over the triangles
+  split by surface area (leaves of at most ``SAH_LEAF``,
+  ``bvh.build_sah_bvh``) with the walk of ``csrc/bvh.cu``
+  (``bvh.walk_cuda``);
+* 512 < F <= 4096: kernel K5, the same walk on the same kind of tree;
+* F > 4096: kernel K6, the same walk on a tree split at the middle
+  (leaves of ``bvh.LEAF``, ``bvh.build_bvh``).
 
-Both trees come from :func:`routing_tree`, once per scene compile
+The tree comes from :func:`routing_tree`, once per scene compile
 (``SceneData.bvh``) or, for bare triangles, per call. On CPU tensors each
 route runs its plain PyTorch version: the unculled sweep
 :func:`sweep_plain` (through :func:`ray_intersect_brute`) for K1 and K5,
-``bvh.ray_intersect_bvh_plain`` for K6. On CUDA tensors each launches its
-kernel or raises. Non-finite and inactive rays report a miss.
+``bvh.ray_intersect_bvh_plain`` for K6. On CUDA tensors the kernels run
+or raise. Non-finite and inactive rays report a miss; on the card they are
+not swept or walked.
 
-K2 (``ops/megakernel.py``) sweeps with two levels of widened boxes;
-:func:`sweep_grouped_plain` is the plain version of those sweeps.
+:func:`sweep_grouped_plain` is the plain version of K2's culled sweeps,
+and so of K1's sweep (``compact``).
 
 Every version runs THE hit test of ``csrc/sweep.cuh`` (Moller-Trumbore
 with ``|a| > 1e-12, u >= 0, v >= 0, u + v <= 1, RAY_EPSILON < t < best``)
 and keeps the lowest id of equal distances (the sweeps visit triangles in
-ascending id with a strict ``t < best``, K6 compares ``(t, id)``), and
-every culling box is widened (:func:`widen_boxes`) so that culling changes
-no hit: the kernels equal their plain versions, and the plain versions
-equal one another, bit for bit.
+ascending id with a strict ``t < best`` or keep the least ``(t, id)``, the
+walk compares ``(t, id)``), and every culling box is widened
+(:func:`widen_boxes`) so that culling changes no hit: the kernels equal
+their plain versions, and the plain versions equal one another, bit for
+bit.
 """
 
 from __future__ import annotations
@@ -44,19 +48,24 @@ from ..core.types import RAY_EPSILON
 from . import _cuda
 
 INF = 1e30
-# Triangles per culling cluster of K1 and K2: the table layout of the JAX
+# Triangles per culling cluster of K2: the table layout of the JAX
 # package's build_tables (16-triangle clusters, one AABB each), kept so the
-# tables of the two packages compare one to one. The CUDA sweeps cull per
-# ray.
+# tables of the two packages compare one to one.
 CLUSTER = 16
-# K1 stages the whole (9, F) triangle table in shared memory: 512
-# triangles are 18 KiB, under the 48 KiB a block gets without opting in.
+# The JAX package's routing thresholds: its dense kernel up to K1_MAX_TRIS
+# triangles, its super-block kernel up to K5_MAX_TRIS (its BVH_MIN_TRIS),
+# its BVH above. Here they name the walk's launches K1, K5 and K6.
 K1_MAX_TRIS = 512
-# K5 walks a tree split by surface area with leaves of at most K5_LEAF
-# triangles (chosen on the card, PERF.md); above K5_MAX_TRIS triangles (the
-# JAX package's BVH_MIN_TRIS) K6 walks one split at the middle.
 K5_MAX_TRIS = 4096
-K5_LEAF = 2
+# K1 sweeps up to SWEEP_MAX_TRIS triangles and walks a tree above: the walk
+# overtakes the sweep near 130 triangles on camera rays and near 300 on the
+# secondary-edge stand-ins on the card (PERF.md); 192, between them,
+# is the most K2 stages.
+SWEEP_MAX_TRIS = 192
+# K1 and K5 walk a tree split by surface area with leaves of at most
+# SAH_LEAF triangles: one, 3.5-4% faster a frame than two at 492, 1,292 and
+# 3,852 triangles on the card (PERF.md).
+SAH_LEAF = 1
 # Rays and triangles per block of the plain sweep: its (rays, triangles)
 # temporaries stay at 2^24 entries whatever the scene's size.
 PLAIN_RAY_CHUNK = 1 << 15
@@ -300,19 +309,25 @@ def ray_intersect_brute(p0, e1, e2, ray_o, ray_d, active=None):
     return tri_id, tri_id >= 0, torch.stack([u, v], dim=-1), t
 
 
-def intersect_cuda(tri, box, ray_o, ray_d):
-    """Launch K1 on a packed table: ``(t (N,), id (N,) int32, uv (N, 2))``.
-    Same payload as the plain sweep, which it equals bit for bit."""
+def sweep_cuda(tri, box, ray_o, ray_d, active):
+    """Launch K1's sweep (``csrc/intersect.cu``) on a packed table
+    (:func:`pack_triangles`): ``(t (N,), id (N,) int32, uv (N, 2))``, lanes
+    with ``active`` False reporting a miss unswept. Equals the plain sweep
+    bit for bit. The routing takes it up to ``SWEEP_MAX_TRIS`` triangles;
+    it runs up to ``K1_MAX_TRIS``."""
     dev = ray_o.device
     f_pad = tri.shape[1]
     if f_pad % CLUSTER or not 0 < f_pad <= K1_MAX_TRIS:
-        raise ValueError(f"K1 takes 1..{K1_MAX_TRIS} triangles padded to "
-                         f"a multiple of {CLUSTER}, got {f_pad}")
+        raise ValueError(f"K1 sweeps 1..{K1_MAX_TRIS} triangles padded to a "
+                         f"multiple of {CLUSTER}, got {f_pad}")
     _cuda.require(tri, "tri", torch.float32, (9, f_pad), dev)
     _cuda.require(box, "box", torch.float32, (6, f_pad // CLUSTER), dev)
     _cuda.require(ray_o, "ray_o", torch.float32, (None, 3), dev)
     n = ray_o.shape[0]
     _cuda.require(ray_d, "ray_d", torch.float32, (n, 3), dev)
+    _cuda.require(active, "active", torch.bool, (n,), dev)
+    if n >= 1 << 31:
+        raise ValueError(f"K1 queues active rays as int32: {n} rays")
     t = torch.empty(n, dtype=torch.float32, device=dev)
     ids = torch.empty(n, dtype=torch.int32, device=dev)
     uv = torch.empty((n, 2), dtype=torch.float32, device=dev)
@@ -320,10 +335,10 @@ def intersect_cuda(tri, box, ray_o, ray_d):
         return t, ids, uv
     lib = _cuda.library()
     with torch.cuda.device(dev):
-        err = lib.psdr_intersect(
+        err = lib.psdr_sweep(
             tri.data_ptr(), box.data_ptr(), f_pad, ray_o.data_ptr(),
-            ray_d.data_ptr(), n, t.data_ptr(), ids.data_ptr(),
-            uv.data_ptr(), _cuda.stream_of(dev))
+            ray_d.data_ptr(), active.data_ptr(), n, t.data_ptr(),
+            ids.data_ptr(), uv.data_ptr(), _cuda.stream_of(dev))
     _cuda.check(err, "K1 launch")
     _cuda.LAUNCHES["K1"] += 1
     return t, ids, uv
@@ -331,68 +346,70 @@ def intersect_cuda(tri, box, ray_o, ray_d):
 
 def needs_tree(f: int, device) -> bool:
     """Whether :func:`ray_intersect_detached` walks a tree for ``f``
-    triangles on ``device``: K5 and K6 on the card above ``K1_MAX_TRIS``,
-    only K6's plain version on the CPU, above ``K5_MAX_TRIS`` (K5's plain
-    version is the unculled sweep)."""
+    triangles on ``device``: on the card above ``SWEEP_MAX_TRIS`` (K1's
+    walk, K5, K6), on the CPU only for K6's plain version, above
+    ``K5_MAX_TRIS`` (K1's and K5's plain version is the unculled sweep)."""
     cpu = torch.device(device).type == "cpu"
-    return f > (K5_MAX_TRIS if cpu else K1_MAX_TRIS)
+    return f > (K5_MAX_TRIS if cpu else SWEEP_MAX_TRIS)
 
 
 def routing_tree(p0, e1, e2):
     """The tree :func:`ray_intersect_detached` walks for these (F, 3)
-    triangles above ``K1_MAX_TRIS``: ``bvh.build_sah_bvh`` (leaves of at
-    most ``K5_LEAF`` split by surface area) for K5, F <= ``K5_MAX_TRIS``;
+    triangles: ``bvh.build_sah_bvh`` (leaves of at most ``SAH_LEAF`` split
+    by surface area) for K1 and K5, F <= ``K5_MAX_TRIS``;
     ``bvh.build_bvh`` (leaves of ``bvh.LEAF`` split at the middle) for
     K6."""
     from . import bvh
 
     if p0.shape[0] <= K5_MAX_TRIS:
-        return bvh.build_sah_bvh(p0, e1, e2, K5_LEAF)
+        return bvh.build_sah_bvh(p0, e1, e2, SAH_LEAF)
     return bvh.build_bvh(p0, e1, e2)
+
+
+def walk_name(f: int) -> str:
+    """The kernel name of the closest hit over ``f`` triangles: K1, K5 or
+    K6."""
+    return ("K1" if f <= K1_MAX_TRIS else "K5" if f <= K5_MAX_TRIS
+            else "K6")
 
 
 def ray_intersect_detached(p0, e1, e2, ray, active=None, tree=None):
     """Closest hit of ``ray`` (``(..., 3)`` o/d) against (F, 3) triangles,
-    routed on F (module docstring): the kernels for CUDA tensors, their
-    plain versions for CPU tensors. Non-finite and inactive rays report a
-    miss (``tri_id = -1``, ``valid = False``). ``tree``, the
-    :func:`routing_tree` of these triangles, is built here where the route
-    walks one (:func:`needs_tree`) and none is given.
+    routed on F (module docstring): the kernels for CUDA tensors, the plain
+    versions for CPU tensors. Non-finite and inactive rays report a miss
+    (``tri_id = -1``, ``valid = False``); the kernels skip them, the plain
+    versions sweep a ray from the origin along +z in their place. ``tree``,
+    the :func:`routing_tree` of these triangles, is built here where the
+    route walks one (:func:`needs_tree`) and none is given.
     Returns ``(tri_id, valid, uv (..., 2), t)``."""
     from . import bvh
 
     o, d = ray.o.detach(), ray.d.detach()
-    finite = torch.isfinite(o).all(-1) & torch.isfinite(d).all(-1)
-    if active is not None:
-        finite = finite & active
     shape = o.shape[:-1]
-    finite = finite.reshape(-1)
-    unit_z = d.new_zeros(3)
-    unit_z[2] = 1.0
-    o = torch.where(finite[:, None], o.reshape(-1, 3), 0.0)
-    d = torch.where(finite[:, None], d.reshape(-1, 3), unit_z)
+    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+    live = torch.isfinite(o).all(-1) & torch.isfinite(d).all(-1)
+    if active is not None:
+        live = live & active.reshape(-1)
     p0, e1, e2 = p0.detach(), e1.detach(), e2.detach()
     f = p0.shape[0]
     if tree is None and needs_tree(f, o.device):
         tree = routing_tree(p0, e1, e2)
     if o.device.type == "cpu":
+        unit_z = d.new_zeros(3)
+        unit_z[2] = 1.0
+        o = torch.where(live[:, None], o, 0.0)
+        d = torch.where(live[:, None], d, unit_z)
         if f <= K5_MAX_TRIS:
-            tri_id, valid, uv, t = ray_intersect_brute(p0, e1, e2, o, d,
-                                                       finite)
+            tri_id, _, uv, t = ray_intersect_brute(p0, e1, e2, o, d, live)
         else:
-            tri_id, valid, uv, t = bvh.ray_intersect_bvh_plain(tree, o, d,
-                                                               finite)
+            tri_id, _, uv, t = bvh.ray_intersect_bvh_plain(tree, o, d, live)
+    elif f <= SWEEP_MAX_TRIS:
+        tri, box = pack_triangles(p0, e1, e2)
+        t, tri_id, uv = sweep_cuda(tri, box, o.contiguous(), d.contiguous(),
+                                   live.contiguous())
     else:
-        o, d = o.contiguous(), d.contiguous()
-        if f <= K1_MAX_TRIS:
-            tri, box = pack_triangles(p0, e1, e2)
-            t, tri_id, uv = intersect_cuda(tri, box, o, d)
-        else:
-            t, tri_id, uv = bvh.walk_cuda(
-                tree, o, d, finite,
-                kernel="K5" if f <= K5_MAX_TRIS else "K6")
-        valid = tri_id >= 0
-    valid = valid & finite
-    tri_id = torch.where(valid, tri_id, -1)
+        t, tri_id, uv = bvh.walk_cuda(tree, o.contiguous(), d.contiguous(),
+                                      live.contiguous(), kernel=walk_name(f))
+    valid = tri_id >= 0
     return (tri_id.reshape(shape), valid.reshape(shape),
             uv.reshape(shape + (2,)), t.reshape(shape))

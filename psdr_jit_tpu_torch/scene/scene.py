@@ -167,8 +167,8 @@ class SceneData:
 
     @functools.cached_property
     def bvh(self):
-        """The tree K5 or K6 walks over the triangles
-        (``intersect.routing_tree``), built on the scene's device at first
+        """The tree K1, K5 or K6 walks over the triangles
+        (``intersect.routing_tree``), built for the scene's device at first
         use from the detached geometry; a new scene compile makes a new
         SceneData, and with it a new tree."""
         tri = self.tri

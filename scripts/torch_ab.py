@@ -24,8 +24,13 @@ a summary. Each run measures, on its checkout's kernels:
   sppe 32, ``PathTracer(3).loss_and_grad``): its host time (median of 3)
   and peak device memory, and K3, K4, K2 stash and K2 pair alone on each
   of the step's launches;
-* ptxas's registers, stack and spills of K2, K3, K4, K5 (before its
-  redesign; since, K5 is K6's kernel) and K6 from the checkout's build;
+* K1 alone on its launches (``k1_lines``): the Cornell box's check set,
+  the secondary-edge stand-ins with and without their dead lanes, and the
+  five launches of a frame of the 492-triangle gallery, with that frame's
+  host time and, where K1 walks a tree, the tree's host build;
+* ptxas's registers, stack and spills of K1 (before its redesign; since,
+  K1, K5 and K6 are one walk), K2, K3, K4, K5 (before its redesign) and K6
+  from the checkout's build;
 * K6's own (ray, triangle) tests per ray: from its counting build where it
   has one, else (the block/cluster hierarchy it replaced) the 64-triangle
   clusters its rays enter before their hits, times 64.
@@ -42,11 +47,15 @@ count) and a model of those that K2's one-level sweep of every lane ran
 before its redesign (``parent_model_tests``; K2's own counts come from its
 counting build, ``torch_kernel_variants.py K2``).
 
+Kernels are timed with this checkout's ``chip_smoke.cuda_ms`` on both
+sides, so that the card is held while the host queues the calls.
+
 Imports no JAX; exits non-zero without a CUDA card.
 """
 
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 import statistics
@@ -75,7 +84,10 @@ def measure(tree: Path) -> dict:
     report = (_cuda.build().parent / "ptxas.txt").read_text()
     out["ptxas"] = {k: _this_smoke().ptxas_report(k, report) for k in (
         "li_mega_kernel", "shade_fwd_kernel", "shade_bwd_kernel",
-        "intersect_super_kernel", "bvh_kernel")}
+        "intersect_kernel", "sweep_kernel", "bvh_kernel", "walk_kernel")}
+
+    # ---- K1: the check set, the stand-ins (e), the 492-triangle frame ----
+    out.update(k1_lines(cs, pt, dev))
 
     # ---- the K5 galleries -------------------------------------------------
     for n_spheres in (4, 12):
@@ -90,7 +102,7 @@ def measure(tree: Path) -> dict:
         integ.renderC(big, 0, seed=0)
         torch.cuda.synchronize()
     calls = rec.calls["K6"]
-    launch_ms = [cs.cuda_ms(lambda: fn(*args), 5) for fn, args, _ in calls]
+    launch_ms = [_this_smoke().cuda_ms(lambda: fn(*args), 5) for fn, args, _ in calls]
     out["K6_launch_ms"] = launch_ms
     out["K6_frame_ms"] = sum(launch_ms)
     n_rays = sum(args[1].shape[0] for _, args, _ in calls)
@@ -130,7 +142,7 @@ def measure(tree: Path) -> dict:
         integ.renderC(cbox, 0, seed=cs.SEED)
         torch.cuda.synchronize()
     calls = dict(rec.calls)
-    out["K2_frame_ms"] = sum(cs.cuda_ms(lambda: fn(*args), 5)
+    out["K2_frame_ms"] = sum(_this_smoke().cuda_ms(lambda: fn(*args), 5)
                              for fn, args, _ in calls["K2"])
     out["cbox_frame_ms"] = cs.wall_ms(lambda: integ.renderC(
         cbox, 0, seed=cs.SEED), 5)
@@ -151,14 +163,14 @@ def measure(tree: Path) -> dict:
         step()
         torch.cuda.synchronize()
     calls.update(rec.calls)
-    k4 = [cs.cuda_ms(lambda: fn(*args), 5) for fn, args, _ in rec.calls["K4"]]
+    k4 = [_this_smoke().cuda_ms(lambda: fn(*args), 5) for fn, args, _ in rec.calls["K4"]]
     out["K4_launch_ms"] = k4
     out["K4_step_ms"] = sum(k4)
-    k3 = [cs.cuda_ms(lambda: fn(*args), 10) for fn, args, _ in rec.calls["K3"]]
+    k3 = [_this_smoke().cuda_ms(lambda: fn(*args), 10) for fn, args, _ in rec.calls["K3"]]
     out["K3_launch_ms"] = k3
     out["K3_step_ms"] = sum(k3)
     for mode in ("K2-pair", "K2-stash"):
-        out[f"{mode}_step_ms"] = sum(cs.cuda_ms(lambda: fn(*args), 5)
+        out[f"{mode}_step_ms"] = sum(_this_smoke().cuda_ms(lambda: fn(*args), 5)
                                      for fn, args, _ in calls[mode])
     if hasattr(cs, "k2_bound_terms"):
         out["K2_counts"] = k2_counts(cs, mk, calls)
@@ -167,6 +179,85 @@ def measure(tree: Path) -> dict:
     step()
     torch.cuda.synchronize()
     out["step_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return out
+
+
+def k1_lines(cs, pt, dev) -> dict:
+    """K1 alone on the launches it makes (recorded through the checkout's
+    K1 wrappers: ``intersect.intersect_cuda`` before its redesign,
+    ``intersect.sweep_cuda`` and ``bvh.walk_cuda`` since): one intersection
+    of the Cornell box's check set (rays (a)-(d) of this checkout's
+    ``chip_smoke.k1_families``), one of the stand-ins (e) with their dead
+    lanes and one with every lane active, and the five of a
+    ``PathTracer(2).renderC`` frame of the 492-triangle gallery
+    (``K1_GALLERY``), with the frame's host time; where K1 walks a tree
+    there, the tree's host build; after the redesign the bounds
+    (``hit_bound_terms``) and the needed tests a ray."""
+    import numpy as np
+    import torch
+    from psdr_jit_tpu_torch.ops import bvh
+    from psdr_jit_tpu_torch.ops import intersect as ix
+
+    smoke = _this_smoke()
+    redesigned = not hasattr(ix, "intersect_cuda")
+    sites = ({"K1": (ix, "sweep_cuda"), "K1-walk": (bvh, "walk_cuda")}
+             if redesigned else {"K1": (ix, "intersect_cuda")})
+
+    def launches(fn):
+        with cs.KernelCalls(sites) as rec:
+            fn()
+            torch.cuda.synchronize()
+        return [c for calls in rec.calls.values() for c in calls]
+
+    def timed(calls):
+        return sum(smoke.cuda_ms(lambda: fn(*args), 10)
+                   for fn, args, _ in calls)
+
+    out = {}
+    cbox = pt.Scene.from_arrays(np.load(cs.SCENE_NPZ), device=dev)
+    sd = cbox.configure()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1234)
+    fams = smoke.k1_families(sd, gen, dev)
+    check = tuple(torch.cat([fams[k][j] for k in (
+        "picks", "camera", "on_plane", "random")]).contiguous()
+        for j in range(3))
+    eo, ed, ea = fams["edge"]
+    for key, (o, d, a) in (("check_set", check), ("edge", (eo, ed, ea)),
+                           ("edge_all_active",
+                            (eo, ed, torch.ones_like(ea)))):
+        sd.ray_intersect(pt.Ray(o, d), a)  # the tree, if any, built first
+        calls = launches(lambda: sd.ray_intersect(pt.Ray(o, d), a))
+        out[f"K1_{key}_ms"] = timed(calls)
+        if redesigned and key == "check_set":
+            b, f, t = smoke.hit_bound_terms(sd.tri.p0, sd.tri.e1, sd.tri.e2,
+                                            o, d, calls[0][2][0], a)
+            out["K1_check_set_bound"] = smoke.bound(b, f)
+            out["K1_check_set_needed_tests_per_ray"] = t / o.shape[0]
+    gal = pt.Scene.from_arrays(smoke.gallery_arrays(**smoke.K1_GALLERY),
+                               device=dev)
+    gsd = gal.configure()
+    if redesigned:
+        tri = gsd.tri
+        out["K1_tree_build_ms_492"] = smoke._synced_ms(
+            lambda: ix.routing_tree(tri.p0, tri.e1, tri.e2))[1]
+    integ = pt.PathTracer(2)
+    integ.renderC(gal, 0, seed=0)
+    calls = launches(lambda: integ.renderC(gal, 0, seed=0))
+    out["K1_492_launches"] = len(calls)
+    out["K1_492_frame_ms"] = timed(calls)
+    if redesigned:
+        nbytes = flops = tests = rays = 0
+        tri = gsd.tri
+        for _, args, res in calls:
+            b, f, t = smoke.hit_bound_terms(tri.p0, tri.e1, tri.e2,
+                                            *args[1:3], res[0], args[3])
+            nbytes, flops, tests = nbytes + b, flops + f, tests + t
+            rays += args[1].shape[0]
+        out["K1_492_bound"] = smoke.bound(nbytes, flops)
+        out["K1_492_needed_tests_per_ray"] = tests / rays
+    out["K1_492_host_frame_ms"] = cs.wall_ms(
+        lambda: integ.renderC(gal, 0, seed=0), 5)
     return out
 
 
@@ -196,10 +287,10 @@ def k5_frame(cs, pt, dev, n_spheres: int) -> dict:
     tree = bvh.build_bvh(tri.p0, tri.e1, tri.e2)
     k6 = getattr(*walk_site(bvh))
     out = {f"{key}_launches": len(calls),
-           f"{key}_frame_ms": sum(cs.cuda_ms(lambda: fn(*args), 5)
+           f"{key}_frame_ms": sum(_this_smoke().cuda_ms(lambda: fn(*args), 5)
                                   for fn, args, _ in calls),
            f"{key}_K6_as_is_frame_ms": sum(
-               cs.cuda_ms(lambda: k6(tree, *args[-3:]), 5)
+               _this_smoke().cuda_ms(lambda: k6(tree, *args[-3:]), 5)
                for _, args, _ in calls)}
     if hasattr(cs, "hit_bound_terms"):
         nbytes = flops = tests = rays = 0
@@ -275,9 +366,12 @@ def parent_model_tests(tri, record) -> int:
     return tests
 
 
+@functools.cache
 def _this_smoke():
-    """This checkout's ``chip_smoke`` module (for its ptxas parser, which
-    an older checkout's may lack), loaded under another name."""
+    """This checkout's ``chip_smoke`` module, loaded under another name:
+    its ptxas parser, which an older checkout's may lack, its ray families
+    and its timer, so that both checkouts' kernels are timed alike (the
+    card held while the host queues the calls)."""
     spec = importlib.util.spec_from_file_location(
         "_ab_chip_smoke", Path(__file__).resolve().parent.parent
         / "chip_smoke.py")
@@ -314,7 +408,9 @@ def main() -> int:
         print(json.dumps(runs[-1]), flush=True)
         print(f"[run] {tree.name or tree}: {time.perf_counter() - t0:.1f} s",
               flush=True)
-    keys = ("K2_frame_ms", "cbox_frame_ms", "cbox_frame_peak_gb",
+    keys = ("K1_check_set_ms", "K1_edge_ms", "K1_edge_all_active_ms",
+            "K1_492_frame_ms", "K1_492_host_frame_ms", "K2_frame_ms",
+            "cbox_frame_ms", "cbox_frame_peak_gb",
             "K2-pair_step_ms", "K2-stash_step_ms", "K6_frame_ms",
             "K6_tests_per_ray", "frame_ms", "frame_peak_gb", "K3_step_ms",
             "K4_step_ms", "step_ms", "step_peak_gb") + tuple(
@@ -326,7 +422,10 @@ def main() -> int:
               f"({runs[0][k]:.4f}, {runs[3][k]:.4f})  B "
               f"{statistics.mean([runs[1][k], runs[2][k]]):10.4f} "
               f"({runs[1][k]:.4f}, {runs[2][k]:.4f})")
-    for k in ("needed_tests_per_ray", "K6_bound_ms", "K2_counts",
+    for k in ("K1_check_set_bound", "K1_check_set_needed_tests_per_ray",
+              "K1_492_launches", "K1_492_bound",
+              "K1_492_needed_tests_per_ray", "K1_tree_build_ms_492", "needed_tests_per_ray", "K6_bound_ms",
+              "K2_counts",
               "K5_1292_bound", "K5_1292_needed_tests_per_ray",
               "K5_3852_bound", "K5_3852_needed_tests_per_ray"):
         print(f"{k:18s} {runs[1].get(k)}")

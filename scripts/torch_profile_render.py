@@ -212,13 +212,14 @@ def large(dev) -> int:
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / frames / 1e3
-    k6 = sum(e.self_device_time_total for e in kernels
-             if "bvh_kernel" in e.name) / frames / 1e3
-    n_kernels = len(kernels) / frames
+    walk = [e for e in kernels
+            if "walk_kernel" in e.name or "pack_kernel" in e.name]
+    k6 = sum(e.self_device_time_total for e in walk) / frames / 1e3
+    n_kernels = (len(kernels) - len(walk)) / frames
     print(f"device busy per frame (profiler): {busy:.3f} ms, idle share "
           f"{1 - busy / med:.3f} of the median; K6 {k6:.3f} ms, the rest "
           f"(PyTorch kernels of the general Li and the lane set-up) "
-          f"{busy - k6:.3f} ms in {n_kernels - 5:.0f} launches")
+          f"{busy - k6:.3f} ms in {n_kernels:.0f} launches")
     print(prof.key_averages().table(sort_by="self_device_time_total",
                                     row_limit=15, max_name_column_width=60))
 

@@ -182,13 +182,13 @@ def test_dead_lanes(route):
     pytest.param(1300, True, id="1300-sah")])
 def test_bvh_tables(n_tri, sah):
     """The tree: each triangle in exactly one leaf of at most LEAF
-    consecutive ids (K5's surface-area tree: at most K5_LEAF), every
+    consecutive ids (K5's surface-area tree: at most SAH_LEAF), every
     stored box containing its children's boxes and equal to the union of
     its triangles' widened boxes, the depth that of a midpoint split (at
     most ``bvh.STACK``), and the triangle rows p0, e1, e2."""
     p0, e1, e2, _, _ = _random_scene(n_tri=n_tri, n_ray=1, seed=34)
     if sah:
-        leaf = ix.K5_LEAF
+        leaf = ix.SAH_LEAF
         h = bvh.build_sah_bvh(_t(p0), _t(e1), _t(e2), leaf)
         assert h.depth <= bvh.STACK
     else:
@@ -247,7 +247,7 @@ def test_ties_go_to_lowest_id_in_any_visit_order():
 
 def test_k5_scene_tree_matches_brute():
     """K5's tree hangs off the scene compile (``SceneData.bvh``, leaves of
-    at most ``K5_LEAF``, within the walk's stack), and the routing entry
+    at most ``SAH_LEAF``, within the walk's stack), and the routing entry
     given it, the scene's own intersection and the tree's plain walk all
     give the unculled sweep's hits on a 1,292-triangle gallery."""
     sd = pt.Scene.from_arrays(gallery_arrays(16, 16, 2, 4, 2),
@@ -258,7 +258,7 @@ def test_k5_scene_tree_matches_brute():
     tree = sd.bvh
     assert tree is sd.bvh and tree.depth <= bvh.STACK
     b = tree.node[:, [7, 15]].contiguous().view(torch.int32)  # child links
-    assert int((-b[b < 0]).max()) == ix.K5_LEAF
+    assert int((-b[b < 0]).max()) == ix.SAH_LEAF
     o, d, act = mixed_rays(sd, 3000, torch.Generator().manual_seed(2),
                            torch.device("cpu"))
     brute = ix.ray_intersect_brute(tri.p0, tri.e1, tri.e2, o, d, act)
@@ -274,11 +274,14 @@ def test_k5_scene_tree_matches_brute():
 
 def test_cpu_route_builds_no_tree_in_k5_range():
     """A tree is built only where the route walks one (``needs_tree``): on
-    the card above ``K1_MAX_TRIS``, on the CPU only above ``K5_MAX_TRIS``
-    (K5's plain version is the unculled sweep). So the scene's own
-    intersection of a 1,292-triangle gallery on the CPU leaves
-    ``SceneData.bvh`` unbuilt and still gives the unculled sweep's hits."""
-    for f, cpu, cuda in ((ix.K1_MAX_TRIS, False, False),
+    the card above ``SWEEP_MAX_TRIS`` (K1's walk, K5, K6), on the CPU only
+    above ``K5_MAX_TRIS`` (K1's and K5's plain version is the unculled
+    sweep). So the scene's own intersection of a 1,292-triangle gallery on
+    the CPU leaves ``SceneData.bvh`` unbuilt and still gives the unculled
+    sweep's hits."""
+    for f, cpu, cuda in ((1, False, False), (ix.SWEEP_MAX_TRIS, False, False),
+                         (ix.SWEEP_MAX_TRIS + 1, False, True),
+                         (ix.K1_MAX_TRIS, False, True),
                          (ix.K1_MAX_TRIS + 1, False, True),
                          (ix.K5_MAX_TRIS, False, True),
                          (ix.K5_MAX_TRIS + 1, True, True)):

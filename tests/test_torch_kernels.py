@@ -6,13 +6,14 @@ imports no JAX (the card's machine has none): run it there with
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_kernels.py
 
 The kernels are built without FMA contraction (their fmas are explicit and
-the plain versions write the same ones), so K1 must equal its plain version
-bit for bit and K2 in all three modes (at 32 and 172 triangles, and on a
-case of exact ties through each of its two sweeps) and K3 must agree with
-theirs to f32 rounding; K4 sums its table cotangents across a warp, then with float
-atomics in no fixed order, so it agrees with autograd of the plain K3 to a
-reordered sum. K5 and K6 equal their plain versions and the unculled
-sweep bit for bit. The
+the plain versions write the same ones), so K2 in all three modes (at 32
+and 172 triangles, and on a case of exact ties through each of its two
+sweeps) and K3 must agree with their plain versions to f32 rounding; K4
+sums its table cotangents across a warp, then with float atomics in no
+fixed order, so it agrees with autograd of the plain K3 to a reordered
+sum. K1, K5 and K6, the walk of one tree, equal their plain versions and
+the unculled sweep bit for bit (K1 at 32 and 492 triangles, with dead
+lanes, and on exact ties). The
 unmarked tests check, on any machine, that the CPU path is the plain
 version and that the kernel launchers refuse what they cannot run instead
 of falling back.
@@ -25,8 +26,8 @@ import pytest
 import torch
 
 import psdr_jit_tpu_torch as pt
-from chip_smoke import (gallery_arrays, mixed_rays, swapped_children,
-                        tie_case, train_setup)
+from chip_smoke import (K1_GALLERY, edge_rays, gallery_arrays, mixed_rays,
+                        swapped_children, tie_case, train_setup)
 from psdr_jit_tpu_torch.integrator import base
 from psdr_jit_tpu_torch.integrator.base import interior_lane_setup
 from psdr_jit_tpu_torch.ops import _cuda
@@ -106,9 +107,12 @@ def test_cuda_launchers_refuse_cpu_tensors():
     sd = _scene("cpu").data
     tables = mk.build_tables(sd)
     o, d, sampler = _camera_rays(sd, 1, 0, torch.arange(16))
-    with pytest.raises(ValueError, match="CUDA"):
-        ix.intersect_cuda(tables[0], tables[1], o, d)
     act = torch.ones(16, dtype=torch.bool)
+    tree = ix.routing_tree(sd.tri.p0, sd.tri.e1, sd.tri.e2)
+    with pytest.raises(ValueError, match="CUDA"):
+        bvh.walk_cuda(tree, o, d, act, kernel="K1")
+    with pytest.raises(ValueError, match="CUDA"):
+        ix.sweep_cuda(tables[0], tables[1], o, d, act)
     with pytest.raises(ValueError, match="CUDA"):
         mk.li_mega_cuda(*tables, o, d, act, sampler.lane, 0, 1, sampler.cnt)
     with pytest.raises(ValueError, match="CUDA"):
@@ -169,32 +173,105 @@ def cuda():
 
 
 @pytest.mark.gpu
-def test_k1_matches_plain_bitwise(cuda):
-    sd = _scene(cuda).data
+@pytest.mark.parametrize("scene", ["cbox", "gallery"])
+def test_k1_matches_plain_bitwise(cuda, scene):
+    """K1 at 32 and 492 triangles (the Cornell box, swept, and
+    ``K1_GALLERY``, walked) through the routing entry, on camera rays,
+    axis-aligned rays on cluster planes and the secondary-edge stand-ins
+    with their dead lanes: one K1 launch, the unculled sweep's hits bit for
+    bit, dead lanes missing. The scene's tree (``SceneData.bvh``), built on
+    the host by the kernel library, equals numpy's build bit for bit."""
+    if scene == "cbox":
+        sd = _scene(cuda).data
+        co, cd, _ = _camera_rays(sd, 16, 3, torch.arange(32 * 32,
+                                                         device=cuda))
+    else:
+        sd = pt.Scene.from_arrays(gallery_arrays(**K1_GALLERY),
+                                  device=cuda).configure()
+        co, cd = _gallery_camera(sd, cuda)
     tri = sd.tri
-    tab, box = ix.pack_triangles(tri.p0, tri.e1, tri.e2)
-    co, cd, _ = _camera_rays(sd, 16, 3, torch.arange(32 * 32, device=cuda))
-    po, pd = _on_plane_rays(box, 1 << 16, cuda)
-    o, d = torch.cat([co, po]).contiguous(), torch.cat([cd, pd]).contiguous()
-    k_t, k_id, k_uv = ix.intersect_cuda(tab, box, o, d)
-    tri_id, valid, uv, t = ix.ray_intersect_brute(tri.p0, tri.e1, tri.e2, o, d)
-    # the plain sweep visits every triangle: equal bits also show that
-    # K1's per-ray cluster culling changed no hit
-    assert torch.equal(k_t, t) and torch.equal(k_id, tri_id)
-    assert torch.equal(k_uv, uv)
+    _, box = ix.pack_triangles(tri.p0, tri.e1, tri.e2)
+    po, pd = _on_plane_rays(box, 1 << 15, cuda)
+    eo, ed, ea = edge_rays(sd, 1 << 15, torch.Generator(cuda).manual_seed(4),
+                           cuda)
+    o = torch.cat([co, po, eo]).contiguous()
+    d = torch.cat([cd, pd, ed]).contiguous()
+    act = torch.cat([torch.ones(co.shape[0] + po.shape[0], dtype=torch.bool,
+                                device=cuda), ea])
+    before = dict(_cuda.LAUNCHES)
+    out = ix.ray_intersect_detached(tri.p0, tri.e1, tri.e2, pt.Ray(o, d),
+                                    act, sd.bvh)
+    assert _cuda.LAUNCHES["K1"] == before["K1"] + 1
+    assert sum(_cuda.LAUNCHES.values()) == sum(before.values()) + 1
+    brute = ix.ray_intersect_brute(tri.p0, tri.e1, tri.e2, o, d, act)
+    for x, y in zip(out, brute):
+        assert torch.equal(x, y)
+    assert not out[1][~act].any() and out[1].float().mean() > 0.3
+    cpu = bvh.build_sah_bvh(*(x.cpu() for x in (tri.p0, tri.e1, tri.e2)))
+    assert sd.bvh.depth == cpu.depth
+    for name in ("tri4", "node", "root"):  # links are bit-cast: compare bits
+        assert torch.equal(getattr(sd.bvh, name).cpu().view(torch.int32),
+                           getattr(cpu, name).view(torch.int32))
+
+
+def _gallery_camera(sd, device):
+    """Jittered camera rays of a 128x128 frame of ``sd``'s sensor."""
+    _, _, samples = interior_lane_setup(128, 128, 1, 0, torch.arange(
+        128 * 128, device=device))
+    ray = sd.sensors[0].sample_primary_ray(samples)
+    return ray.o.contiguous(), ray.d.contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_tri, n_pairs", [(160, 16), (496, 40)])
+def test_k1_tie_case_bitwise(cuda, n_tri, n_pairs):
+    """Exact ties (``tie_case``) through K1's sweep (160 triangles) and its
+    walk (496): the lowest id of equal distances, as the unculled sweep
+    keeps; the walk also with every node's children swapped."""
+    tp0, te1, te2, ro, rd, low = (torch.from_numpy(x).to(cuda) for x in
+                                  tie_case(n_tri=n_tri, n_pairs=n_pairs))
+    act = torch.ones(ro.shape[0], dtype=torch.bool, device=cuda)
+    brute = ix.ray_intersect_brute(tp0, te1, te2, ro, rd)
+    assert (brute[0] == low.to(torch.int32)).float().mean() > 0.5
+    before = _cuda.LAUNCHES["K1"]
+    out = ix.ray_intersect_detached(tp0, te1, te2, pt.Ray(ro, rd), act)
+    assert _cuda.LAUNCHES["K1"] == before + 1
+    for x, y in zip(out, brute):
+        assert torch.equal(x, y)
+    if n_tri > ix.SWEEP_MAX_TRIS:
+        tree = ix.routing_tree(tp0, te1, te2)
+        t, ids, uv = bvh.walk_cuda(swapped_children(tree), ro, rd, act,
+                                   kernel="K1")
+        for x, y in zip((ids, ids >= 0, uv, t), brute):
+            assert torch.equal(x, y)
 
 
 @pytest.mark.gpu
 def test_k1_refuses_bad_input(cuda):
+    sd = _scene(cuda).data
+    tree = sd.bvh
+    o = torch.zeros((8, 3), device=cuda)
+    act = torch.ones(8, dtype=torch.bool, device=cuda)
     tab = torch.zeros((9, 16), device=cuda)
     box = torch.zeros((6, 1), device=cuda)
-    o = torch.zeros((8, 3), device=cuda)
     with pytest.raises(ValueError, match="dtype"):
-        ix.intersect_cuda(tab, box, o, o.double())
+        ix.sweep_cuda(tab, box, o, o.double(), act)
     with pytest.raises(ValueError, match="contiguous"):
-        ix.intersect_cuda(tab, box, o, torch.zeros((3, 8), device=cuda).T)
+        ix.sweep_cuda(tab, box, o, torch.zeros((3, 8), device=cuda).T, act)
     with pytest.raises(ValueError, match="multiple of 16"):
-        ix.intersect_cuda(torch.zeros((9, 20), device=cuda), box, o, o)
+        ix.sweep_cuda(torch.zeros((9, 20), device=cuda), box, o, o, act)
+    with pytest.raises(ValueError, match="bool"):
+        ix.sweep_cuda(tab, box, o, o, act.int())
+    with pytest.raises(ValueError, match="dtype"):
+        bvh.walk_cuda(tree, o, o.double(), act, kernel="K1")
+    with pytest.raises(ValueError, match="contiguous"):
+        bvh.walk_cuda(tree, o, torch.zeros((3, 8), device=cuda).T, act,
+                      kernel="K1")
+    with pytest.raises(ValueError, match="bool"):
+        bvh.walk_cuda(tree, o, o, act.int(), kernel="K1")
+    big = _gallery(cuda, 4, 2).data.bvh
+    with pytest.raises(ValueError, match="K1 takes 1..512 triangles"):
+        bvh.walk_cuda(big, o, o, act, kernel="K1")
 
 
 @pytest.mark.gpu
