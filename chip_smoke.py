@@ -20,20 +20,25 @@ just before it and read just after:
   query (``Scene.unit_ray_intersect``, K1) and a frame (``renderC``, K2)
   at 512x512, spp 32, ``PathTracer(3)``;
 * training on it: one step of ``PathTracer(3).loss_and_grad`` at 512x512,
-  spp 32, sppe 32 (interior term through K2 stash, K3 and K4; primary-edge
-  term through K2 pair), with gradients to a light translation, the tall
-  block's vertex offsets, a reflectance and the radiance;
+  spp 32, sppe 32, sppse 32 (interior term through K2 stash, K3 and K4;
+  primary-edge term through K2 pair; secondary-edge term with its
+  visibility, receiver and camera rays through K1), with gradients to a
+  light translation, the tall block's vertex offsets, a reflectance and
+  the radiance; then the same step guided by a table that
+  ``preprocess_secondary_edges`` builds on the card;
 * serving a large scene, the procedural gallery of ``gallery_arrays``
   (102,412 triangles): a picking query and a frame at 256x256, spp 4,
   ``PathTracer(2)``, through the general Li and K6; and the same frame of
   the 1,292-triangle gallery through K5 and of the 492-triangle gallery
   through K1.
 
-A 64x64 training step of the box and a 64x64 frame of the 5,132-triangle
-gallery run through the kernels and, on the CPU, through the plain
-versions, and the two must agree. One training step and one gallery frame
-run with every launch recorded, and each launch is held against its plain
-version on the inputs it was given. Kernels, frames and step are timed
+64x64 training steps of the box (sppse 0, sppse 8, and sppse 8 guided by
+one table on both sides) and a 64x64 frame of the 5,132-triangle gallery
+run through the kernels and, on the CPU, through the plain versions, and
+the two must agree. One training step and one gallery frame run with
+every launch recorded, and each launch is held against its plain version
+on the inputs it was given; so do K1's launches in the first chunk of the
+step's secondary-edge pass. Kernels, frames and step are timed
 against their plain versions, and each kernel's least possible time on an
 H100 (its bound) is computed from its inputs.
 
@@ -59,6 +64,16 @@ SCENE_NPZ = ROOT / "tests" / "data" / "cbox_scene.npz"
 GOLDEN = ROOT / "tests" / "golden_cbox32.npy"
 FRAME = (512, 512, 32)  # width, height, spp of cbox_scene.npz
 SPPE = 32  # edge samples per pixel of the training step
+SPPSE = 32  # secondary-edge samples per pixel of the training step
+# [train-guided]: the guiding grid (3 axes, samples a cell); 4,096 cells,
+# above the 2,048 of a searched table, so its cells sample by alias rows
+GUIDE_RESO = (16, 16, 16, 4)
+# [train]: the least rel L1 by which the secondary-edge term must move the
+# translation and vertex-offset gradients against the sppse-0 step. On an
+# H100 (700 W) the term moves them by 7.2e-3 and 0.292; the float atomics
+# of the step's backward move them from one run to the next by the
+# run-to-run spread that [train] logs beside them (PERF.md)
+SE_MOVED_MIN = {"tx": 1e-4, "dv": 0.05}
 SEED = 0
 DEPTH = 3
 # the large-scene path: gallery_arrays() at 256x256, spp 4, PathTracer(2)
@@ -151,7 +166,8 @@ def on_plane_rays(box, n_per: int, gen, device):
 
 def edge_rays(sd, n: int, gen, device, dead: float = 0.43):
     """``(o, d, active)``: a stand-in for the rays of the secondary-edge
-    term, which the port does not run yet. ``n // 2`` points, each drawn
+    term (K1's family (e), held beside the real rays in ``[SE-K1]``).
+    ``n // 2`` points, each drawn
     uniformly on a uniformly chosen edge of a uniformly chosen triangle,
     each with a uniform direction, laid out as the JAX package's
     double-width call (``integrator/edge.py``): the rays ``(p, d)``, then
@@ -178,7 +194,7 @@ def edge_rays(sd, n: int, gen, device, dead: float = 0.43):
 
 
 # K1's ray families: (a)-(d) make the 1,179,648-ray check set of [K1]; (e)
-# stands in for the secondary-edge rays
+# stands in for the secondary-edge rays ([SE-K1] times the real ones)
 K1_FAMILIES = ("picks", "camera", "on_plane", "random", "edge")
 # the largest gallery K1 takes (492 triangles), routed through the general Li
 K1_GALLERY = dict(width=256, height=256, spp=4, n_spheres=6, subdiv=1)
@@ -949,6 +965,33 @@ class KernelCalls:
             setattr(m, n, self.saved[k])
 
 
+def se_pass_ms(integrator, step, reps: int) -> float:
+    """Median span of the step's secondary-edge pass on the card's stream
+    (CUDA events around ``render_secondary_edges``) over ``reps`` steps."""
+    import torch
+
+    spans = []
+    inner = integrator.render_secondary_edges
+
+    def timed(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(*args, **kwargs)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    integrator.render_secondary_edges = timed
+    try:
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+    finally:
+        del integrator.render_secondary_edges
+    return statistics.median(a.elapsed_time(b) for a, b in spans)
+
+
 def _synced_ms(fn):
     """``(result, host ms)`` of one call of ``fn``, closed by a
     synchronize."""
@@ -1659,6 +1702,7 @@ def k1_phase(phase, sd, dev, gen, ties: bool) -> dict:
         bound_ms=f"{rec['bound_ms']:.4f}", bound_by=rec["bound_by"])
     require(bitwise and a["bitwise"], f"{phase}: not bitwise equal to the "
             "plain version")
+    rec["standin_e_ms"] = ms["edge"]
     return rec
 
 
@@ -1728,11 +1772,134 @@ def k1_frame_phase(dev) -> int:
     return launches["K1"]
 
 
-def train_step_fn(integrator, scene):
-    """A closure that takes one training step on ``scene``."""
+def train_step_fn(integrator, scene, **kwargs):
+    """A closure that takes one training step on ``scene`` (``kwargs``:
+    ``warp=``, the secondary-edge guiding table)."""
     params, apply_params, pixel_loss = train_setup(scene)
     return lambda: integrator.loss_and_grad(scene, params, apply_params,
-                                            pixel_loss, 0, SEED)
+                                            pixel_loss, 0, SEED, **kwargs)
+
+
+def se_k1_launches(n_pix: int, sppse: int) -> int:
+    """K1's launches in the secondary-edge pass of a step: its chunks
+    times the three launches of a chunk (the visibility, receiver and
+    camera rays)."""
+    from psdr_jit_tpu_torch.integrator import base
+
+    chunks = -(-n_pix * sppse // base.SE_CHUNK_LANES)
+    return chunks * 3
+
+
+def se_k1_phase(arrays, dev, gen, kernels):
+    """[SE-K1]: the first chunk of the secondary-edge pass of the 512x512
+    sppse-32 step on the box with each K1 launch recorded (the visibility
+    and receiver rays, the camera rays), each held against its plain
+    version bit for bit and timed as it ran and with every finite ray
+    active; each ray set's dead share; K1's bound for the chunk; the
+    stand-in (e) (``edge_rays``, 43% dead) at the same ray count."""
+    import torch
+    import psdr_jit_tpu_torch as pt
+    from psdr_jit_tpu_torch.core.sampler import Sampler
+    from psdr_jit_tpu_torch.integrator import base, edge
+    from psdr_jit_tpu_torch.ops import intersect as ix
+
+    sc = pt.Scene.from_arrays(arrays, device=dev)
+    sc.opts.sppse = SPPSE
+    sd = sc.configure()
+    n = min(base.SE_CHUNK_LANES, sc.opts.num_pixels * SPPSE)
+    sampler = Sampler(SEED + base.STREAM_SECONDARY,
+                      torch.arange(n, device=dev))
+    sample3 = sampler.next_nd(3)
+    with KernelCalls({"K1": (ix, "sweep_cuda")}) as rec:
+        idx, value = edge.eval_secondary_edge(sd, sd.sensors[0], sample3,
+                                              diff=True)
+        torch.cuda.synchronize()
+    calls = rec.calls["K1"]
+    require(len(calls) == se_k1_launches(n, 1),
+            "SE-K1: K1 launches of a chunk != the routing's")
+    tri = tuple(getattr(sd.tri, k).detach() for k in ("p0", "e1", "e2"))
+
+    def plain(tab, box, o, d, act):
+        ids, _, uv, t = ix.ray_intersect_brute(*tri, o, d, act)
+        return t, ids, uv
+
+    k1, a, tests, launch_ms = intersect_record(
+        "K1 closest hit (sweep), secondary-edge rays",
+        "psdr_jit_tpu_torch/csrc/intersect.cu",
+        "psdr_jit_tpu/ops/intersect_pallas.py:267", calls, plain, tri)
+    acts = [c[1][4] for c in calls]
+    sets = dict(zip(("visibility", "receiver", "camera"), acts))
+    all_ms = []
+    for fn, args, _ in calls:
+        o, d = args[2], args[3]
+        finite = torch.isfinite(o).all(-1) & torch.isfinite(d).all(-1)
+        all_ms.append(cuda_ms(lambda: fn(*args[:4], finite), 3))
+    n_rays = sum(c[1][2].shape[0] for c in calls)
+    so, sdir, sact = edge_rays(sd, n_rays, gen, dev)
+    tab, box = calls[0][1][:2]
+    stand_ms = cuda_ms(lambda: ix.sweep_cuda(tab, box, so, sdir, sact), 3)
+    stand_all_ms = cuda_ms(lambda: ix.sweep_cuda(
+        tab, box, so, sdir, torch.ones_like(sact)), 3)
+    live = sum(int(x.sum()) for x in acts)
+    log("SE-K1", lanes=n, launches=len(calls), rays=n_rays,
+        bitwise_equal_to_plain=a["bitwise"],
+        **{f"dead_share_{k}": f"{1 - float(v.float().mean()):.4f}"
+           for k, v in sets.items()},
+        valid_lanes=int((idx >= 0).sum()),
+        launch_ms=",".join(f"{x:.4f}" for x in launch_ms),
+        all_active_ms=",".join(f"{x:.4f}" for x in all_ms),
+        ms=f"{k1['ms']:.4f}", plain_ms=f"{k1['plain_ms']:.1f}",
+        bound_ms=f"{k1['bound_ms']:.4f}", bound_by=k1["bound_by"],
+        needed_tests_per_live_ray=f"{tests / max(live, 1):.2f}",
+        ns_per_ray=f"{k1['ms'] * 1e6 / n_rays:.4f}",
+        standin_e_ms=f"{stand_ms:.4f}",
+        standin_e_all_active_ms=f"{stand_all_ms:.4f}",
+        standin_ns_per_ray=f"{stand_ms * 1e6 / n_rays:.4f}")
+    require(a["bitwise"], "SE-K1: K1 not bitwise equal to its plain "
+            "version on the secondary-edge rays")
+    require(bool(torch.isfinite(value).all()), "SE-K1: non-finite values")
+    require(int((idx >= 0).sum()) > 0, "SE-K1: no valid boundary sample")
+    kernels["K1"].update(
+        se_chunk_ms=k1["ms"], se_chunk_plain_ms=k1["plain_ms"],
+        se_chunk_bound_ms=k1["bound_ms"], se_chunk_rays=n_rays,
+        max_abs_err=max(kernels["K1"]["max_abs_err"], k1["max_abs_err"]))
+
+
+def compare_steps(phase, arrays, dev, opts, **kwargs) -> dict:
+    """One training step at ``opts`` through the kernels and, on the CPU,
+    through the plain versions (``kwargs`` to both): loss and image within
+    1e-4, each gradient within 1e-3 rel L1, every parameter moved. Returns
+    the kernels' gradients."""
+    import torch
+    import psdr_jit_tpu_torch as pt
+
+    steps = {}
+    for name, device in (("kernels", dev), ("plain", torch.device("cpu"))):
+        small = pt.Scene.from_arrays(arrays, device=device)
+        small.opts = opts
+        kw = {k: v(device) for k, v in kwargs.items()}
+        step = train_step_fn(pt.PathTracer(DEPTH), small, **kw)
+        t0 = time.perf_counter()
+        steps[name] = [x if isinstance(x, dict) else x.cpu()
+                       for x in step()]
+        steps[name][1] = {k: v.cpu() for k, v in steps[name][1].items()}
+        steps[name].append((time.perf_counter() - t0) * 1e3)
+    (loss_k, g_k, img_k, ms_k), (loss_p, g_p, img_p, ms_p) = (
+        steps["kernels"], steps["plain"])
+    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    img_rel = rel_l1(img_k, img_p)
+    g_rel = {k: rel_l1(g_k[k], g_p[k]) for k in g_p}
+    log(phase, spp=opts.spp, sppe=opts.sppe, sppse=opts.sppse, depth=DEPTH,
+        loss_rel=f"{loss_rel:.3e}", image_rel_l1=f"{img_rel:.3e}",
+        grad_rel_l1=",".join(f"{k}:{v:.3e}" for k, v in g_rel.items()),
+        ms=f"{ms_k:.1f}", plain_cpu_ms=f"{ms_p:.1f}")
+    require(loss_rel < 1e-4 and img_rel < 1e-4,
+            f"{phase}: loss or image differs from the plain path")
+    require(all(v < 1e-3 for v in g_rel.values()),
+            f"{phase}: a gradient differs from the plain path by >= 1e-3")
+    require(all(float(g.abs().sum()) > 0 for g in g_p.values()),
+            f"{phase}: a parameter got no gradient")
+    return g_k
 
 
 def main() -> int:
@@ -1757,6 +1924,7 @@ def main() -> int:
     from psdr_jit_tpu_torch.ops import megakernel as mk
     from psdr_jit_tpu_torch.integrator.base import (CHUNK_LANES,
                                                     interior_lane_setup)
+    from psdr_jit_tpu_torch.scene.scene import tree_map
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1923,36 +2091,29 @@ def main() -> int:
     require(f_rel < 1e-3, "frame: rel L1 vs the plain path >= 1e-3")
     require(crop_exact, "frame: crop rows differ from the full frame")
 
-    # ---- 6. a 64x64 training step: the kernels against the plain path -------
-    steps = {}
-    for name, device in (("kernels", dev), ("plain", torch.device("cpu"))):
-        small = pt.Scene.from_arrays(arrays, device=device)
-        small.opts = pt.RenderOption(64, 64, 8, 8, 0)
-        step = train_step_fn(integrator, small)
-        t0 = time.perf_counter()
-        steps[name] = [x if isinstance(x, dict) else x.cpu()
-                       for x in step()]
-        steps[name][1] = {k: v.cpu() for k, v in steps[name][1].items()}
-        steps[name].append((time.perf_counter() - t0) * 1e3)
-    (loss_k, g_k, img_k, ms_k), (loss_p, g_p, img_p, ms_p) = (
-        steps["kernels"], steps["plain"])
-    loss_rel = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
-    img_rel = rel_l1(img_k, img_p)
-    g_rel = {k: rel_l1(g_k[k], g_p[k]) for k in g_p}
-    log("train-64", spp=8, sppe=8, depth=DEPTH, loss_rel=f"{loss_rel:.3e}",
-        image_rel_l1=f"{img_rel:.3e}",
-        grad_rel_l1=",".join(f"{k}:{v:.3e}" for k, v in g_rel.items()),
-        ms=f"{ms_k:.1f}", plain_cpu_ms=f"{ms_p:.1f}")
-    require(loss_rel < 1e-4 and img_rel < 1e-4,
-            "train-64: loss or image differs from the plain path")
-    require(all(v < 1e-3 for v in g_rel.values()),
-            "train-64: a gradient differs from the plain path by >= 1e-3")
-    require(all(float(g.abs().sum()) > 0 for g in g_p.values()),
-            "train-64: a parameter got no gradient")
+    # ---- 6. 64x64 training steps: the kernels against the plain path -------
+    compare_steps("train-64", arrays, dev, pt.RenderOption(64, 64, 8, 8, 0))
+    compare_steps("train-se-64", arrays, dev,
+                  pt.RenderOption(64, 64, 8, 8, 8))
+    # guided: one table built on the card, the same table on both sides
+    # (the card's mass table sums with float atomics)
+    guide = pt.Scene.from_arrays(arrays, device=dev)
+    guide.opts = pt.RenderOption(64, 64, 8, 8, 8)
+    guider = pt.PathTracer(DEPTH)
+    guider.preprocess_secondary_edges(guide, 0, [8, 8, 8, 4], 1)
+    table = guider.warpper[0]
+    compare_steps("train-se-64-guided", arrays, dev,
+                  pt.RenderOption(64, 64, 8, 8, 8),
+                  warp=lambda device: tree_map(lambda x: x.to(device),
+                                               table))
 
     # ---- 7. the training main path at full size -----------------------------
+    se_k1_phase(arrays, dev, gen, kernels)
+    scene0 = pt.Scene.from_arrays(arrays, device=dev)
+    scene0.opts.sppe = SPPE
+    step0 = train_step_fn(integrator, scene0)
     train_scene = pt.Scene.from_arrays(arrays, device=dev)
-    train_scene.opts.sppe = SPPE
+    train_scene.opts.sppe, train_scene.opts.sppse = SPPE, SPPSE
     step = train_step_fn(integrator, train_scene)
     train_frame_phase(step, kernels)
     torch.cuda.synchronize()
@@ -1961,11 +2122,14 @@ def main() -> int:
         loss, grads, img_t = step()
         torch.cuda.synchronize()
         launches_t = dict(_cuda.LAUNCHES)
+    k1_step = se_k1_launches(n_pix, SPPSE)
     log("main-path-train", **{f"{k}_LAUNCHES": v for k, v in
                               launches_t.items()},
-        plain_calls=plain.count)
-    for k in ("K2-stash", "K3", "K4", "K2-pair"):
+        K1_expected=k1_step, plain_calls=plain.count)
+    for k in ("K1", "K2-stash", "K3", "K4", "K2-pair"):
         require(launches_t[k] > 0, f"training main path: {k} not launched")
+    require(launches_t["K1"] == k1_step,
+            "training main path: K1 launches != SE chunks x launches a chunk")
     require(plain.count == 0, "training main path: a plain version ran")
     require(launches_t["K2-stash"] == launches_t["K3"] == launches_t["K4"],
             "training main path: stash, K3 and K4 launches differ")
@@ -1975,6 +2139,13 @@ def main() -> int:
         "train: non-finite loss or gradient")
     require(all(float(g.abs().sum()) > 0 for g in grads.values()),
             "train: a parameter got no gradient")
+    _, grads0, _ = step0()
+    se_moved = {k: rel_l1(grads[k], grads0[k]) for k in ("tx", "dv")}
+    require(all(se_moved[k] > v for k, v in SE_MOVED_MIN.items()),
+            "train: the secondary-edge term did not move the geometry "
+            "gradients beyond the run-to-run spread")
+    _, grads_again, _ = step()
+    spread = {k: rel_l1(grads_again[k], grads[k]) for k in ("tx", "dv")}
     # the step's image is the attached Li (K3 over K2-stash's hits): the
     # frame's radiance up to the stash's bilinear bounce origins
     t_rel = rel_l1(img_t, img)
@@ -1982,19 +2153,58 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats(dev)
     step_ms = wall_ms(step, 3)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    log("train", size=f"{W}x{H}", spp=SPP, sppe=SPPE, depth=DEPTH,
-        loss=f"{float(loss):.6e}",
+    step0_ms = wall_ms(step0, 3)
+    se_ms = se_pass_ms(integrator, step, 3)
+    # bench.py:46-49: spp (1 + 2d) + sppe 2 (1 + 2d) + sppse 3 rays a pixel
+    rays = n_pix * (SPP * (1 + 2 * DEPTH) + SPPE * 2 * (1 + 2 * DEPTH)
+                    + SPPSE * 3)
+    log("train", size=f"{W}x{H}", spp=SPP, sppe=SPPE, sppse=SPPSE,
+        depth=DEPTH, loss=f"{float(loss):.6e}",
         grad_l1=",".join(f"{k}:{float(g.abs().sum()):.4e}"
                          for k, g in grads.items()),
+        se_moved_rel_l1=",".join(f"{k}:{v:.3e}" for k, v in
+                                 se_moved.items()),
+        run_to_run_rel_l1=",".join(f"{k}:{v:.3e}" for k, v in
+                                   spread.items()),
         image_rel_l1_vs_frame=f"{t_rel:.3e}", step_ms=f"{step_ms:.2f}",
-        peak_gb=f"{peak_gb:.3f}")
+        peak_gb=f"{peak_gb:.3f}", mrays_per_s=f"{rays / step_ms / 1e3:.1f}",
+        rays=rays, step_sppse0_ms=f"{step0_ms:.2f}",
+        se_pass_ms=f"{se_ms:.2f}", se_share=f"{se_ms / step_ms:.3f}")
+
+    # ---- 7a. a guided step at full size -------------------------------------
+    guided = pt.PathTracer(DEPTH)
+    _, cold_ms = _synced_ms(lambda: guided.preprocess_secondary_edges(
+        train_scene, 0, GUIDE_RESO, 1))
+    _, warm_ms = _synced_ms(lambda: guided.preprocess_secondary_edges(
+        train_scene, 0, GUIDE_RESO, 1))
+    table = guided.warpper[0]
+    require(table.needs_coin, "train-guided: the table has no alias rows")
+    step_g = train_step_fn(guided, train_scene)
+    loss_g, grads_g, _ = step_g()
+    guided_ms = wall_ms(step_g, 3)
+    log("train-guided", reso=",".join(map(str, GUIDE_RESO)),
+        cells=table.num_cells,
+        nonzero_cells=int((table.distrb.pmf > 0).sum()),
+        preprocess_ms_cold=f"{cold_ms:.2f}",
+        preprocess_ms=f"{warm_ms:.2f}", step_ms=f"{guided_ms:.2f}",
+        loss=f"{float(loss_g):.6e}",
+        grad_l1=",".join(f"{k}:{float(g.abs().sum()):.4e}"
+                         for k, g in grads_g.items()))
+    require(bool(torch.isfinite(loss_g)) and all(
+        bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0
+        for g in grads_g.values()),
+        "train-guided: non-finite or zero loss or gradient")
+    require(int((table.distrb.pmf > 0).sum()) > 0,
+            "train-guided: an empty guiding table")
 
     # ---- 8. the large-scene path --------------------------------------------
     launches_l = large_scene_phases(kernels, dev, gen)
     k1_frame_phase(dev)
 
+    kernels["K1"]["launches_step"] = launches_t["K1"]
     record = {"kernels": (
-        [{**kernels[k], "launches": launches[k]} for k in ("K1", "K2")]
+        [{**kernels["K1"], "launches": launches["K1"] + launches_t["K1"]},
+         {**kernels["K2"], "launches": launches["K2"]}]
         + [{**kernels[k], "launches": launches_t[k]}
            for k in ("K2-pair", "K2-stash", "K3", "K4")]
         + [{**kernels[k], "launches": launches_l[k]} for k in ("K5", "K6")])}

@@ -6,8 +6,10 @@ its layout and names. It holds the primal render
 lit by area lights, from the Cornell box to 10^5 triangles, and, for the
 megakernel's scene class (constant one-sided diffuse materials lit by one
 area light, at most 192 triangles), the training step
-``PathTracer(max_depth).loss_and_grad`` with the interior and primary-edge
-terms. Hand-written Hopper kernels (``csrc/``) carry them: K1, K5 and K6,
+``PathTracer(max_depth).loss_and_grad`` with the interior, primary-edge
+and secondary-edge terms, the last guided by
+``PathTracer.preprocess_secondary_edges``. Hand-written Hopper kernels
+(``csrc/``) carry them: K1, K5 and K6,
 the closest-hit sweeps of small, mid-size and large scenes; K2, the
 detached path-traced Li in its single, pair and stash modes; K3, the
 attached interior shade; and K4, K3's adjoint. On CPU tensors every kernel

@@ -29,16 +29,27 @@ def cross(a, b):
     return torch.linalg.cross(a, b, dim=-1)
 
 
+def _sqrt(x):
+    """sqrt of float32 ``x``, correctly rounded on every device. The card's
+    float32 ``sqrt`` is (it equals the rounded float64 root on all of
+    4,194,304 inputs, ``scripts/torch_gather_sqrt.py``); torch's on the CPU
+    is not, and differs on about 0.5% of them, so there the root is taken
+    in float64 and rounded once to float32, which is exact for a square
+    root."""
+    if x.is_cuda:
+        return torch.sqrt(x)
+    return torch.sqrt(x.double()).to(x.dtype)
+
+
 def safe_sqrt(x):
     """sqrt(max(x, 0)); 0 where x <= 0."""
-    return torch.where(x > 0.0, torch.sqrt(torch.clamp(x, min=_TINY)), 0.0)
+    return torch.where(x > 0.0, _sqrt(torch.clamp(x, min=_TINY)), 0.0)
 
 
 def safe_rsqrt(x):
     """1 / sqrt(x), and 0 where x <= 0. Written as a division: IEEE-rounded
     on every device, where ``torch.rsqrt`` is approximate on CUDA."""
-    return torch.where(x > 0.0, 1.0 / torch.sqrt(torch.clamp(x, min=_TINY)),
-                       0.0)
+    return torch.where(x > 0.0, 1.0 / _sqrt(torch.clamp(x, min=_TINY)), 0.0)
 
 
 def safe_div(a, b):
@@ -52,6 +63,12 @@ def normalize(v):
     return v * safe_rsqrt(squared_norm(v))[..., None]
 
 
+def sign_eps(x, eps):
+    """{-1, 0, +1} as int32 with a dead zone of +-``eps`` (reference
+    utils.h:48-54)."""
+    return (x > eps).to(torch.int32) - (x < -eps).to(torch.int32)
+
+
 def rgb2luminance(rgb):
     """BT.709 luminance (reference utils.h:77-80)."""
     return rgb[..., 0] * 0.2126 + rgb[..., 1] * 0.7152 + rgb[..., 2] * 0.0722
@@ -60,6 +77,21 @@ def rgb2luminance(rgb):
 def bilinear(p0, e1, e2, st):
     """p0 + e1*s + e2*t (reference utils.h:65-68)."""
     return p0 + e1 * st[..., 0:1] + e2 * st[..., 1:2]
+
+
+def ray_intersect_triangle(p0, e1, e2, ray):
+    """Moller-Trumbore against one triangle a lane, differentiable:
+    ``((u, v) (..., 2), t (...,))`` (reference utils.h:83-93). Nothing is
+    masked; a ray parallel to the triangle's plane gives 0, not NaN."""
+    h = cross(ray.d, e2)
+    a = dot(e1, h)
+    f = safe_div(torch.ones_like(a), a)
+    s = ray.o - p0
+    u = f * dot(s, h)
+    q = cross(s, e1)
+    v = f * dot(ray.d, q)
+    t = f * dot(e2, q)
+    return torch.stack([u, v], dim=-1), t
 
 
 def mis_weight(pdf1, pdf2):

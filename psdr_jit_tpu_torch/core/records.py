@@ -27,3 +27,26 @@ class BSDFSample:
     pdf: torch.Tensor       # (...,)
     eta: torch.Tensor       # (...,)
     is_valid: torch.Tensor  # (...,) bool
+
+
+@dataclasses.dataclass
+class SensorDirectSample:
+    """Projection of a world point to the sensor (sensor/sensor.h:10-19)."""
+
+    q: torch.Tensor           # (..., 2) sample-space position
+    pixel_idx: torch.Tensor   # (...,) int64, -1 off screen
+    sensor_val: torch.Tensor  # (...,) importance W_e
+    is_valid: torch.Tensor    # (...,) bool
+
+
+@dataclasses.dataclass
+class BoundarySegSample:
+    """Secondary-edge boundary segment sample (records.h:50-59)."""
+
+    p0: torch.Tensor        # (..., 3) point on the edge, attached
+    edge: torch.Tensor      # (..., 3) unit edge direction, detached
+    edge2: torch.Tensor     # (..., 3) edge start to face 0's third vertex
+    p2: torch.Tensor        # (..., 3) point on an emitter, detached
+    n: torch.Tensor         # (..., 3) emitter normal
+    pdf: torch.Tensor       # (...,)
+    is_valid: torch.Tensor  # (...,) bool

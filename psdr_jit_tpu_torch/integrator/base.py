@@ -1,7 +1,8 @@
 """Integrator base (counterpart of ``psdr_jit_tpu/integrator/base.py``):
 the interior render loop of ``renderC``, the primary-edge boundary term
 and the ``loss_and_grad`` entry of the training step
-(``integrator/fused.py``)."""
+(``integrator/fused.py``). The secondary-edge term is
+``integrator/edge.py``'s mixin."""
 
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from ..sensor.sensor import sample_primary_edge
 # Sampler stream salts of the three estimators (reference scene.cpp:52).
 STREAM_INTERIOR = 0
 STREAM_PRIMARY = 1
+STREAM_SECONDARY = 2
 
 # Sample lanes per chunk of the pixel loop: one chunk holds a whole 512x512
 # spp-32 frame. The PyTorch set-up around K2 (sampler hash, primary rays)
@@ -38,6 +40,15 @@ GENERAL_CHUNK_LANES = 1 << 21
 # lanes per chunk of both, for a peak of 0.27 / 0.52 / 1.03 / 1.87 GB
 # (PERF.md): 2^22 is within 5% of the fastest at half its memory.
 TRAIN_CHUNK_LANES = 1 << 22
+# Sample lanes per chunk of the training step's secondary-edge pass (one
+# chunk's graph, the edge points and the two Moller-Trumbore
+# re-intersections, is held at a time). On an H100 the 512x512 spp-32
+# sppe-32 sppse-32 step took 145.3 / 145.7 / 144.3 ms, and in a later run
+# 151.2 / 145.5 / 141.0 ms, at 2^21 / 2^22 / 2^23 lanes per chunk, for a
+# peak of 2.26 / 4.51 / 8.83 GB (PERF.md): the step is host-bound,
+# fewer chunks launch less, and 2^22 is within 3.2% of the fastest at
+# half its memory.
+SE_CHUNK_LANES = 1 << 22
 
 _NOT_PORTED = ("is not ported to psdr_jit_tpu_torch yet: it follows in a "
                "later slice of the port (ROADMAP.md, port queue)")
@@ -154,17 +165,25 @@ class Integrator:
                                   "primary and secondary edge terms) "
                                   + _NOT_PORTED)
 
+    def render_secondary_edges(self, sd, opts, sensor_id: int, seed: int,
+                               ct):
+        """The secondary-edge term's pullback of ``ct``; an integrator
+        without the term (no :class:`edge.SecondaryEdgeMixin`) keeps this
+        default, which the training step leaves out."""
+        return None
+
     def loss_and_grad(self, scene, params, apply_params, pixel_loss,
-                      sensor_id: int = 0, seed: int = -1):
+                      sensor_id: int = 0, seed: int = -1, **kwargs):
         """One training step for a pixel-local loss: ``(loss, grads,
         image)`` with one forward and one adjoint (integrator/fused.py).
         ``params`` is a dict of tensors, ``apply_params(params)`` sets them
         on the scene objects, ``pixel_loss(rows (m, 3), pix (m,)) -> (m,)``;
-        ``grads`` has the keys of ``params``."""
+        ``grads`` has the keys of ``params``. ``warp=`` is the
+        secondary-edge guiding table (``fused.loss_and_grad``)."""
         from .fused import loss_and_grad as _fused
 
         return _fused(self, scene, params, apply_params, pixel_loss,
-                      sensor_id, seed)
+                      sensor_id, seed, **kwargs)
 
     def _render_interior(self, sd, opts, sensor_id, seed, pix_id):
         dev = sd.tri.p0.device

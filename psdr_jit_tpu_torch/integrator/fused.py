@@ -11,13 +11,14 @@ cotangent of a chunk comes from that chunk's own rows. The step:
    loss and its cotangent ``g``, and calls ``backward(g)`` into the leaves
    (K4), holding one chunk's graph at a time;
 3. pulls the full-frame ``g`` through the derivative-only primary-edge pass
-   (K2 pair), chunk by chunk, into the same leaves;
+   (K2 pair) and the derivative-only secondary-edge pass (``sppse > 0``:
+   its visibility, receiver and camera rays through the closest hit, K1
+   on the Cornell box), chunk by chunk, into the same leaves;
 4. pushes the leaves' gradients back through the scene compile once, to
    the parameters.
 
 Steps 1 and 4 are the JAX package's ``vjp(to_sd)`` / ``pull_cfg(sd_bar)``
-(fused.py:288-305). The secondary-edge term (``sppse > 0``) is not ported
-yet and raises.
+(fused.py:288-305).
 """
 
 from __future__ import annotations
@@ -78,18 +79,15 @@ def _interior_scan(integrator, sd, opts, sensor_id: int, seed: int,
 
 def _edge_pullbacks(integrator, sd, opts, sensor_id: int, seed: int, g_img):
     """Pull the image cotangent through the derivative-only edge passes
-    into ``sd``'s leaves (integrator.cpp:179-198)."""
+    into ``sd``'s leaves (integrator.cpp:179-198, path.cpp:274-294); an
+    integrator without the secondary-edge term keeps the base class's
+    ``render_secondary_edges``, and the step leaves the term out."""
     if opts.sppe > 0 and sd.sensors[sensor_id].edge_info is not None:
         integrator._render_primary_edges(sd, opts, sensor_id, seed, ct=g_img)
-
-
-def _require_no_secondary_edges(opts):
-    if opts.sppse > 0:
-        raise NotImplementedError(
-            "the secondary-edge term (sppse > 0) is not ported to "
-            "psdr_jit_tpu_torch yet (ROADMAP.md, port queue); set "
-            "scene.opts.sppse = 0 to train with the interior and "
-            "primary-edge terms")
+    has_se = (type(integrator).render_secondary_edges
+              is not _base.Integrator.render_secondary_edges)
+    if opts.sppse > 0 and sd.sec_edge is not None and has_se:
+        integrator.render_secondary_edges(sd, opts, sensor_id, seed, g_img)
 
 
 def fused_loss_grad(integrator, sd, opts, sensor_id: int, seed: int,
@@ -97,7 +95,6 @@ def fused_loss_grad(integrator, sd, opts, sensor_id: int, seed: int,
     """``(loss, image)`` of one step; the gradients accumulate in the
     ``.grad`` of ``sd``'s leaf tensors. ``pixel_loss(rows (m, 3), pix
     (m,)) -> (m,)`` must be pixel-local."""
-    _require_no_secondary_edges(opts)
     pix = torch.arange(opts.num_pixels, dtype=torch.int64,
                        device=sd.tri.p0.device)
     loss, image, g_img = _interior_scan(integrator, sd, opts, sensor_id,
@@ -106,20 +103,36 @@ def fused_loss_grad(integrator, sd, opts, sensor_id: int, seed: int,
     return loss, image
 
 
+_WARP_AUTO = object()  # "warp not passed": the integrator's own table
+
+
 def loss_and_grad(integrator, scene, params, apply_params, pixel_loss,
-                  sensor_id: int = 0, seed: int = -1):
+                  sensor_id: int = 0, seed: int = -1, warp=_WARP_AUTO):
     """One training step: ``(loss, grads, image)``.
 
     ``params`` is a dict of float tensors; ``apply_params(params)`` sets
     them on the scene objects (vertex positions, transforms, reflectances,
     radiances); ``grads`` has the same keys. The scene compile runs on the
     CPU, so gradients come back on each parameter's own device. Afterwards
-    the scene objects hold the parameters' values, detached."""
-    _require_no_secondary_edges(scene.opts)
+    the scene objects hold the parameters' values, detached.
+
+    ``warp``: the secondary-edge guiding table
+    (``HyperCubeDistribution``). Left unset, the step reads the
+    integrator's table for ``sensor_id`` at the call, as built by its last
+    ``preprocess_secondary_edges``; ``None`` samples unguided. (The JAX
+    package raises when an outer ``jax.jit`` would bake an unset table into
+    its trace; a PyTorch step is not traced, so it reads the table
+    afresh each call.)"""
     seed, _ = integrator._norm_args(scene, seed, None, None)
+    has_warpper = hasattr(integrator, "warpper")
+    if warp is _WARP_AUTO:
+        warp = integrator.warpper.get(sensor_id) if has_warpper else None
     p = {k: torch.as_tensor(v).detach().requires_grad_()
          for k, v in params.items()}
     apply_params(p)
+    prev = integrator.warpper if has_warpper else None
+    if has_warpper:
+        integrator.warpper = {**prev, sensor_id: warp}
     try:
         sd = scene.configure_data()
         sd_leaf, originals, leaves = _leaves(sd)
@@ -131,6 +144,8 @@ def loss_and_grad(integrator, scene, params, apply_params, pixel_loss,
             torch.autograd.backward([o for o, _ in pairs],
                                     [g for _, g in pairs])
     finally:
+        if has_warpper:
+            integrator.warpper = prev
         apply_params({k: v.detach() for k, v in p.items()})
     grads = {k: v.grad if v.grad is not None else torch.zeros_like(v)
              for k, v in p.items()}

@@ -7,7 +7,9 @@ JAX package's ``_li_xla`` in PyTorch, for every other scene: next-event
 estimation and the BSDF bounce (:func:`nee_contribution`,
 :func:`bsdf_bounce`), each intersection routed by ``SceneData.ray_intersect``
 to K1, K5 or K6. The attached interior Li of the training step runs through
-K2 stash, K3 and K4 for the megakernel's scene class only.
+K2 stash, K3 and K4 for the megakernel's scene class only. The
+secondary-edge term and its guiding table come from
+:class:`edge.SecondaryEdgeMixin`.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from ..core.types import EPSILON, SHADOW_EPSILON, Ray
 from ..ops import megakernel as mega
 from ..ops import shade_mega
 from .base import Integrator, _NOT_PORTED
+from .edge import SecondaryEdgeMixin
 
 
 def _out_of_scope(what: str) -> NotImplementedError:
@@ -73,12 +76,14 @@ def bsdf_bounce(sd, its, sampler, active):
     return its1, active, bsdf_val, weight2
 
 
-class PathTracer(Integrator):
-    """PathTracer(max_depth) with next-event estimation and MIS."""
+class PathTracer(SecondaryEdgeMixin, Integrator):
+    """PathTracer(max_depth) with next-event estimation and MIS, and the
+    guided secondary-edge term (``preprocess_secondary_edges``)."""
 
     def __init__(self, max_depth: int = 1, hide_emitters: bool = False):
         if max_depth < 0:
             raise ValueError("max_depth must be >= 0")
+        SecondaryEdgeMixin.__init__(self)
         self.max_depth = int(max_depth)
         self.hide_emitters = bool(hide_emitters)
 

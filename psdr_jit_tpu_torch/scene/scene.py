@@ -4,8 +4,9 @@
 :class:`Scene` is the user-facing container (``add_Sensor``, ``add_BSDF``,
 ``add_Mesh``, ``configure``). :meth:`Scene.configure_data` packs the
 world-space triangle SoA, the per-mesh BSDF and emitter slots, the emitter
-weights, the cameras and (when ``sppe > 0``) the primary-edge tables into
-a :class:`SceneData` on ``Scene.device``.
+weights, the cameras, (when ``sppe > 0``) the primary-edge tables and
+(when ``sppse > 0``) the secondary-edge table with its length-weighted
+sampling distribution into a :class:`SceneData` on ``Scene.device``.
 
 The compile runs in float32 on the CPU and then moves to the device, so a
 scene's tables are the same bits whichever device renders it. It is
@@ -23,10 +24,11 @@ tight.
 
 :class:`SceneData` also holds the shading interface of the general path
 tracer (``integrator/path.py``): the path-formulation intersection, the
-per-lane BSDF and emitter dispatch and the emitter sampling.
+per-lane BSDF and emitter dispatch and the emitter sampling; and the
+secondary-edge term's boundary-segment sampling and differentiable
+(``mode="solid"``) intersection.
 
-Not ported yet: secondary edges (``sppse`` builds nothing) and environment
-maps.
+Not ported yet: environment maps.
 """
 
 from __future__ import annotations
@@ -39,15 +41,20 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core.types import RenderOption, Ray, Frame, Intersection
-from ..core.math import bilinear, norm, normalize, safe_div
-from ..core.distribution import DiscreteDistribution
-from ..core.records import PositionSample
-from ..shape.mesh import Mesh, TriangleInfo, cpu_f32
+from ..core.types import (EDGE_EPSILON, EPSILON, RenderOption, Ray, Frame,
+                          Intersection)
+from ..core.math import (bilinear, dot, norm, normalize,
+                         ray_intersect_triangle, safe_div, safe_sqrt,
+                         sign_eps, squared_norm)
+from ..core.distribution import (SEARCHSORTED_DENSE_MAX,
+                                 DiscreteDistribution)
+from ..core.records import BoundarySegSample, PositionSample
+from ..shape.mesh import Mesh, SecondaryEdgeInfo, TriangleInfo, cpu_f32
 from ..bsdf.bsdf import (BSDF, eval_dispatch, material_table, pdf_dispatch,
                          sample_dispatch)
 from ..emitter.area import AreaLight, AreaLightData, area_light_weight
 from ..ops import intersect
+from ..ops.gather import gather_rows
 
 # Scenes above this many faces get the Morton triangle order (the JAX
 # package's threshold, scene.py _compute_tri_perm).
@@ -119,33 +126,61 @@ class SceneData:
     sensors: tuple                   # SensorData
     lower: torch.Tensor              # (3,) scene AABB
     upper: torch.Tensor              # (3,)
+    # the edges of every edge-enabled mesh in mesh order, and their
+    # length-weighted distribution (sppse > 0 only)
+    sec_edge: Optional[SecondaryEdgeInfo] = None
+    sec_edge_distrb: Optional[DiscreteDistribution] = None
 
-    def ray_intersect(self, ray: Ray, active=None) -> Intersection:
-        """Closest hit, reconstructed in the path formulation (detached
-        barycentrics; scene.cpp:736-806): the hit point is
-        ``p0 + e1*u + e2*v`` and ``t`` its distance from the ray origin.
-        Without texture coordinates the shading frame is
-        ``Frame.from_normal`` of the shading normal."""
+    def ray_intersect(self, ray: Ray, active=None,
+                      mode: str = "path") -> Intersection:
+        """Closest hit (scene.cpp:736-806). The kernel's payload is
+        detached; ``mode`` says how the hit is rebuilt from it:
+
+        * ``"path"``: the path formulation. The hit point is ``p0 + e1*u +
+          e2*v`` at the payload's barycentrics and ``t`` its distance from
+          the ray origin;
+        * ``"solid"``: the solid-angle formulation. Moller-Trumbore runs
+          again, differentiably, on the hit triangle's rows and the ray:
+          ``p = o + t d``, ``wi`` from ``-d``.
+
+        The rows are gathered with ``ops.gather.gather_rows``, so a hit
+        point carries the gradients of the triangle tables (and, in solid
+        mode, of the ray) unless they are detached. Without texture
+        coordinates the shading frame is ``Frame.from_normal`` of the
+        shading normal."""
         tri = self.tri
         tree = (self.bvh if intersect.needs_tree(tri.p0.shape[0],
                                                  tri.p0.device) else None)
         tri_id, valid, uv, _ = intersect.ray_intersect_detached(
             tri.p0, tri.e1, tri.e2, ray, active, tree)
-        idx = torch.clamp(tri_id, min=0).long()
-        p = bilinear(tri.p0[idx], tri.e1[idx], tri.e2[idx], uv)
-        dirv = p - ray.o
-        t = norm(dirv)
-        dirv = dirv * safe_div(torch.ones_like(t), t)[..., None]
-        n0 = tri.n0[idx]
-        sh_n = normalize(bilinear(n0, tri.n1[idx] - n0, tri.n2[idx] - n0, uv))
-        face_normal = tri.face_normal[idx]
-        sh_n = torch.where(self.face_normal_mask[idx][..., None],
+        idx = torch.clamp(tri_id, min=0).long()  # cast once for the rows
+
+        def rows(x):
+            return gather_rows(x, idx)
+
+        p0, e1, e2 = rows(tri.p0), rows(tri.e1), rows(tri.e2)
+        if mode == "path":
+            p = bilinear(p0, e1, e2, uv)
+            dirv = p - ray.o
+            t = norm(dirv)
+            wi_dir = -(dirv * safe_div(torch.ones_like(t), t)[..., None])
+        elif mode == "solid":
+            uv, t = ray_intersect_triangle(p0, e1, e2, ray)
+            p = ray.o + ray.d * t[..., None]
+            wi_dir = -ray.d
+        else:
+            raise ValueError(f"mode {mode!r}: 'path' or 'solid'")
+        n0 = rows(tri.n0)
+        sh_n = normalize(bilinear(n0, rows(tri.n1) - n0, rows(tri.n2) - n0,
+                                  uv))
+        face_normal = rows(tri.face_normal)
+        sh_n = torch.where(rows(self.face_normal_mask)[..., None],
                            face_normal, sh_n)
         frame = Frame.from_normal(sh_n)
         return Intersection(
             valid=valid, t=t, p=p, n=face_normal, sh_frame=frame,
-            wi=frame.to_local(-dirv), J=torch.ones_like(t), bc=uv,
-            tri_id=tri_id, mesh_id=self.face_mesh_id[idx])
+            wi=frame.to_local(wi_dir), J=torch.ones_like(t), bc=uv,
+            tri_id=tri_id, mesh_id=rows(self.face_mesh_id))
 
     # -- per-lane emitter and BSDF dispatch (scene.py:236-270) --------------
     def emitter_slot(self, its: Intersection):
@@ -234,6 +269,64 @@ class SceneData:
                                  result)
         return result
 
+    @property
+    def emitter_coin_needed(self) -> bool:
+        """Whether emitter-position sampling takes an alias coin (a large
+        environment-map importance table): never, while the port's only
+        emitters are area lights."""
+        return False
+
+    # -- boundary segment sampling (scene.cpp:1027-1068) --------------------
+    def sample_boundary_segment_direct(self, sample3, active=None,
+                                       u_coin=None) -> BoundarySegSample:
+        """A segment from a point on a silhouette-candidate edge to a point
+        on a light. The first uniform picks the edge by length (``u_coin``:
+        the edge table's alias coin where it needs one) and is reused along
+        it; the other two sample the light. The edge point ``p0`` carries
+        the gradients of the edge's vertices; all else is detached. A
+        segment is valid where the light faces the edge point and the edge
+        is a boundary edge or a silhouette seen from the light point."""
+        se = self.sec_edge
+        if se is None:
+            raise ValueError("no secondary edges configured: set sppse > 0 "
+                             "before the scene compile")
+        if active is None:
+            active = torch.ones(sample3.shape[:-1], dtype=torch.bool,
+                                device=sample3.device)
+        edge_idx, pdf0, u0 = self.sec_edge_distrb.sample_reuse(
+            sample3[..., 0], u_coin)
+        edge_idx = edge_idx.long()  # cast once for the rows
+
+        def rows(x):
+            return gather_rows(x, edge_idx)
+
+        p0_edge, e1 = rows(se.p0), rows(se.e1)
+        p0 = p0_edge + e1 * u0[..., None]
+        with torch.no_grad():
+            n0, n1, p2_third = rows(se.n0), rows(se.n1), rows(se.p2)
+            is_boundary = rows(se.is_boundary)
+            e1_det = e1.detach()
+            edge_dir = normalize(e1_det)
+            edge2 = p2_third - p0_edge.detach()
+            p0_det = p0.detach()
+            pdf0 = safe_div(pdf0, norm(e1_det))
+            ps2 = self.sample_emitter_position(p0_det, sample3[..., 1:3],
+                                               active)
+            e = ps2.p - p0_det
+            dist_sqr = squared_norm(e)
+            e = e * safe_div(1.0, safe_sqrt(dist_sqr))[..., None]
+            cos_theta = dot(ps2.n, -e)
+            sgn0 = sign_eps(dot(n0, e), EDGE_EPSILON)
+            sgn1 = sign_eps(dot(n1, e), EDGE_EPSILON)
+            is_valid = (active & ps2.is_valid & (cos_theta > EPSILON)
+                        & ((is_boundary & (sgn0 != 0))
+                           | (~is_boundary & (sgn0 * sgn1 < 0))))
+            pdf = torch.where(is_valid,
+                              pdf0 * ps2.pdf * safe_div(dist_sqr, cos_theta),
+                              0.0)
+        return BoundarySegSample(p0=p0, edge=edge_dir, edge2=edge2, p2=ps2.p,
+                                 n=ps2.n, pdf=pdf, is_valid=is_valid)
+
 
 class Scene:
     """Mutable scene container mirroring the reference Python API, with
@@ -251,6 +344,7 @@ class Scene:
         self.seed = 0
         self._data: Optional[SceneData] = None
         self._tri_perm = None
+        self._sec_edge_distrb_cache: Optional[DiscreteDistribution] = None
 
     @classmethod
     def from_arrays(cls, arrays, device="cuda") -> "Scene":
@@ -312,7 +406,8 @@ class Scene:
         if not self.sensors:
             raise ValueError("Missing sensor!")
         opts = self.opts
-        mesh_datas = [m.configure_data() for m in self.meshes]
+        mesh_datas = [m.configure_data(with_edges=opts.sppse > 0)
+                      for m in self.meshes]
         lower = torch.stack([md.vertex_positions.detach().amin(0)
                              for md in mesh_datas]).amin(0)
         upper = torch.stack([md.vertex_positions.detach().amax(0)
@@ -363,6 +458,23 @@ class Scene:
             b.reflectance = cpu_f32(b.reflectance)
             bsdfs.append(b)
 
+        # secondary edges: every mesh's table in mesh order, sampled by
+        # detached length (scene.cpp:546-571); a table above
+        # SEARCHSORTED_DENSE_MAX edges takes the alias rows that the last
+        # configure() attached, while its size holds (the table is
+        # detached, so a stale one stays unbiased)
+        sec_edge = sec_edge_distrb = None
+        parts = [md.sec_edge for md in mesh_datas if md.sec_edge is not None]
+        if parts:
+            sec_edge = SecondaryEdgeInfo(*(
+                torch.cat([getattr(x, f.name) for x in parts])
+                for f in dataclasses.fields(SecondaryEdgeInfo)))
+            sec_edge_distrb = DiscreteDistribution.init(
+                norm(sec_edge.e1.detach()))
+            cache = self._sec_edge_distrb_cache
+            if cache is not None and cache.size == sec_edge_distrb.size:
+                sec_edge_distrb = cache
+
         sd = SceneData(
             tri=tri,
             face_normal_mask=face_normal_mask,
@@ -378,14 +490,24 @@ class Scene:
                           for s in self.sensors),
             lower=lower,
             upper=upper,
+            sec_edge=sec_edge,
+            sec_edge_distrb=sec_edge_distrb,
         )
         return tree_map(lambda x: x.to(self.device), sd)
 
     def configure(self) -> SceneData:
         """(Re)build and cache the scene data (reference sc.configure()),
-        with the Morton permutation of the current geometry."""
+        with the Morton permutation of the current geometry and, above
+        ``SEARCHSORTED_DENSE_MAX`` secondary edges, the edge table's alias
+        rows, which later scene compiles reuse (scene.py:805-830)."""
         self._tri_perm = self._compute_tri_perm()
+        self._sec_edge_distrb_cache = None
         self._data = self.configure_data()
+        sed = self._data.sec_edge_distrb
+        if sed is not None and sed.size > SEARCHSORTED_DENSE_MAX:
+            self._sec_edge_distrb_cache = sed.with_alias()
+            self._data = dataclasses.replace(
+                self._data, sec_edge_distrb=self._sec_edge_distrb_cache)
         return self._data
 
     def _world_tri_centroids(self) -> np.ndarray:

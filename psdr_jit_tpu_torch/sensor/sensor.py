@@ -15,9 +15,11 @@ from typing import Optional
 import torch
 
 from ..core.types import Ray, EPSILON, EDGE_EPSILON
-from ..core.math import dot, normalize, safe_div, safe_sqrt
+from ..core.math import dot, normalize, safe_div, safe_sqrt, squared_norm
 from ..core.distribution import DiscreteDistribution
+from ..core.records import SensorDirectSample
 from ..core import transform as xf
+from ..ops.gather import gather_rows
 
 
 class Sensor:
@@ -72,6 +74,27 @@ class SensorData:
         d = xf.transform_dir(to_world, d_cam)
         return Ray(o, d)
 
+    def sample_direct(self, p) -> SensorDirectSample:
+        """Projection of world points ``p`` (..., 3) to the sensor: sample
+        position, pixel (-1 off screen) and importance ``W_e``
+        (perspective.cpp:181-197), detached."""
+        with torch.no_grad():
+            q = xf.transform_pos(self.world_to_sample, p)[..., :2]
+            iq = torch.floor(torch.stack([q[..., 0] * float(self.width),
+                                          q[..., 1] * float(self.height)],
+                                         -1)).to(torch.int64)
+            is_valid = ((iq[..., 0] >= 0) & (iq[..., 0] < self.width)
+                        & (iq[..., 1] >= 0) & (iq[..., 1] < self.height))
+            pixel_idx = torch.where(is_valid,
+                                    iq[..., 1] * self.width + iq[..., 0], -1)
+            dir_ = p - self.camera_pos
+            dist2 = squared_norm(dir_)
+            dir_ = dir_ * safe_div(1.0, safe_sqrt(dist2))[..., None]
+            c = safe_div(1.0, dot(self.camera_dir, dir_))
+            sensor_val = safe_div(1.0, dist2) * (c * (c * c)) * self.inv_area
+        return SensorDirectSample(q=q, pixel_idx=pixel_idx,
+                                  sensor_val=sensor_val, is_valid=is_valid)
+
 
 def _dot2(a, b):
     return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]
@@ -83,12 +106,11 @@ def sample_primary_edge(sensor: SensorData, sample1) -> PrimaryEdgeSample:
     info = sensor.edge_info
     edge_idx, pdf, u = info.distrb.sample_reuse(sample1)
     j = edge_idx.long()
-    # index_select, whose backward is an index_add: the backward of
-    # ``p0[j]`` is a sorted index_put that walks each edge's run of
-    # duplicate samples serially, 44 ms a 2^21-lane chunk on an H100
-    # (PERF.md)
-    p0 = info.p0.index_select(0, j)
-    p1 = info.p1.index_select(0, j)
+    # gather_rows, an index_select: the backward of ``p0[j]`` is a sorted
+    # index_put that walks each edge's run of duplicate samples serially,
+    # 44 ms a 2^21-lane chunk on an H100 (PERF.md)
+    p0 = gather_rows(info.p0, j)
+    p1 = gather_rows(info.p1, j)
     edge_normal = info.edge_normal[j].detach()
     pdf = safe_div(pdf, info.edge_length[j].detach())
     p_diff = p0 * (1.0 - u[..., None]) + p1 * u[..., None]

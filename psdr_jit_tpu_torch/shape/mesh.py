@@ -3,17 +3,19 @@
 World-space triangles from ``load_raw`` and the
 ``to_world_left @ to_world_raw @ to_world_right`` stack, per-face
 :class:`TriangleInfo`, area-weighted vertex normals, and the edge topology
-that the primary-edge pass classifies (:func:`build_edge_list`).
+that the primary-edge pass classifies (:func:`build_edge_list`), and the
+world-space secondary-edge table built from it (:class:`SecondaryEdgeInfo`).
 :meth:`Mesh.configure_data` is differentiable: autograd flows from every
 world-space table back to ``vertex_positions_raw`` and the transforms.
 :func:`sample_position` samples a point on a mesh uniformly by area (the
-area lights' sampling). OBJ loading, texture coordinates and the
-secondary-edge tables are not ported yet.
+area lights' sampling). OBJ loading and texture coordinates are not ported
+yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -47,6 +49,19 @@ class TriangleInfo:
 
 
 @dataclasses.dataclass
+class SecondaryEdgeInfo:
+    """World-space silhouette-candidate edges (edge/edge.h:48-70), one row
+    an edge of :func:`build_edge_list`."""
+
+    p0: torch.Tensor           # (E, 3) edge start, attached
+    e1: torch.Tensor           # (E, 3) edge vector p1 - p0, attached
+    n0: torch.Tensor           # (E, 3) face 0's normal
+    n1: torch.Tensor           # (E, 3) face 1's normal, 0 on a boundary
+    p2: torch.Tensor           # (E, 3) face 0's third vertex
+    is_boundary: torch.Tensor  # (E,) bool
+
+
+@dataclasses.dataclass
 class MeshData:
     """Output of :meth:`Mesh.configure_data`."""
 
@@ -54,6 +69,7 @@ class MeshData:
     tri: TriangleInfo
     total_area: torch.Tensor        # ()
     face_distrb: DiscreteDistribution
+    sec_edge: Optional[SecondaryEdgeInfo] = None
 
 
 def build_edge_list(faces) -> np.ndarray:
@@ -161,19 +177,34 @@ class Mesh:
                            else np.zeros((0, 5), np.int32))
         return self
 
-    def configure_data(self) -> MeshData:
+    def configure_data(self, with_edges: bool = False) -> MeshData:
         """Raw parameters -> world-space MeshData on the CPU
-        (mesh.cpp:317-382)."""
+        (mesh.cpp:317-382); ``with_edges`` adds the secondary-edge table
+        where the mesh has edges enabled."""
         to_world = (cpu_f32(self.to_world_left) @ cpu_f32(self.to_world_raw)
                     @ cpu_f32(self.to_world_right))
         vertex_positions = xf.transform_pos(
             to_world, cpu_f32(self.vertex_positions_raw))
         tri, _ = process_mesh(vertex_positions, self.face_indices)
+        sec_edge = None
+        if with_edges and self.enable_edges and self.num_edges > 0:
+            ei = torch.from_numpy(self._edge_rows.astype(np.int64))
+            is_boundary = ei[:, 3] < 0
+            p0 = vertex_positions[ei[:, 0]]
+            sec_edge = SecondaryEdgeInfo(
+                p0=p0,
+                e1=vertex_positions[ei[:, 1]] - p0,
+                n0=tri.face_normal[ei[:, 2]],
+                n1=torch.where(is_boundary[:, None], 0.0, tri.face_normal[
+                    torch.clamp(ei[:, 3], min=0)]),
+                p2=vertex_positions[ei[:, 4]],
+                is_boundary=is_boundary)
         return MeshData(
             vertex_positions=vertex_positions,
             tri=tri,
             total_area=torch.sum(tri.face_area),
             face_distrb=DiscreteDistribution.init(tri.face_area),
+            sec_edge=sec_edge,
         )
 
     def __repr__(self) -> str:

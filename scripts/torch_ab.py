@@ -28,6 +28,10 @@ a summary. Each run measures, on its checkout's kernels:
   the secondary-edge stand-ins with and without their dead lanes, and the
   five launches of a frame of the 492-triangle gallery, with that frame's
   host time and, where K1 walks a tree, the tree's host build;
+* the device operations (kernels, copies, fills) that one host frame of
+  each gallery, one Cornell-box frame and one step issue, and their summed
+  device time (``torch.profiler``): the launches and the device's share
+  behind a host-bound frame's time;
 * ptxas's registers, stack and spills of K1 (before its redesign; since,
   K1, K5 and K6 are one walk), K2, K3, K4, K5 (before its redesign) and K6
   from the checkout's build;
@@ -127,6 +131,7 @@ def measure(tree: Path) -> dict:
         out["K6_bound_ms"] = cs.bound(n_rays * (cs.RAY_BYTES + 1) + tris,
                                       need * cs.TEST_FLOPS)[0]
     out["frame_ms"] = cs.wall_ms(lambda: integ.renderC(big, 0, seed=0), 5)
+    device_work(out, "frame", lambda: integ.renderC(big, 0, seed=0))
     torch.cuda.reset_peak_memory_stats(dev)
     integ.renderC(big, 0, seed=0)
     torch.cuda.synchronize()
@@ -146,6 +151,8 @@ def measure(tree: Path) -> dict:
                              for fn, args, _ in calls["K2"])
     out["cbox_frame_ms"] = cs.wall_ms(lambda: integ.renderC(
         cbox, 0, seed=cs.SEED), 5)
+    device_work(out, "cbox_frame", lambda: integ.renderC(
+        cbox, 0, seed=cs.SEED))
     torch.cuda.reset_peak_memory_stats(dev)
     integ.renderC(cbox, 0, seed=cs.SEED)
     torch.cuda.synchronize()
@@ -175,6 +182,7 @@ def measure(tree: Path) -> dict:
     if hasattr(cs, "k2_bound_terms"):
         out["K2_counts"] = k2_counts(cs, mk, calls)
     out["step_ms"] = cs.wall_ms(step, 3)
+    device_work(out, "step", step)
     torch.cuda.reset_peak_memory_stats(dev)
     step()
     torch.cuda.synchronize()
@@ -258,6 +266,8 @@ def k1_lines(cs, pt, dev) -> dict:
         out["K1_492_needed_tests_per_ray"] = tests / rays
     out["K1_492_host_frame_ms"] = cs.wall_ms(
         lambda: integ.renderC(gal, 0, seed=0), 5)
+    device_work(out, "K1_492_host_frame",
+                lambda: integ.renderC(gal, 0, seed=0))
     return out
 
 
@@ -303,6 +313,8 @@ def k5_frame(cs, pt, dev, n_spheres: int) -> dict:
         out[f"{key}_needed_tests_per_ray"] = tests / rays
     out[f"{key}_host_frame_ms"] = cs.wall_ms(
         lambda: integ.renderC(sc, 0, seed=0), 5)
+    device_work(out, f"{key}_host_frame",
+                lambda: integ.renderC(sc, 0, seed=0))
     torch.cuda.reset_peak_memory_stats(dev)
     integ.renderC(sc, 0, seed=0)
     torch.cuda.synchronize()
@@ -366,6 +378,26 @@ def parent_model_tests(tri, record) -> int:
     return tests
 
 
+def device_work(out: dict, prefix: str, fn) -> None:
+    """``out[prefix + "_device_ops"]``: the device operations that one call
+    of ``fn`` issues, and ``out[prefix + "_device_busy_ms"]``: their summed
+    device time, from ``torch.profiler``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    out[f"{prefix}_device_ops"] = len(events)
+    out[f"{prefix}_device_busy_ms"] = sum(
+        e.self_device_time_total for e in events) / 1e3
+
+
 @functools.cache
 def _this_smoke():
     """This checkout's ``chip_smoke`` module, loaded under another name:
@@ -409,16 +441,22 @@ def main() -> int:
         print(f"[run] {tree.name or tree}: {time.perf_counter() - t0:.1f} s",
               flush=True)
     keys = ("K1_check_set_ms", "K1_edge_ms", "K1_edge_all_active_ms",
-            "K1_492_frame_ms", "K1_492_host_frame_ms", "K2_frame_ms",
-            "cbox_frame_ms", "cbox_frame_peak_gb",
+            "K1_492_frame_ms", "K1_492_host_frame_ms",
+            "K1_492_host_frame_device_ops",
+            "K1_492_host_frame_device_busy_ms", "K2_frame_ms",
+            "cbox_frame_ms", "cbox_frame_peak_gb", "cbox_frame_device_ops",
+            "cbox_frame_device_busy_ms",
             "K2-pair_step_ms", "K2-stash_step_ms", "K6_frame_ms",
-            "K6_tests_per_ray", "frame_ms", "frame_peak_gb", "K3_step_ms",
-            "K4_step_ms", "step_ms", "step_peak_gb") + tuple(
+            "K6_tests_per_ray", "frame_ms", "frame_peak_gb",
+            "frame_device_ops", "frame_device_busy_ms", "K3_step_ms",
+            "K4_step_ms", "step_ms", "step_peak_gb", "step_device_ops",
+            "step_device_busy_ms") + tuple(
                 f"K5_{f}_{k}" for f in (1292, 3852) for k in (
                     "frame_ms", "K6_as_is_frame_ms", "host_frame_ms",
-                    "host_frame_peak_gb"))
+                    "host_frame_peak_gb", "host_frame_device_ops",
+                    "host_frame_device_busy_ms"))
     for k in keys:
-        print(f"{k:26s} A {statistics.mean([runs[0][k], runs[3][k]]):10.4f} "
+        print(f"{k:33s} A {statistics.mean([runs[0][k], runs[3][k]]):10.4f} "
               f"({runs[0][k]:.4f}, {runs[3][k]:.4f})  B "
               f"{statistics.mean([runs[1][k], runs[2][k]]):10.4f} "
               f"({runs[1][k]:.4f}, {runs[2][k]:.4f})")

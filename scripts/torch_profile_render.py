@@ -8,7 +8,8 @@ step, goes on a CUDA card.
 
 from the repository root. Both use the Cornell box of
 ``tests/data/cbox_scene.npz`` (512x512, spp 32) with ``PathTracer(3)``;
-the training step adds sppe 32 and the parameters of ``chip_smoke.py``.
+the training step adds sppe 32, sppse 32 and the parameters of
+``chip_smoke.py``.
 
 renderC: the card (``nvidia-smi`` name, power limit, SM clocks), the
 frame's host time over 10 runs, the device's busy time per frame from
@@ -16,10 +17,12 @@ frame's host time over 10 runs, the device's busy time per frame from
 into its stages by CUDA events.
 
 --train: the step's host time and peak device memory at each training
-chunk size (2^20..2^23 lanes), the device's busy time per step with the
-kernels by device time, and the step split into its parts: each part is
-timed on the host between two synchronizes, so the parts add up to a
-step slower than an unsplit one.
+chunk size (2^20..2^23 lanes) and at each secondary-edge chunk size
+(2^21..2^23 lanes); the secondary-edge pass's span on the card's stream
+and K1's own time a step (each recorded launch timed alone); the device's busy
+time per step with the kernels by device time; and the step split into
+its parts: each part is timed on the host between two synchronizes, so
+the parts add up to a step slower than an unsplit one.
 
 --large: renderC of the 102,412-triangle gallery (``chip_smoke``
 ``gallery_arrays``, 256x256, spp 4, ``PathTracer(2)``, the general Li
@@ -91,33 +94,54 @@ def host_ms(fn, reps: int):
 
 
 def train(dev) -> int:
-    from chip_smoke import SPPE, train_step_fn
-    from psdr_jit_tpu_torch.integrator import base, fused
+    from chip_smoke import (SPPE, SPPSE, KernelCalls, cuda_ms, se_pass_ms,
+                            train_step_fn)
+    from psdr_jit_tpu_torch.integrator import base, edge, fused
     from psdr_jit_tpu_torch.ops import image
+    from psdr_jit_tpu_torch.ops import intersect as ix
     from psdr_jit_tpu_torch.ops import shade_mega as sm
 
     sc = pt.Scene.from_arrays(np.load(ROOT / "tests/data/cbox_scene.npz"),
                               device=dev)
-    sc.opts.sppe = SPPE
-    step = train_step_fn(pt.PathTracer(DEPTH), sc)
+    sc.opts.sppe, sc.opts.sppse = SPPE, SPPSE
+    integ = pt.PathTracer(DEPTH)
+    step = train_step_fn(integ, sc)
     print(f"loss_and_grad {sc.opts.width}x{sc.opts.height} spp "
-          f"{sc.opts.spp} sppe {SPPE} depth {DEPTH}")
-    default = base.TRAIN_CHUNK_LANES
-    for lanes in (1 << 20, 1 << 21, 1 << 22, 1 << 23):
-        base.TRAIN_CHUNK_LANES = lanes
+          f"{sc.opts.spp} sppe {SPPE} sppse {SPPSE} depth {DEPTH}")
+
+    def sweep(owner, name, sizes, what):
+        default = getattr(owner, name)
+        for lanes in sizes:
+            setattr(owner, name, lanes)
+            step()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            med, lo, hi = host_ms(step, 5)
+            peak = torch.cuda.max_memory_allocated(dev) / 1e9
+            print(f"{what} chunk 2^{lanes.bit_length() - 1} lanes: step "
+                  f"host ms median {med:.3f} min {lo:.3f} max {hi:.3f}, "
+                  f"peak {peak:.3f} GB")
+        setattr(owner, name, default)
+
+    sweep(base, "TRAIN_CHUNK_LANES", (1 << 20, 1 << 21, 1 << 22, 1 << 23),
+          "interior and primary-edge")
+    sweep(base, "SE_CHUNK_LANES", (1 << 21, 1 << 22, 1 << 23),
+          "secondary-edge")
+
+    span = se_pass_ms(integ, step, 3)
+    with KernelCalls({"K1": (ix, "sweep_cuda")}) as rec:
         step()
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        med, lo, hi = host_ms(step, 5)
-        peak = torch.cuda.max_memory_allocated(dev) / 1e9
-        print(f"chunk 2^{lanes.bit_length() - 1} lanes: step host ms median "
-              f"{med:.3f} min {lo:.3f} max {hi:.3f}, peak {peak:.3f} GB")
-    base.TRAIN_CHUNK_LANES = default
+    k1 = sum(cuda_ms(lambda: fn(*args), 3)
+             for fn, args, _ in rec.calls["K1"])
+    print(f"secondary-edge pass span {span:.3f} ms; K1 "
+          f"{len(rec.calls['K1'])} launches {k1:.4f} ms a step")
+
     med, lo, hi = host_ms(step, 10)
-    print(f"default chunks (2^{default.bit_length() - 1} lanes): step host "
-          f"ms median {med:.3f} "
-          f"min {lo:.3f} max {hi:.3f}")
-    busy = busy_ms(step, 3)
+    print(f"default chunks (2^{base.TRAIN_CHUNK_LANES.bit_length() - 1}, "
+          f"2^{base.SE_CHUNK_LANES.bit_length() - 1} lanes): step host ms "
+          f"median {med:.3f} min {lo:.3f} max {hi:.3f}")
+    busy = busy_ms(step, 3, rows=25)
     print(f"device busy per step (profiler, sum of kernel time): "
           f"{busy:.3f} ms, idle share {1 - busy / med:.3f} of the median")
 
@@ -149,8 +173,11 @@ def train(dev) -> int:
              (sm, "attached_tables", "attached tables"),
              (sm, "shade_cuda", "K3"),
              (sm, "shade_adjoint_cuda", "K4"),
-             (fused, "_edge_pullbacks", "primary-edge pass"),
+             (base.Integrator, "_render_primary_edges", "primary-edge pass"),
              (mk, "li_mega_pair", "K2 pair"),
+             (edge.SecondaryEdgeMixin, "render_secondary_edges",
+              "secondary-edge pass"),
+             (ix, "sweep_cuda", "K1"),
              (image._SplatDerivativeOnly, "backward", "splat gather")]
     saved = [timed(*site) for site in sites]
     reps = 5
@@ -168,19 +195,26 @@ def train(dev) -> int:
     inner = {"interior pass": (("K2 stash", "attached tables", "K3", "K4"),
                                "lane set-up, camera rays, loss, PyTorch "
                                "backward of the rays"),
-             "primary-edge pass": (("K2 pair", "splat gather"),
-                                   "edge sampling, edge rays, PyTorch "
-                                   "backward of the endpoints")}
+             "primary-edge pass": (("K2 pair",),
+                                   "edge sampling, edge rays, splat "
+                                   "gather, PyTorch backward of the "
+                                   "endpoints"),
+             "secondary-edge pass": (("K1",),
+                                     "boundary sampling, the "
+                                     "re-intersections, splat gather, "
+                                     "PyTorch backward")}
     print(f"split step (synchronized parts), host ms per step: {total:.3f}")
     for label in ("scene compile", "interior pass", "K2 stash",
                   "attached tables", "K3", "K4", "primary-edge pass",
-                  "K2 pair", "splat gather"):
-        print(f"  {label}: {split.get(label, 0.0):.3f}")
+                  "K2 pair", "secondary-edge pass", "K1",
+                  "splat gather (both edge passes)"):
+        print(f"  {label}: {split.get(label.split(' (')[0], 0.0):.3f}")
     for outer, (names, what) in inner.items():
         rest = split.get(outer, 0.0) - sum(split.get(n, 0.0) for n in names)
         print(f"  {outer}, the rest ({what}): {rest:.3f}")
     rest = total - sum(split.get(k, 0.0) for k in
-                       ("scene compile", "interior pass", "primary-edge pass"))
+                       ("scene compile", "interior pass", "primary-edge pass",
+                        "secondary-edge pass"))
     print(f"  leaves and the backward through the scene compile: {rest:.3f}")
     return 0
 

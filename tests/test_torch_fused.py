@@ -248,15 +248,22 @@ def test_step_leaves_the_scene_detached():
 
 
 def test_unported_terms_and_scenes_raise():
-    """The secondary-edge term (sppse > 0) and scenes outside the attached
-    shade's scope raise NotImplementedError; the step never drops a
-    term."""
+    """Scenes outside the attached shade's scope raise
+    NotImplementedError; the step never drops a term. The secondary-edge
+    term (sppse > 0) runs: it moves the block's vertex-offset gradient and
+    leaves the loss and image as they are."""
     integ = pt.PathTracer(2)
+    p0 = {"tx": np.float32(0.0), "dv": np.zeros((20, 3), np.float32),
+          "alb": np.float32([0.7, 0.7, 0.7]),
+          "rad": np.float32([20.0, 20.0, 8.0])}
+    ref = _port_step(_port_scene(), 2, p0)
     sc = _port_scene()
     sc.opts.sppse = 4
-    with pytest.raises(NotImplementedError, match="secondary-edge"):
-        integ.loss_and_grad(sc, {}, lambda p: None,
-                            lambda rows, pix: rows.sum(-1))
+    loss, grads, img = _port_step(sc, 2, p0)
+    assert loss == ref[0]
+    np.testing.assert_array_equal(img, ref[2])
+    assert np.isfinite(grads["dv"]).all()
+    assert _rel(grads["dv"], ref[1]["dv"]) > 0.05
     sc = _port_scene()
     sc.bsdfs[1].twoSide = True
     with pytest.raises(NotImplementedError, match="scope"):

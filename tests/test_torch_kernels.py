@@ -437,6 +437,43 @@ def test_k3_k4_match_plain(cuda, depth):
 
 
 @pytest.mark.gpu
+def test_sqrt_correctly_rounded_on_card(cuda):
+    """``core.math.safe_sqrt`` gives the same bits on the card, where it
+    takes torch's float32 root, as on the CPU, where it rounds the float64
+    root once (torch's float32 ``sqrt`` on the CPU is not correctly
+    rounded)."""
+    from psdr_jit_tpu_torch.core.math import safe_rsqrt, safe_sqrt
+
+    x = torch.rand(1 << 22, generator=torch.Generator().manual_seed(2)) * 2
+    assert torch.equal(safe_sqrt(x), torch.sqrt(x.double()).float())
+    x[:5] = torch.tensor([0.0, -1.0, 1e-30, 4.0, 1e30])  # clamped below
+    for fn in (safe_sqrt, safe_rsqrt):
+        assert torch.equal(fn(x.to(cuda)).cpu(), fn(x)), fn.__name__
+
+
+@pytest.mark.gpu
+def test_secondary_edge_step_on_card(cuda):
+    """loss_and_grad with the secondary-edge term through the kernels
+    against the same step on the CPU: the image bit for bit (K1 is, and
+    the PyTorch glue runs the same IEEE operations on both devices), the
+    loss and gradients up to the order of their sums; K1 launched three
+    times a chunk."""
+    opts = pt.RenderOption(32, 32, 4, 4, 8)
+    sc = _scene(cuda, 32, 32, 4)
+    sc.opts = opts
+    _cuda.reset_launches()
+    loss, grads, img = _train(sc, 2)
+    assert _cuda.LAUNCHES["K1"] == 3
+    cpu = _scene("cpu", 32, 32, 4)
+    cpu.opts = opts
+    loss_p, grads_p, img_p = _train(cpu, 2)
+    assert abs(float(loss) - float(loss_p)) <= 1e-6 * abs(float(loss_p))
+    assert torch.equal(img.cpu(), img_p)
+    for k, g in grads_p.items():
+        assert _rel(grads[k], g) < 1e-5, k
+
+
+@pytest.mark.gpu
 def test_training_step_on_card(cuda):
     """loss_and_grad through the kernels against the same step on the CPU
     (the plain versions), with every kernel of the step launched."""

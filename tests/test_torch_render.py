@@ -84,16 +84,19 @@ def test_seed_and_batch_pix_conventions(scenes):
 
 
 def test_later_slices_raise(scenes):
-    """renderD and the secondary-edge term of the training step come in
-    later slices: they raise, never drop the term."""
+    """renderD comes in a later slice: it raises, never drops a term. The
+    secondary-edge term of the training step (sppse > 0) no longer
+    raises: the step takes it."""
     _, sc = scenes
     integ = pt.PathTracer(2)
     with pytest.raises(NotImplementedError, match="renderD"):
         integ.renderD(sc)
     sc.opts.sppse = 1
     try:
-        with pytest.raises(NotImplementedError, match="secondary-edge"):
-            integ.loss_and_grad(sc, {}, lambda p: None, None)
+        loss, grads, img = integ.loss_and_grad(
+            sc, {}, lambda p: None, lambda rows, pix: rows.sum(-1))
+        assert bool(torch.isfinite(loss)) and grads == {}
+        assert img.shape == (32 * 32, 3)
     finally:
         sc.opts.sppse = 0
 
