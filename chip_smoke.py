@@ -12,7 +12,7 @@ gallery and on exact ties through both of its sweeps; K3, the attached
 shade; K4, its adjoint; K5, the same walk at 513 to 4,096 triangles, also
 at the top of its range and on exact ties; K6, the same walk on a tree
 split at the middle), checks a
-32x32 render against ``tests/golden_cbox32.npy``, then drives three main
+32x32 render against ``tests/golden_cbox32.npy``, then drives four main
 paths at full size as a user would, each with the launch counts set to 0
 just before it and read just after:
 
@@ -26,6 +26,14 @@ just before it and read just after:
   light translation, the tall block's vertex offsets, a reflectance and
   the radiance; then the same step guided by a table that
   ``preprocess_secondary_edges`` builds on the card;
+* differentiating a render of it: ``PathTracer(3).renderD`` at the same
+  size (the interior term through the attached general Li and K1; the
+  primary-edge term through K2 pair; the secondary-edge term through K1)
+  in forward mode along the light's translation and the radiance's scale,
+  and in reverse mode for the four parameters, held to the forward
+  tangent (the adjoint identity), to renderC's frame and to
+  ``loss_and_grad``; and a renderD of the 1,292-triangle gallery through
+  K5;
 * serving a large scene, the procedural gallery of ``gallery_arrays``
   (102,412 triangles): a picking query and a frame at 256x256, spp 4,
   ``PathTracer(2)``, through the general Li and K6; and the same frame of
@@ -33,14 +41,16 @@ just before it and read just after:
   through K1.
 
 64x64 training steps of the box (sppse 0, sppse 8, and sppse 8 guided by
-one table on both sides) and a 64x64 frame of the 5,132-triangle gallery
-run through the kernels and, on the CPU, through the plain versions, and
-the two must agree. One training step and one gallery frame run with
-every launch recorded, and each launch is held against its plain version
-on the inputs it was given; so do K1's launches in the first chunk of the
-step's secondary-edge pass. Kernels, frames and step are timed
-against their plain versions, and each kernel's least possible time on an
-H100 (its bound) is computed from its inputs.
+one table on both sides), a 64x64 renderD of the box (forward and reverse
+mode) and of the 1,292-triangle gallery (forward mode) and a 64x64 frame
+of the 5,132-triangle gallery run through the kernels and, on the CPU,
+through the plain versions, and the two must agree. One training step
+and one gallery frame run with every launch recorded, and each launch is
+held against its plain version on the inputs it was given; so do K1's
+launches in the first chunk of the step's secondary-edge pass. Kernels,
+frames and step are timed against their plain versions, and each
+kernel's least possible time on an H100 (its bound) is computed from its
+inputs.
 
 Every phase prints one line; any failure exits non-zero without the final
 line. The last two lines are the card (``nvidia-smi`` name and power limit)
@@ -74,6 +84,14 @@ GUIDE_RESO = (16, 16, 16, 4)
 # of the step's backward move them from one run to the next by the
 # run-to-run spread that [train] logs beside them (PERF.md)
 SE_MOVED_MIN = {"tx": 1e-4, "dv": 0.05}
+# [renderD]: the bound on each reverse gradient of sum(w * renderD)
+# against loss_and_grad's of the same linear loss (rel L1). Their interior
+# routes differ (K3 over K2-stash's hits, whose bounce origins are o + t d,
+# against the attached general Li's bilinear hit points), which flips a few
+# grazing lanes: at 64x64 spp 8 sppe 8 sppse 8 on the CPU the two differed
+# by at most 4.3e-3 (tx), 6.9e-3 (dv), 1.8e-3 (alb), 2.4e-4 (rad) over
+# seeds 0 and 1 (PERF.md)
+RENDERD_FUSED_RTOL = {"tx": 1e-2, "dv": 2e-2, "alb": 1e-2, "rad": 1e-3}
 SEED = 0
 DEPTH = 3
 # the large-scene path: gallery_arrays() at 256x256, spp 4, PathTracer(2)
@@ -601,6 +619,55 @@ def train_setup(scene, seed: int = SEED):
               "alb": scene.bsdfs[1].reflectance.clone(),
               "rad": scene.emitters[0].radiance.clone()}
     return params, apply_params, pixel_loss
+
+
+def forward_mode(integrator, scene, set_param, value, direction,
+                 seed: int = SEED, **kwargs):
+    """``(primal, tangent)`` of ``integrator.renderD(scene)`` in forward
+    mode: ``set_param`` puts a dual tensor of ``value`` along
+    ``direction`` on the scene objects inside
+    ``torch.autograd.forward_ad.dual_level()``, and ``value`` back after.
+    An image without a tangent does not depend on the parameter: its
+    tangent is zeros."""
+    import torch
+    import torch.autograd.forward_ad as fwAD
+
+    with fwAD.dual_level():
+        set_param(fwAD.make_dual(value, torch.as_tensor(
+            direction, dtype=torch.float32).to(value.device)))
+        primal, tangent = fwAD.unpack_dual(integrator.renderD(
+            scene, 0, seed=seed, **kwargs))
+        primal = primal.clone()
+        tangent = (torch.zeros_like(primal) if tangent is None
+                   else tangent.clone())
+    set_param(value)
+    return primal, tangent
+
+
+def renderd_tangent(integrator, scene, setup, name, direction,
+                    seed: int = SEED, **kwargs):
+    """``forward_mode`` along ``direction`` of the ``train_setup``
+    parameter ``name`` (``setup`` is ``train_setup(scene)``)."""
+    params, apply_params, _ = setup
+    return forward_mode(integrator, scene,
+                        lambda v: apply_params({**params, name: v}),
+                        params[name], direction, seed, **kwargs)
+
+
+def renderd_grads(integrator, scene, setup, weight, seed: int = SEED):
+    """``{name: gradient}`` of ``sum(weight * renderD)`` with respect to
+    the ``train_setup`` parameters, in reverse mode."""
+    import torch
+
+    params, apply_params, _ = setup
+    p = {k: v.clone().requires_grad_() for k, v in params.items()}
+    apply_params(p)
+    try:
+        img = integrator.renderD(scene, 0, seed=seed)
+        grads = torch.autograd.grad((img * weight).sum(), list(p.values()))
+    finally:
+        apply_params(params)
+    return dict(zip(p, grads))
 
 
 _EYE4 = [[1.0, 0.0, 0.0, 0.0], [0.0, 1.0, 0.0, 0.0], [0.0, 0.0, 1.0, 0.0],
@@ -1902,6 +1969,243 @@ def compare_steps(phase, arrays, dev, opts, **kwargs) -> dict:
     return g_k
 
 
+def renderd_64_phase(arrays, dev):
+    """[renderD-64]: renderD of the box at 64x64, spp 8, sppe 8, sppse 8,
+    ``PathTracer(3)``, through the kernels and, on the CPU, through the
+    plain versions: the primal within 1e-4 rel L1; the forward tangents
+    along the light's translation ``tx`` and a fixed direction of the
+    block's vertex offsets ``dv`` within 1e-3; the reverse gradients of
+    ``sum(w * renderD)`` for the four parameters within 1e-3."""
+    import numpy as np
+    import torch
+    import psdr_jit_tpu_torch as pt
+
+    out = {}
+    for name, device in (("kernels", dev), ("plain", torch.device("cpu"))):
+        sc = pt.Scene.from_arrays(arrays, device=device)
+        sc.opts = pt.RenderOption(64, 64, 8, 8, 8)
+        setup = train_setup(sc)
+        integ = pt.PathTracer(DEPTH)
+        n_v = sc.meshes[2].num_vertices
+        dv = np.random.default_rng(2).standard_normal((n_v, 3)).astype(
+            np.float32)
+        w = renderd_weight(sc.opts.num_pixels, device)
+        t0 = time.perf_counter()
+        primal, t_tx = renderd_tangent(integ, sc, setup, "tx", 1.0)
+        _, t_dv = renderd_tangent(integ, sc, setup, "dv", dv)
+        grads = renderd_grads(integ, sc, setup, w)
+        out[name] = dict(primal=primal.cpu(), tx=t_tx.cpu(), dv=t_dv.cpu(),
+                         grads={k: v.cpu() for k, v in grads.items()},
+                         ms=(time.perf_counter() - t0) * 1e3)
+    k, p = out["kernels"], out["plain"]
+    rels = {"primal": rel_l1(k["primal"], p["primal"]),
+            "tangent_tx": rel_l1(k["tx"], p["tx"]),
+            "tangent_dv": rel_l1(k["dv"], p["dv"]),
+            **{f"grad_{n}": rel_l1(k["grads"][n], p["grads"][n])
+               for n in p["grads"]}}
+    log("renderD-64", spp=8, sppe=8, sppse=8, depth=DEPTH,
+        rel_l1=",".join(f"{n}:{v:.3e}" for n, v in rels.items()),
+        ms=f"{k['ms']:.1f}", plain_cpu_ms=f"{p['ms']:.1f}")
+    require(rels["primal"] < 1e-4, "renderD-64: the primal differs from "
+            "the plain path")
+    require(all(v < 1e-3 for n, v in rels.items() if n != "primal"),
+            "renderD-64: a tangent or gradient differs from the plain path "
+            "by >= 1e-3")
+    require(all(float(x.abs().sum()) > 0 for x in
+                [p["tx"], p["dv"], *p["grads"].values()]),
+            "renderD-64: a tangent or gradient is zero")
+
+
+def renderd_weight(n_pix: int, device):
+    """The fixed random pixel weights ``w`` of ``sum(w * renderD)``."""
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.random.default_rng(1).uniform(
+        0.25, 1.0, (n_pix, 3)).astype(np.float32)).to(device)
+
+
+def renderd_phase(arrays, dev, frame) -> dict:
+    """[main-path-renderD] and [renderD]: ``PathTracer(3).renderD`` of the
+    box at 512x512, spp 32, sppe 32, sppse 32. Forward mode along the
+    light's translation ``tx`` with the launch counts set to 0 just
+    before it and read just after (K1: 7 a chunk of the interior, the
+    attached general Li, and 3 a secondary-edge chunk; K2 pair: one a
+    primary-edge chunk; nothing else, no plain version); along the
+    radiance scaled by a dual scalar ``s`` at 1, whose tangent is the
+    primal (every interior path is linear in the one light's radiance,
+    and the edge terms' radiance is detached); reverse mode of ``sum(w *
+    renderD)`` for the four parameters, held to the forward tangent by the
+    adjoint identity and to ``loss_and_grad`` of the same linear loss.
+    ``frame`` is the main path's renderC image. Returns the launches."""
+    import torch
+    import psdr_jit_tpu_torch as pt
+    from psdr_jit_tpu_torch.integrator import base
+    from psdr_jit_tpu_torch.ops import _cuda
+
+    sc = pt.Scene.from_arrays(arrays, device=dev)
+    sc.opts.sppe, sc.opts.sppse = SPPE, SPPSE
+    sc.configure()
+    W, H, spp = sc.opts.width, sc.opts.height, sc.opts.spp
+    n_pix = W * H
+    integ = pt.PathTracer(DEPTH)
+    setup = train_setup(sc)
+    w = renderd_weight(n_pix, dev)
+    n_int = -(-n_pix // max(base.DIFF_CHUNK_LANES // spp, 1))
+    n_pe = -(-n_pix * SPPE // base.TRAIN_CHUNK_LANES)
+    n_se = -(-n_pix * SPPSE // base.SE_CHUNK_LANES)
+    k1_want = n_int * (1 + 2 * DEPTH) + n_se * 3
+    torch.cuda.synchronize()
+    with PlainCalls() as plain:
+        _cuda.reset_launches()
+        primal, t_tx = renderd_tangent(integ, sc, setup, "tx", 1.0)
+        torch.cuda.synchronize()
+        launches = dict(_cuda.LAUNCHES)
+    log("main-path-renderD", **{f"{k}_LAUNCHES": v for k, v in
+                                launches.items()},
+        K1_expected=k1_want, K2_pair_expected=n_pe, interior_chunks=n_int,
+        primary_edge_chunks=n_pe, secondary_edge_chunks=n_se,
+        plain_calls=plain.count)
+    require(launches["K1"] == k1_want, "renderD: K1 launches != 7 an "
+            "interior chunk + 3 a secondary-edge chunk")
+    require(launches["K2-pair"] == n_pe,
+            "renderD: K2-pair launches != primary-edge chunks")
+    require(all(v == 0 for k, v in launches.items()
+                if k not in ("K1", "K2-pair")),
+            "renderD: another kernel ran (K2, K2-stash, K3, K4, K5 or K6)")
+    require(plain.count == 0, "renderD: a plain version ran")
+    require(tuple(primal.shape) == (n_pix, 3)
+            and bool(torch.isfinite(primal).all()),
+            "renderD: non-finite or misshapen image")
+    require(bool(torch.isfinite(t_tx).all()) and float(t_tx.abs().sum()) > 0,
+            "renderD: the tx tangent is non-finite or zero")
+    rel = (primal - frame).abs() / (frame.abs() + 1e-4)
+    close = float((rel < 1e-3).float().mean())
+    mean_rel = abs(float(primal.mean()) / float(frame.mean()) - 1.0)
+    require(close > 0.9 and mean_rel < 1e-2,
+            "renderD: the primal differs from renderC's frame")
+    rad = setup[0]["rad"]
+    _, t_s = renderd_tangent(integ, sc, setup, "rad", rad)  # rad * s
+    s_rel = rel_l1(t_s, primal)
+    require(s_rel < 1e-5, "renderD: the tangent along the radiance's scale "
+            "is not the primal")
+
+    # reverse mode, and the run-to-run spread of both modes (float atomics)
+    grads = renderd_grads(integ, sc, setup, w)
+    grads2 = renderd_grads(integ, sc, setup, w)
+    _, t_tx2 = renderd_tangent(integ, sc, setup, "tx", 1.0)
+    lhs = float((w.double() * t_tx.double()).sum())
+    lhs2 = float((w.double() * t_tx2.double()).sum())
+    rhs = float(grads["tx"])
+    spread = max(abs(lhs2 - lhs) / abs(lhs),
+                 abs(float(grads2["tx"]) - rhs) / abs(rhs),
+                 *(rel_l1(grads2[k], grads[k]) for k in grads))
+    adj = abs(lhs - rhs) / abs(rhs)
+    require(adj <= 1e-4 + spread, "renderD: sum(w * tangent_tx) != d/dtx "
+            "of sum(w * renderD) beyond 1e-4 + the run-to-run spread")
+    require(all(bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0
+                for g in grads.values()),
+            "renderD: a reverse gradient is non-finite or zero")
+    params, apply_params, _ = setup
+    _, g_f, _ = integ.loss_and_grad(
+        sc, params, apply_params, lambda rows, pix: (rows * w[pix]).sum(-1),
+        0, SEED)
+    fused = {k: rel_l1(grads[k], g_f[k]) for k in grads}
+    require(all(fused[k] < RENDERD_FUSED_RTOL[k] for k in fused),
+            "renderD: a reverse gradient differs from loss_and_grad's "
+            "beyond RENDERD_FUSED_RTOL")
+
+    # times and peak memory
+    torch.cuda.reset_peak_memory_stats(dev)
+    fwd_ms = wall_ms(lambda: renderd_tangent(integ, sc, setup, "tx", 1.0), 3)
+    fwd_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    torch.cuda.reset_peak_memory_stats(dev)
+    rev_ms = wall_ms(lambda: renderd_grads(integ, sc, setup, w), 3)
+    rev_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    rays = n_pix * (spp * (1 + 2 * DEPTH) + SPPE * 2 * (1 + 2 * DEPTH)
+                    + SPPSE * 3)
+    log("renderD", size=f"{W}x{H}", spp=spp, sppe=SPPE, sppse=SPPSE,
+        depth=DEPTH, primal_mean=f"{float(primal.mean()):.6f}",
+        frac_pixels_rel_below_1e3_vs_renderC=f"{close:.4f}",
+        mean_rel_vs_renderC=f"{mean_rel:.3e}",
+        tangent_tx_l1=f"{float(t_tx.abs().sum()):.4e}",
+        radiance_scale_tangent_rel_l1_vs_primal=f"{s_rel:.3e}",
+        adjoint_rel=f"{adj:.3e}", run_to_run_rel=f"{spread:.3e}",
+        grad_rel_l1_vs_loss_and_grad=",".join(
+            f"{k}:{v:.3e}" for k, v in fused.items()),
+        forward_ms=f"{fwd_ms:.2f}", forward_peak_gb=f"{fwd_gb:.3f}",
+        reverse_ms=f"{rev_ms:.2f}", reverse_peak_gb=f"{rev_gb:.3f}",
+        rays=rays, forward_mrays_per_s=f"{rays / fwd_ms / 1e3:.1f}",
+        reverse_mrays_per_s=f"{rays / rev_ms / 1e3:.1f}")
+    return launches
+
+
+def renderd_k5_phase(dev) -> dict:
+    """[renderD-K5]: renderD of the 1,292-triangle gallery (outside K2's
+    and K3's scope: the interior, the primary edges' two sequential Li
+    and the secondary edges all trace through K5) at 64x64, spp 4, sppe
+    4, sppse 4, ``PathTracer(2)``: the forward tangent along a sphere's
+    translation against the CPU's plain path, with the launch counts
+    read around the card's render; then timed at 256x256, spp 4."""
+    import torch
+    import psdr_jit_tpu_torch as pt
+    from psdr_jit_tpu_torch.integrator import base
+    from psdr_jit_tpu_torch.ops import _cuda
+
+    def sphere_tangent(device, size, sppe):
+        sc = pt.Scene.from_arrays(gallery_arrays(size, size, 4, 4, 2),
+                                  device=device)
+        sc.opts = pt.RenderOption(size, size, 4, sppe, sppe)
+        sc.configure()
+        mesh = sc.meshes[6]  # the first sphere
+        base_m = mesh.to_world_raw.clone()
+
+        def set_tx(v):
+            mesh.to_world_raw = base_m + torch.nn.functional.pad(
+                v.reshape(1, 1), (3, 0, 0, 3))
+
+        integ = pt.PathTracer(LARGE_DEPTH)
+        return sc, lambda: forward_mode(integ, sc, set_tx, torch.zeros(()),
+                                        1.0)
+
+    sc, run = sphere_tangent(dev, 64, 4)
+    f = sc.data.tri.p0.shape[0]
+    torch.cuda.synchronize()
+    with PlainCalls() as plain:
+        _cuda.reset_launches()
+        primal, tangent = run()
+        torch.cuda.synchronize()
+        launches = dict(_cuda.LAUNCHES)
+    _, run_cpu = sphere_tangent(torch.device("cpu"), 64, 4)
+    p_cpu, t_cpu = run_cpu()
+    n_lanes = 64 * 64 * 4
+    per_li = 1 + 2 * LARGE_DEPTH
+    k5_want = (-(-n_lanes // base.DIFF_CHUNK_LANES) * per_li
+               + -(-n_lanes // base.TRAIN_CHUNK_LANES) * 2 * per_li
+               + -(-n_lanes // base.SE_CHUNK_LANES) * 3)
+    p_rel, t_rel = rel_l1(primal.cpu(), p_cpu), rel_l1(tangent.cpu(), t_cpu)
+    _, run_256 = sphere_tangent(dev, 256, 4)
+    ms = wall_ms(run_256, 3)
+    log("renderD-K5", triangles=f, size="64x64", spp=4, sppe=4, sppse=4,
+        depth=LARGE_DEPTH, **{f"{k}_LAUNCHES": v for k, v in
+                              launches.items()},
+        K5_expected=k5_want, plain_calls=plain.count,
+        primal_rel_l1_vs_plain=f"{p_rel:.3e}",
+        tangent_rel_l1_vs_plain=f"{t_rel:.3e}",
+        tangent_l1=f"{float(t_cpu.abs().sum()):.4e}",
+        ms_256x256_spp4=f"{ms:.2f}")
+    require(launches["K5"] == k5_want and launches["K5"] > 0,
+            "renderD-K5: K5 launches != 5 an interior chunk + 10 a "
+            "primary-edge chunk + 3 a secondary-edge chunk")
+    require(all(v == 0 for k, v in launches.items() if k != "K5"),
+            "renderD-K5: another kernel ran (K2-pair among them)")
+    require(plain.count == 0, "renderD-K5: a plain version ran")
+    require(float(t_cpu.abs().sum()) > 0, "renderD-K5: zero tangent")
+    require(p_rel < 1e-4 and t_rel < 1e-3,
+            "renderD-K5: the render differs from the plain path")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2197,17 +2501,30 @@ def main() -> int:
     require(int((table.distrb.pmf > 0).sum()) > 0,
             "train-guided: an empty guiding table")
 
+    # ---- 7b. renderD: forward and reverse mode -----------------------------
+    renderd_64_phase(arrays, dev)
+    launches_d = renderd_phase(arrays, dev, img)
+
     # ---- 8. the large-scene path --------------------------------------------
     launches_l = large_scene_phases(kernels, dev, gen)
     k1_frame_phase(dev)
+    launches_dk5 = renderd_k5_phase(dev)
 
     kernels["K1"]["launches_step"] = launches_t["K1"]
+    kernels["K1"]["launches_renderD"] = launches_d["K1"]
+    kernels["K2-pair"]["launches_renderD"] = launches_d["K2-pair"]
+    kernels["K5"]["launches_renderD"] = launches_dk5["K5"]
     record = {"kernels": (
-        [{**kernels["K1"], "launches": launches["K1"] + launches_t["K1"]},
-         {**kernels["K2"], "launches": launches["K2"]}]
+        [{**kernels["K1"], "launches": launches["K1"] + launches_t["K1"]
+          + launches_d["K1"]},
+         {**kernels["K2"], "launches": launches["K2"]},
+         {**kernels["K2-pair"], "launches": launches_t["K2-pair"]
+          + launches_d["K2-pair"]}]
         + [{**kernels[k], "launches": launches_t[k]}
-           for k in ("K2-pair", "K2-stash", "K3", "K4")]
-        + [{**kernels[k], "launches": launches_l[k]} for k in ("K5", "K6")])}
+           for k in ("K2-stash", "K3", "K4")]
+        + [{**kernels["K5"], "launches": launches_l["K5"]
+            + launches_dk5["K5"]},
+           {**kernels["K6"], "launches": launches_l["K6"]}])}
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

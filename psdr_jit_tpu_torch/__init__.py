@@ -27,6 +27,7 @@ from .shape.mesh import Mesh
 from .bsdf.diffuse import DiffuseBSDF
 from .emitter.area import AreaLight
 from .sensor.perspective import PerspectiveCamera
+from .sensor.orthographic import OrthographicCamera
 from .scene.scene import Scene, SceneData
 from .integrator.base import Integrator
 from .integrator.path import PathTracer
@@ -34,6 +35,7 @@ from .interop import scene_to_arrays, params_to_torch
 
 __all__ = [
     "RenderOption", "Ray", "Intersection", "Sampler", "Mesh", "DiffuseBSDF",
-    "AreaLight", "PerspectiveCamera", "Scene", "SceneData", "Integrator",
-    "PathTracer", "scene_to_arrays", "params_to_torch",
+    "AreaLight", "PerspectiveCamera", "OrthographicCamera", "Scene",
+    "SceneData", "Integrator", "PathTracer", "scene_to_arrays",
+    "params_to_torch",
 ]

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..core.records import BSDFSample
+from ..ops.gather import gather_rows
 
 
 class BSDF:
@@ -41,7 +42,7 @@ def material_table(bsdfs, device):
 def _lanes(materials, slot):
     refl, two = materials
     j = torch.clamp(slot, min=0).long()
-    return refl[j], two[j], slot >= 0
+    return gather_rows(refl, j), two[j], slot >= 0
 
 
 def eval_dispatch(materials, slot, its, wo, active):

@@ -46,7 +46,8 @@ def diffuse_sample(two_side, wi, rnd3, active) -> BSDFSample:
 
 def diffuse_pdf(two_side, wi, wo, active):
     """Solid-angle density cos(theta_o) / pi of ``wo``; detached."""
-    cos_i, cos_o = _orient(wi[..., 2], wo[..., 2], two_side)
+    cos_i, cos_o = _orient(wi[..., 2].detach(), wo[..., 2].detach(),
+                           two_side)
     ok = active & (cos_i > 0.0) & (cos_o > 0.0)
     return torch.where(ok, INV_PI * cos_o, 0.0)
 

@@ -8,9 +8,24 @@ device and at every batch size.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+from torch.autograd import forward_ad
 
 _TINY = 1e-20
+
+
+@contextlib.contextmanager
+def detached():
+    """A block whose results carry no derivative: the JAX package's
+    ``stop_gradient`` seams. ``torch.no_grad`` stops reverse mode only;
+    the tangents of ``torch.autograd.forward_ad`` flow through it, so the
+    block also turns forward-mode gradients off. A view (a slice, a
+    reshape, ``expand``) of a tensor with a tangent keeps its tangent even
+    here: detach such a tensor before a view of it leaves the block."""
+    with torch.no_grad(), forward_ad._set_fwd_grad_enabled(False):
+        yield
 
 
 def dot(a, b):

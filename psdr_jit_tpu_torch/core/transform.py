@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from .math import cross, normalize
+
 
 def translate(v):
     m = torch.eye(4, dtype=torch.float32)
@@ -37,6 +39,24 @@ def perspective(fov_deg, near, far):
     m[2, 3] = -near * far * recip
     m[3, 2] = 1.0
     return m
+
+
+def orthographic(near, far):
+    """Orthographic depth remap (reference transform.h:73-76)."""
+    return (scale([1.0, 1.0, 1.0 / (far - near)])
+            @ translate([0.0, 0.0, -near]))
+
+
+def look_at(origin, target, up):
+    """Camera-to-world matrix whose columns are ``[left, new_up, dir,
+    origin]`` (reference transform.h:85-103)."""
+    origin, target, up = (torch.as_tensor(x, dtype=torch.float32)
+                          for x in (origin, target, up))
+    dir_ = normalize(target - origin)
+    left = normalize(cross(up, dir_))
+    new_up = cross(dir_, left)
+    m = torch.stack([left, new_up, dir_, origin], dim=-1)
+    return torch.cat([m, torch.tensor([[0.0, 0.0, 0.0, 1.0]])], dim=0)
 
 
 def transform_pos(m, v):

@@ -1,16 +1,27 @@
 """Integrator base (counterpart of ``psdr_jit_tpu/integrator/base.py``):
-the interior render loop of ``renderC``, the primary-edge boundary term
-and the ``loss_and_grad`` entry of the training step
-(``integrator/fused.py``). The secondary-edge term is
-``integrator/edge.py``'s mixin."""
+the interior render loop of ``renderC`` and ``renderD``, the primary-edge
+boundary term, the derivative-only edge images of ``renderD`` and the
+``loss_and_grad`` entry of the training step (``integrator/fused.py``).
+The secondary-edge term is ``integrator/edge.py``'s mixin.
+
+``renderD`` is differentiated with torch's own two modes: reverse mode
+(``torch.autograd``), in which each chunk of the interior and edge passes
+runs under ``torch.utils.checkpoint`` so that one chunk's graph is held at
+a time (the JAX package's ``_remat``), and forward mode
+(``torch.autograd.forward_ad``), which holds no graph. Its derivative
+seams are the JAX package's ``stop_gradient``s: ``.detach()`` on a tensor
+and :func:`core.math.detached` around a block.
+"""
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.sampler import Sampler
-from ..core.math import safe_div, scrub_nonfinite
+from ..core.math import detached, safe_div, scrub_nonfinite
 from ..ops.image import interior_average, splat_add_derivative_only
+from ..scene.scene import tree_map
 from ..sensor.sensor import sample_primary_edge
 
 # Sampler stream salts of the three estimators (reference scene.cpp:52).
@@ -49,9 +60,20 @@ TRAIN_CHUNK_LANES = 1 << 22
 # fewer chunks launch less, and 2^22 is within 3.2% of the fastest at
 # half its memory.
 SE_CHUNK_LANES = 1 << 22
-
-_NOT_PORTED = ("is not ported to psdr_jit_tpu_torch yet: it follows in a "
-               "later slice of the port (ROADMAP.md, port queue)")
+# Sample lanes per chunk of renderD's interior pass, the attached general
+# Li (PathTracer._li_general with diff), in both modes; under reverse mode
+# each chunk is checkpointed, and its graph is held while the backward
+# sweep recomputes it. On an NVIDIA H100 80GB HBM3 at 700.00 W (its
+# nvidia-smi name and power limit) renderD of the 512x512 spp-32
+# sppe-32 sppse-32 box took 1043 / 724 / 392 / 384 ms in forward mode and
+# 1199 / 708 / 616 / 605 ms in reverse mode (render and backward) at 2^20
+# / 2^21 / 2^22 / 2^23 lanes per chunk, for a reverse-mode peak of 4.3 /
+# 4.4 / 8.8 / 17.6 GB (PERF.md; scripts/torch_profile_render.py
+# --renderD; a later run read 899 / 697 / 457 / 394 and 1530 / 775 / 626
+# / 600 ms): a chunk costs a fixed count of small launches that the host
+# issues slower than the card runs them, and 2^22 is within 2-16% of 2^23
+# in forward mode and 2-4% in reverse mode at half its memory.
+DIFF_CHUNK_LANES = 1 << 22
 
 
 def interior_chunk_lanes(sd) -> int:
@@ -88,15 +110,18 @@ def interior_lane_setup(width: int, height: int, spp: int, seed: int,
 
 
 def interior_chunk(integrator, sd, opts, sensor_id: int, seed: int,
-                   spp: int, diff: bool, pix_chunk):
+                   spp: int, diff: bool, pix_chunk, vjp_ok: bool = False):
     """Render one pixel chunk of the interior estimator -> (m, 3); with
     ``diff`` the rows are attached to ``sd`` (the camera pose and every
-    table the attached Li reads)."""
+    table the attached Li reads). ``vjp_ok``: the caller pulls the rows
+    back in reverse mode only (the training step), so the attached Li may
+    take K3 and K4 (``PathTracer.Li``)."""
     m, sampler, samples = interior_lane_setup(opts.width, opts.height, spp,
                                               seed, pix_chunk)
     ray = sd.sensors[sensor_id].sample_primary_ray(samples, diff=diff)
     active = torch.ones(m * spp, dtype=torch.bool, device=pix_chunk.device)
-    value = scrub_nonfinite(integrator.Li(sd, sampler, ray, active, diff))
+    value = scrub_nonfinite(integrator.Li(sd, sampler, ray, active, diff,
+                                          vjp_ok=vjp_ok))
     return interior_average(value, m, spp)
 
 
@@ -116,27 +141,86 @@ def pad_pixel_chunks(pix, spp: int, chunk_lanes: int):
     return pix_chunks, row_valid
 
 
-def _chunked_splat_sum(chunk_vals, n_samples: int, n_pix: int,
-                       chunk_lanes: int, device, ct):
+def builds_graph(sd) -> bool:
+    """Whether a render of ``sd`` records a reverse-mode graph: grad mode
+    is on and some tensor of ``sd`` requires grad. Forward mode alone
+    (``torch.autograd.forward_ad``) records none, and is never
+    checkpointed."""
+    if not torch.is_grad_enabled():
+        return False
+    flags = []
+
+    def note(t):
+        flags.append(t.requires_grad)
+        return t
+
+    tree_map(note, sd)
+    return any(flags)
+
+
+def _run_chunk(fn, arg, graph: bool):
+    """``fn(arg)``, under ``torch.utils.checkpoint`` where it records a
+    graph: the chunk's graph is dropped after the forward and rebuilt, its
+    kernels launched again, when the backward sweep reaches it."""
+    if not graph:
+        return fn(arg)
+    return checkpoint(fn, arg, use_reentrant=False, preserve_rng_state=False)
+
+
+def edge_lane_chunks(n_samples: int, chunk_lanes: int, device):
+    """The lanes of an edge pass, ``chunk_lanes`` at a time: the one chunk
+    geometry of its pullback (:func:`chunked_splat_pullback`, the training
+    step) and of its image (:func:`chunked_splat_image`, ``renderD``)."""
+    for s in range(0, n_samples, chunk_lanes):
+        yield torch.arange(s, min(s + chunk_lanes, n_samples),
+                           dtype=torch.int64, device=device)
+
+
+def chunked_splat_pullback(chunk_vals, n_samples: int, n_pix: int,
+                           chunk_lanes: int, device, ct):
     """Pull the image cotangent ``ct`` (n_pix, 3) back through the splat
     of edge-sample chunks into a derivative-only image, chunk by chunk as
     each is built, so one chunk's graph is held at a time.
     ``chunk_vals(lane)`` -> ``(values (chunk, 3), idx (chunk,))`` with
     ``idx = -1`` for dropped lanes."""
-    for s in range(0, n_samples, chunk_lanes):
-        lane = torch.arange(s, min(s + chunk_lanes, n_samples),
-                            dtype=torch.int64, device=device)
+    for lane in edge_lane_chunks(n_samples, chunk_lanes, device):
         values, idx = chunk_vals(lane)
         part = splat_add_derivative_only(values, idx, n_pix)
         if part.requires_grad:
             part.backward(ct)
 
 
+def chunked_splat_image(chunk_vals, n_samples: int, n_pix: int,
+                        chunk_lanes: int, device, graph: bool):
+    """The derivative-only image (n_pix, 3) of the edge-sample chunks of
+    ``chunk_vals`` (as :func:`chunked_splat_pullback`'s): zero in value,
+    the sum of the chunks' splats in derivative. With ``graph`` each chunk
+    is checkpointed (the JAX package's ``_chunked_splat_sum``)."""
+    img = torch.zeros((n_pix, 3), dtype=torch.float32, device=device)
+
+    def part(lane):
+        return splat_add_derivative_only(*chunk_vals(lane), n_pix)
+
+    for lane in edge_lane_chunks(n_samples, chunk_lanes, device):
+        img = img + _run_chunk(part, lane, graph)
+    return img
+
+
 class Integrator:
     """Base class; subclasses implement ``Li``."""
 
-    def Li(self, sd, sampler, ray, active, diff: bool = False):
+    def Li(self, sd, sampler, ray, active, diff: bool = False,
+           vjp_ok: bool = False):
         raise NotImplementedError
+
+    def Li_pair(self, sd, sampler, ray_n, ray_p, active):
+        """Detached ``Li(ray_n) - Li(ray_p)`` for the primary-edge pass
+        (reference integrator.cpp:185-186): two sequential detached Li
+        calls, in the reference's draw order (JAX base.py:403-412); an
+        integrator with a pair kernel overrides it."""
+        li_n = self.Li(sd, sampler, ray_n, active)
+        li_p = self.Li(sd, sampler, ray_p, active)
+        return li_n - li_p
 
     @staticmethod
     def _norm_args(scene, seed, pix_id, batch_pix):
@@ -160,17 +244,65 @@ class Integrator:
         return self._render_interior(scene.data, scene.opts, sensor_id,
                                      seed, pix_id)
 
-    def renderD(self, scene, *args, **kwargs):
-        raise NotImplementedError("renderD (forward-mode interior, then the "
-                                  "primary and secondary edge terms) "
-                                  + _NOT_PORTED)
+    def renderD(self, scene, sensor_id: int = 0, seed: int = -1,
+                pix_id=None, batch_pix=None):
+        """Differentiable render (reference Integrator::renderD):
+        ``(n_pix, 3)`` float32 on the scene's device, with ``renderC``'s
+        argument conventions. The scene compile runs again
+        (``scene.configure_data()``), so the image is attached to every
+        parameter set on the scene objects as a tensor that requires grad
+        or carries a forward-mode tangent.
+
+        Its value is the interior term through the attached Li; to it are
+        added the derivative-only primary-edge (``sppe > 0``) and
+        secondary-edge (``sppse > 0``, guided by ``self.warpper``'s table
+        of ``sensor_id`` where there is one) images, zero in value. The
+        edge images are built over the full grid; ``pix_id`` takes their
+        rows. Reverse mode: ``torch.autograd.grad`` of any scalar of the
+        image. Forward mode: parameters set as dual tensors inside
+        ``torch.autograd.forward_ad.dual_level()``; the image's tangent
+        (``unpack_dual(img).tangent``) is the gradient image."""
+        seed, pix_id = self._norm_args(scene, seed, pix_id, batch_pix)
+        sd = scene.configure_data()
+        opts = scene.opts
+        graph = builds_graph(sd)
+        img = self._render_interior(sd, opts, sensor_id, seed, pix_id,
+                                    diff=True)
+        dev = sd.tri.p0.device
+        n_pix = opts.num_pixels
+        edges = []
+        if opts.sppe > 0 and sd.sensors[sensor_id].edge_info is not None:
+            edges.append((self._primary_edge_vals(sd, opts, sensor_id, seed),
+                          n_pix * opts.sppe, TRAIN_CHUNK_LANES))
+        if opts.sppse > 0 and sd.sec_edge is not None:
+            vals = self.secondary_edge_vals(sd, opts, sensor_id, seed)
+            if vals is not None:
+                edges.append((vals, n_pix * opts.sppse, SE_CHUNK_LANES))
+        for vals, n_samples, chunk_lanes in edges:
+            edge_img = chunked_splat_image(vals, n_samples, n_pix,
+                                           chunk_lanes, dev, graph)
+            if pix_id is not None:
+                edge_img = edge_img[_pixels(pix_id, dev)]
+            img = img + edge_img
+        return img
+
+    def secondary_edge_vals(self, sd, opts, sensor_id: int, seed: int):
+        """``chunk_vals(lane)`` of the secondary-edge term (as
+        :func:`chunked_splat_pullback` takes it), or None: an integrator
+        without the term (no :class:`edge.SecondaryEdgeMixin`) keeps this
+        default, and its renders and training step leave the term out."""
+        return None
 
     def render_secondary_edges(self, sd, opts, sensor_id: int, seed: int,
                                ct):
-        """The secondary-edge term's pullback of ``ct``; an integrator
-        without the term (no :class:`edge.SecondaryEdgeMixin`) keeps this
-        default, which the training step leaves out."""
-        return None
+        """Pull the image cotangent ``ct`` (n_pix, 3) through the
+        derivative-only secondary-edge image (path.cpp:274-294) into
+        ``sd``'s attached tables, ``SE_CHUNK_LANES`` lanes at a time."""
+        vals = self.secondary_edge_vals(sd, opts, sensor_id, seed)
+        if vals is not None:
+            chunked_splat_pullback(vals, opts.num_pixels * opts.sppse,
+                                   opts.num_pixels, SE_CHUNK_LANES,
+                                   sd.tri.p0.device, ct)
 
     def loss_and_grad(self, scene, params, apply_params, pixel_loss,
                       sensor_id: int = 0, seed: int = -1, **kwargs):
@@ -185,40 +317,46 @@ class Integrator:
         return _fused(self, scene, params, apply_params, pixel_loss,
                       sensor_id, seed, **kwargs)
 
-    def _render_interior(self, sd, opts, sensor_id, seed, pix_id):
+    def _render_interior(self, sd, opts, sensor_id, seed, pix_id,
+                         diff: bool = False):
+        """The interior term over ``pix_id`` (all pixels when None):
+        detached in ``CHUNK_LANES``/``GENERAL_CHUNK_LANES``-lane chunks,
+        or (``diff``) attached in ``DIFF_CHUNK_LANES``-lane chunks, each
+        checkpointed where the render records a graph."""
         dev = sd.tri.p0.device
-        if pix_id is None:
-            pix = torch.arange(opts.num_pixels, dtype=torch.int64, device=dev)
-        else:
-            pix = torch.as_tensor(pix_id, device=dev).to(torch.int64)
+        pix = (torch.arange(opts.num_pixels, dtype=torch.int64, device=dev)
+               if pix_id is None else _pixels(pix_id, dev))
         n_pix = pix.shape[0]
-        out = torch.zeros((n_pix, 3), dtype=torch.float32, device=dev)
         spp = opts.spp
-        if spp == 0:
-            return out
-        step = max(interior_chunk_lanes(sd) // spp, 1)
-        for s in range(0, n_pix, step):
-            out[s:s + step] = interior_chunk(self, sd, opts, sensor_id, seed,
-                                             spp, False, pix[s:s + step])
-        return out
+        if spp == 0 or n_pix == 0:
+            return torch.zeros((n_pix, 3), dtype=torch.float32, device=dev)
+        lanes = DIFF_CHUNK_LANES if diff else interior_chunk_lanes(sd)
+        step = max(lanes // spp, 1)
+        graph = diff and builds_graph(sd)
+
+        def chunk(pix_chunk):
+            return interior_chunk(self, sd, opts, sensor_id, seed, spp, diff,
+                                  pix_chunk)
+
+        return torch.cat([_run_chunk(chunk, pix[s:s + step], graph)
+                          for s in range(0, n_pix, step)])
 
     # primary-edge boundary term (integrator.cpp:179-198)
-    def _render_primary_edges(self, sd, opts, sensor_id: int, seed: int, ct):
-        """Pull the image cotangent ``ct`` through the derivative-only
-        primary-edge image into ``sd``'s attached tables (the edge
-        endpoints). Stream ``seed + STREAM_PRIMARY``: one draw for the edge
-        sample, then ``Li_pair`` from ``sampler.cnt``."""
+    def _primary_edge_vals(self, sd, opts, sensor_id: int, seed: int):
+        """``chunk_vals(lane)`` of the primary-edge term (as
+        :func:`chunked_splat_pullback` takes it), attached to ``sd``'s
+        edge endpoints. Stream ``seed + STREAM_PRIMARY``: one draw for the
+        edge sample, then ``Li_pair`` from ``sampler.cnt``."""
         sensor = sd.sensors[sensor_id]
         if sensor.edge_info is None:
             raise ValueError("no primary edges configured: set sppe > 0 "
                              "before the scene compile")
-        n_samples = opts.num_pixels * opts.sppe
 
         def chunk_vals(lane):
             sampler = Sampler(seed + STREAM_PRIMARY, lane)
             es = sample_primary_edge(sensor, sampler.next_1d())
             valid = es.idx >= 0
-            with torch.no_grad():
+            with detached():
                 delta = self.Li_pair(sd, sampler, es.ray_n, es.ray_p, valid)
             value = es.x_dot_n[..., None] * safe_div(delta, es.pdf[..., None])
             value = scrub_nonfinite(value)
@@ -227,5 +365,17 @@ class Integrator:
             value = torch.where(valid[..., None], value, 0.0)
             return value, torch.where(valid, es.idx, -1)
 
-        _chunked_splat_sum(chunk_vals, n_samples, opts.num_pixels,
-                           TRAIN_CHUNK_LANES, sd.tri.p0.device, ct)
+        return chunk_vals
+
+    def _render_primary_edges(self, sd, opts, sensor_id: int, seed: int, ct):
+        """Pull the image cotangent ``ct`` through the derivative-only
+        primary-edge image into ``sd``'s attached tables (the edge
+        endpoints), ``TRAIN_CHUNK_LANES`` lanes at a time."""
+        chunked_splat_pullback(
+            self._primary_edge_vals(sd, opts, sensor_id, seed),
+            opts.num_pixels * opts.sppe, opts.num_pixels, TRAIN_CHUNK_LANES,
+            sd.tri.p0.device, ct)
+
+
+def _pixels(pix_id, device):
+    return torch.as_tensor(pix_id, device=device).to(torch.int64)

@@ -22,13 +22,12 @@ from __future__ import annotations
 import torch
 
 from ..core.distribution import HyperCubeDistribution
-from ..core.math import (bilinear, cross, dot, norm, normalize,
+from ..core.math import (bilinear, cross, detached, dot, norm, normalize,
                          ray_intersect_triangle, safe_div, scrub_nonfinite)
 from ..core.sampler import Sampler
 from ..core.types import EPSILON, SHADOW_EPSILON, Ray
 from ..ops.gather import gather_rows
-from . import base as _base
-from .base import STREAM_SECONDARY, _chunked_splat_sum
+from .base import STREAM_SECONDARY
 
 def eval_secondary_edge(sd, sensor, sample3, diff: bool, u_coin=None):
     """``(pixel_idx, value)`` of the boundary samples ``sample3`` (N, 3).
@@ -40,7 +39,7 @@ def eval_secondary_edge(sd, sensor, sample3, diff: bool, u_coin=None):
     velocity factor) and every pixel index is -1.
     ``u_coin``: the edge table's alias coin, where it needs one."""
     bss = sd.sample_boundary_segment_direct(sample3, u_coin=u_coin)
-    with torch.no_grad():
+    with detached():
         valid = bss.is_valid
         p0, p2 = bss.p0.detach(), bss.p2
         dir_ = normalize(p2 - p0)
@@ -60,7 +59,7 @@ def eval_secondary_edge(sd, sensor, sample3, diff: bool, u_coin=None):
     camera_ray = sensor.sample_primary_ray(sds.q, diff=diff)
     if diff:
         its_c = sd.ray_intersect(camera_ray, valid, mode="solid")
-    with torch.no_grad():
+    with detached():
         if not diff:
             its_c = sd.ray_intersect(camera_ray, valid)
         valid = (valid & its_c.valid
@@ -165,7 +164,7 @@ class SecondaryEdgeMixin:
         grid, spp_cell = reso[:3], reso[3]
         num_cells = grid[0] * grid[1] * grid[2]
         dev = sd.tri.p0.device
-        with torch.no_grad():
+        with detached():
             cell_idx = torch.arange(num_cells * spp_cell, dtype=torch.int64,
                                     device=dev) // spp_cell
             shape = HyperCubeDistribution(res=grid)
@@ -181,13 +180,13 @@ class SecondaryEdgeMixin:
         self.warpper[sensor_id] = HyperCubeDistribution.init(
             grid, result).with_alias()
 
-    def render_secondary_edges(self, sd, opts, sensor_id: int, seed: int,
-                               ct):
-        """Pull the image cotangent ``ct`` (n_pix, 3) through the
-        derivative-only secondary-edge image (path.cpp:274-294) into
-        ``sd``'s attached tables, ``base.SE_CHUNK_LANES`` lanes at a time. Each
-        lane draws ``next_nd(3)``, then the guiding table's coin where it
-        needs one, the edge table's, and the emitter table's."""
+    def secondary_edge_vals(self, sd, opts, sensor_id: int, seed: int):
+        """``chunk_vals(lane)`` of the derivative-only secondary-edge term
+        (path.cpp:274-294), attached to ``sd``'s tables: the training
+        step pulls it back (``render_secondary_edges``), ``renderD``
+        splats it into an image. Each lane draws ``next_nd(3)``, then the
+        guiding table's coin where it needs one, the edge table's, and
+        the emitter table's."""
         warp = self.warpper.get(sensor_id)
         sensor = sd.sensors[sensor_id]
 
@@ -211,6 +210,4 @@ class SecondaryEdgeMixin:
                 value = value / float(opts.sppse)
             return value, idx
 
-        _chunked_splat_sum(chunk_vals, opts.num_pixels * opts.sppse,
-                           opts.num_pixels, _base.SE_CHUNK_LANES,
-                           sd.tri.p0.device, ct)
+        return chunk_vals

@@ -7,9 +7,10 @@ cotangent of a chunk comes from that chunk's own rows. The step:
 1. builds the scene data from the parameters once, on the CPU (the scene
    compile, ``Scene.configure_data``), and makes detached leaves of its
    float tensors that carry gradients;
-2. per interior chunk: runs the attached forward (K2 stash, K3), takes the
-   loss and its cotangent ``g``, and calls ``backward(g)`` into the leaves
-   (K4), holding one chunk's graph at a time;
+2. per interior chunk: runs the attached forward (K2 stash and K3 on the
+   megakernels' scene class, the attached general Li on any other), takes
+   the loss and its cotangent ``g``, and calls ``backward(g)`` into the
+   leaves (K4 on that class), holding one chunk's graph at a time;
 3. pulls the full-frame ``g`` through the derivative-only primary-edge pass
    (K2 pair) and the derivative-only secondary-edge pass (``sppse > 0``:
    its visibility, receiver and camera rays through the closest hit, K1
@@ -65,7 +66,7 @@ def _interior_scan(integrator, sd, opts, sensor_id: int, seed: int,
     images, gs = [], []
     for pix_chunk, valid in zip(pix_chunks, row_valid):
         out = interior_chunk(integrator, sd, opts, sensor_id, seed, opts.spp,
-                             True, pix_chunk)
+                             True, pix_chunk, vjp_ok=True)
         rows = out.detach().requires_grad_()
         loss_c = torch.where(valid, pixel_loss(rows, pix_chunk), 0.0).sum()
         (g,) = torch.autograd.grad(loss_c, rows)
@@ -80,13 +81,11 @@ def _interior_scan(integrator, sd, opts, sensor_id: int, seed: int,
 def _edge_pullbacks(integrator, sd, opts, sensor_id: int, seed: int, g_img):
     """Pull the image cotangent through the derivative-only edge passes
     into ``sd``'s leaves (integrator.cpp:179-198, path.cpp:274-294); an
-    integrator without the secondary-edge term keeps the base class's
-    ``render_secondary_edges``, and the step leaves the term out."""
+    integrator without the secondary-edge term has no
+    ``secondary_edge_vals``, and the step leaves the term out."""
     if opts.sppe > 0 and sd.sensors[sensor_id].edge_info is not None:
         integrator._render_primary_edges(sd, opts, sensor_id, seed, ct=g_img)
-    has_se = (type(integrator).render_secondary_edges
-              is not _base.Integrator.render_secondary_edges)
-    if opts.sppse > 0 and sd.sec_edge is not None and has_se:
+    if opts.sppse > 0 and sd.sec_edge is not None:
         integrator.render_secondary_edges(sd, opts, sensor_id, seed, g_img)
 
 

@@ -10,8 +10,8 @@ render a scene that was built with it. :func:`params_to_torch` does the
 same for a training step's parameters, so both packages can take the same
 step.
 
-Scope: constant ``DiffuseBSDF``s, ``AreaLight``s and field-of-view
-``PerspectiveCamera``s; anything else raises.
+Scope: constant ``DiffuseBSDF``s, ``AreaLight``s, field-of-view
+``PerspectiveCamera``s and ``OrthographicCamera``s; anything else raises.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 _TRANSFORMS = ("to_world_left", "to_world_raw", "to_world_right")
+_CAMERAS = ("PerspectiveCamera", "OrthographicCamera")
 
 
 def _f32(x):
@@ -72,13 +73,17 @@ def scene_to_arrays(scene) -> dict:
         out[f"mesh.{i}.bsdf_id"] = np.asarray(int(m.bsdf_id), np.int64)
         out[f"mesh.{i}.emitter_id"] = np.asarray(int(m.emitter_id), np.int64)
     for s, cam in enumerate(scene.sensors):
-        if (type(cam).__name__ != "PerspectiveCamera"
+        kind = type(cam).__name__
+        if (kind not in _CAMERAS
                 or getattr(cam, "use_intrinsic", False)):
             raise NotImplementedError(
-                f"sensor {s} ({type(cam).__name__}): only field-of-view "
-                "PerspectiveCameras carry over")
+                f"sensor {s} ({kind}): only field-of-view "
+                "PerspectiveCameras and OrthographicCameras carry over")
+        if kind != "PerspectiveCamera":  # no key: a perspective camera
+            out[f"sensor.{s}.kind"] = np.asarray(kind)
         out[f"sensor.{s}.fov_near_far"] = np.asarray(
-            [cam.fov, cam.near_clip, cam.far_clip], np.float64)
+            [getattr(cam, "fov", 0.0), cam.near_clip, cam.far_clip],
+            np.float64)
         for name in _TRANSFORMS:
             out[f"sensor.{s}.{name}"] = _f32(getattr(cam, name))
     return out
@@ -87,8 +92,8 @@ def scene_to_arrays(scene) -> dict:
 def scene_from_arrays(arrays, device="cuda"):
     """``{name: array}`` (or a loaded ``.npz``) -> this package's Scene on
     ``device`` (the card unless the caller asks for the CPU)."""
-    from . import (AreaLight, DiffuseBSDF, Mesh, PerspectiveCamera,
-                   RenderOption, Scene)
+    from . import (AreaLight, DiffuseBSDF, Mesh, OrthographicCamera,
+                   PerspectiveCamera, RenderOption, Scene)
 
     a = {k: np.asarray(arrays[k]) for k in arrays.keys()}
     sc = Scene(device=device)
@@ -97,7 +102,11 @@ def scene_from_arrays(arrays, device="cuda"):
     n_meshes, n_bsdfs, n_emitters, n_sensors = (int(v) for v in a["counts"])
     for s in range(n_sensors):
         fov, near, far = (float(v) for v in a[f"sensor.{s}.fov_near_far"])
-        cam = PerspectiveCamera(fov, near, far)
+        kind = str(a.get(f"sensor.{s}.kind", "PerspectiveCamera"))
+        if kind not in _CAMERAS:
+            raise NotImplementedError(f"sensor {s}: {kind}")
+        cam = (OrthographicCamera(near, far) if kind == "OrthographicCamera"
+               else PerspectiveCamera(fov, near, far))
         for name in _TRANSFORMS:
             setattr(cam, name, _tensor(a[f"sensor.{s}.{name}"]))
         sc.add_Sensor(cam)

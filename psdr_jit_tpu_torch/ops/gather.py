@@ -26,10 +26,15 @@ BINCOUNT_MAX_ROWS = 512
 
 class _GatherRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, table, idx):
-        ctx.save_for_backward(idx)
-        ctx.rows = table.shape[0]
+    def forward(table, idx):
         return table.index_select(0, idx)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        table, idx = inputs
+        ctx.save_for_backward(idx)
+        ctx.save_for_forward(idx)
+        ctx.rows = table.shape[0]
 
     @staticmethod
     def backward(ctx, g):
@@ -41,6 +46,12 @@ class _GatherRows(torch.autograd.Function):
             out = torch.bincount(flat, g.reshape(-1), minlength=rows * cols)
             return out.reshape(rows, cols).to(g.dtype), None
         return g.new_zeros((rows, cols)).index_add_(0, idx, g), None
+
+    @staticmethod
+    def jvp(ctx, table_t, idx_t):
+        """Forward mode: the tangent's rows."""
+        (idx,) = ctx.saved_tensors
+        return table_t.index_select(0, idx)
 
 
 def gather_rows(table, idx):

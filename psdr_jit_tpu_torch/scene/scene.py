@@ -43,7 +43,7 @@ import torch
 
 from ..core.types import (EDGE_EPSILON, EPSILON, RenderOption, Ray, Frame,
                           Intersection)
-from ..core.math import (bilinear, dot, norm, normalize,
+from ..core.math import (bilinear, detached, dot, norm, normalize,
                          ray_intersect_triangle, safe_div, safe_sqrt,
                          sign_eps, squared_norm)
 from ..core.distribution import (SEARCHSORTED_DENSE_MAX,
@@ -137,11 +137,12 @@ class SceneData:
         detached; ``mode`` says how the hit is rebuilt from it:
 
         * ``"path"``: the path formulation. The hit point is ``p0 + e1*u +
-          e2*v`` at the payload's barycentrics and ``t`` its distance from
-          the ray origin;
+          e2*v`` at the payload's barycentrics, ``t`` its distance from
+          the ray origin, and ``J`` the material-form Jacobian
+          ``face_area / detach(face_area)`` (1 in value);
         * ``"solid"``: the solid-angle formulation. Moller-Trumbore runs
           again, differentiably, on the hit triangle's rows and the ray:
-          ``p = o + t d``, ``wi`` from ``-d``.
+          ``p = o + t d``, ``wi`` from ``-d``, ``J = 1``.
 
         The rows are gathered with ``ops.gather.gather_rows``, so a hit
         point carries the gradients of the triangle tables (and, in solid
@@ -164,10 +165,13 @@ class SceneData:
             dirv = p - ray.o
             t = norm(dirv)
             wi_dir = -(dirv * safe_div(torch.ones_like(t), t)[..., None])
+            face_area = rows(tri.face_area[:, None])[..., 0]
+            jac = safe_div(face_area, face_area.detach())
         elif mode == "solid":
             uv, t = ray_intersect_triangle(p0, e1, e2, ray)
             p = ray.o + ray.d * t[..., None]
             wi_dir = -ray.d
+            jac = torch.ones_like(t)
         else:
             raise ValueError(f"mode {mode!r}: 'path' or 'solid'")
         n0 = rows(tri.n0)
@@ -179,7 +183,7 @@ class SceneData:
         frame = Frame.from_normal(sh_n)
         return Intersection(
             valid=valid, t=t, p=p, n=face_normal, sh_frame=frame,
-            wi=frame.to_local(wi_dir), J=torch.ones_like(t), bc=uv,
+            wi=frame.to_local(wi_dir), J=jac, bc=uv,
             tri_id=tri_id, mesh_id=rows(self.face_mesh_id))
 
     # -- per-lane emitter and BSDF dispatch (scene.py:236-270) --------------
@@ -302,7 +306,7 @@ class SceneData:
 
         p0_edge, e1 = rows(se.p0), rows(se.e1)
         p0 = p0_edge + e1 * u0[..., None]
-        with torch.no_grad():
+        with detached():
             n0, n1, p2_third = rows(se.n0), rows(se.n1), rows(se.p2)
             is_boundary = rows(se.is_boundary)
             e1_det = e1.detach()

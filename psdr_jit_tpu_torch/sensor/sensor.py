@@ -15,7 +15,8 @@ from typing import Optional
 import torch
 
 from ..core.types import Ray, EPSILON, EDGE_EPSILON
-from ..core.math import dot, normalize, safe_div, safe_sqrt, squared_norm
+from ..core.math import (detached, dot, normalize, safe_div, safe_sqrt,
+                         squared_norm)
 from ..core.distribution import DiscreteDistribution
 from ..core.records import SensorDirectSample
 from ..core import transform as xf
@@ -50,7 +51,7 @@ class PrimaryEdgeSample:
 
 @dataclasses.dataclass
 class SensorData:
-    """Configured perspective camera."""
+    """Configured camera, perspective or (``ortho``) orthographic."""
 
     sample_to_camera: torch.Tensor  # (4, 4)
     to_world: torch.Tensor          # (4, 4), attached pose
@@ -61,14 +62,22 @@ class SensorData:
     edge_info: Optional[PrimaryEdgeInfo] = None
     width: int = 0
     height: int = 0
+    ortho: bool = False
 
     def sample_primary_ray(self, samples, diff: bool = True) -> Ray:
         """Camera rays through sample-space points ``samples`` (..., 2)
-        (perspective.cpp:160-178). The camera-space direction is detached;
-        the pose ``to_world`` carries gradients when ``diff``."""
+        (perspective.cpp:160-178): from the eye, or (``ortho``) parallel
+        rays along the view axis from the near plane. The camera-space
+        direction is detached; the pose ``to_world`` carries gradients
+        when ``diff``."""
         to_world = self.to_world if diff else self.to_world.detach()
         p3 = torch.cat([samples, torch.zeros_like(samples[..., :1])], dim=-1)
         near_p = xf.transform_pos(self.sample_to_camera.detach(), p3)
+        if self.ortho:
+            d_cam = torch.zeros_like(near_p)
+            d_cam[..., 2] = 1.0
+            return Ray(xf.transform_pos(to_world, near_p),
+                       xf.transform_dir(to_world, d_cam))
         d_cam = normalize(near_p).detach()
         o = xf.transform_pos(to_world, torch.zeros_like(near_p))
         d = xf.transform_dir(to_world, d_cam)
@@ -78,7 +87,7 @@ class SensorData:
         """Projection of world points ``p`` (..., 3) to the sensor: sample
         position, pixel (-1 off screen) and importance ``W_e``
         (perspective.cpp:181-197), detached."""
-        with torch.no_grad():
+        with detached():
             q = xf.transform_pos(self.world_to_sample, p)[..., :2]
             iq = torch.floor(torch.stack([q[..., 0] * float(self.width),
                                           q[..., 1] * float(self.height)],
@@ -87,6 +96,18 @@ class SensorData:
                         & (iq[..., 1] >= 0) & (iq[..., 1] < self.height))
             pixel_idx = torch.where(is_valid,
                                     iq[..., 1] * self.width + iq[..., 0], -1)
+            if self.ortho:
+                # Parallel projection: |d^2 s / dA| is the constant
+                # 1 / A_plane, with no 1 / dist^2 falloff and no ray
+                # obliquity. The reference reuses the perspective formula
+                # here (orthographic.cpp:185-190), which is wrong for an
+                # orthographic camera; the JAX package knowingly differs
+                # from it, and so does this port (JAX sensor.py:107-114).
+                return SensorDirectSample(
+                    q=q, pixel_idx=pixel_idx,
+                    sensor_val=self.inv_area.detach().expand(
+                        pixel_idx.shape),
+                    is_valid=is_valid)
             dir_ = p - self.camera_pos
             dist2 = squared_norm(dir_)
             dir_ = dir_ * safe_div(1.0, safe_sqrt(dist2))[..., None]
@@ -131,11 +152,16 @@ def sample_primary_edge(sensor: SensorData, sample1) -> PrimaryEdgeSample:
 
 
 def build_primary_edges(camera_pos, world_to_sample, mesh_list,
-                        mesh_datas) -> Optional[PrimaryEdgeInfo]:
+                        mesh_datas, camera_dir=None
+                        ) -> Optional[PrimaryEdgeInfo]:
     """Silhouette classification and screen projection of every
     edge-enabled mesh's edges (perspective.cpp:48-151), masked instead of
     compacted. The classification is detached; the projected endpoints
-    carry gradients."""
+    carry gradients. ``camera_dir`` given (an orthographic camera): the
+    faces are classified against the parallel view direction, not the
+    eye position (the reference reuses the position form,
+    orthographic.cpp:64-66, which misclassifies silhouettes when the
+    camera plane is near the scene; JAX sensor.py:173-200)."""
     p0s, p1s, normals, lengths = [], [], [], []
     for mesh, md in zip(mesh_list, mesh_datas):
         if not mesh.enable_edges or mesh.num_edges == 0:
@@ -147,9 +173,13 @@ def build_primary_edges(camera_pos, world_to_sample, mesh_list,
         f1 = torch.clamp(ei[:, 3], min=0)
         tp0 = tri.p0.detach()
         tfn = tri.face_normal.detach()
-        cam = camera_pos.detach()
-        e0 = normalize(cam - tp0[ei[:, 2]])
-        e1 = normalize(cam - tp0[f1])
+        if camera_dir is not None:
+            e0 = (-normalize(camera_dir.detach())).expand(ei.shape[0], 3)
+            e1 = e0
+        else:
+            cam = camera_pos.detach()
+            e0 = normalize(cam - tp0[ei[:, 2]])
+            e1 = normalize(cam - tp0[f1])
         n0 = tfn[ei[:, 2]]
         n1 = tfn[f1]
         d00 = dot(e0, n0)

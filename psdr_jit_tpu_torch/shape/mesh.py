@@ -25,6 +25,7 @@ from ..core import warp
 from ..core.math import bilinear, cross, norm, normalize, safe_div
 from ..core.distribution import DiscreteDistribution
 from ..core.records import PositionSample
+from ..ops.gather import gather_rows
 
 
 def cpu_f32(x) -> torch.Tensor:
@@ -214,16 +215,22 @@ class Mesh:
 def sample_position(mesh_data: MeshData, sample2) -> PositionSample:
     """Uniform-by-area surface sample with sample reuse (mesh.cpp:413-454):
     the first uniform picks the face and is reused for the point. The
-    reference's Jacobian ``face_area / detach(face_area)`` is 1 in value:
-    the sample is detached here."""
+    point carries the face's gradients; the Jacobian is the reference's
+    material form ``face_area / detach(face_area)`` (mesh.cpp:434), 1 in
+    value; the pdf ``1 / total_area`` is detached."""
     idx, _, u0 = mesh_data.face_distrb.sample_reuse(sample2[..., 0])
     st = warp.square_to_uniform_triangle(
         torch.stack([u0, sample2[..., 1]], dim=-1))
     tri = mesh_data.tri
-    j = idx.long()
-    p = bilinear(tri.p0[j], tri.e1[j], tri.e2[j], st)
-    total = mesh_data.total_area
+    # one gather of every row the sample reads: millions of lanes share a
+    # light's few faces, and gather_rows sums their cotangents by histogram
+    rows = gather_rows(torch.cat([tri.p0, tri.e1, tri.e2, tri.face_normal,
+                                  tri.face_area[:, None]], dim=1), idx)
+    p = bilinear(rows[..., 0:3], rows[..., 3:6], rows[..., 6:9], st)
+    face_area = rows[..., 12]
+    total = mesh_data.total_area.detach()
     inv_total = safe_div(torch.ones_like(total), total)
     return PositionSample(
-        p=p, n=tri.face_normal[j], pdf=inv_total.expand(idx.shape),
-        J=torch.ones_like(u0), is_valid=torch.ones_like(idx, dtype=torch.bool))
+        p=p, n=rows[..., 9:12], pdf=inv_total.expand(idx.shape),
+        J=safe_div(face_area, face_area.detach()),
+        is_valid=torch.ones_like(idx, dtype=torch.bool))

@@ -5,6 +5,7 @@ step, goes on a CUDA card.
     python3 scripts/torch_profile_render.py           # renderC
     python3 scripts/torch_profile_render.py --train   # loss_and_grad
     python3 scripts/torch_profile_render.py --large   # the gallery
+    python3 scripts/torch_profile_render.py --renderD # renderD
 
 from the repository root. Both use the Cornell box of
 ``tests/data/cbox_scene.npz`` (512x512, spp 32) with ``PathTracer(3)``;
@@ -34,6 +35,19 @@ time to build each tree; the frame at 512x512 spp 8 at each
 general-path chunk size (2^18..2^21 lanes) with its peak device memory;
 and, on the 1,292-triangle gallery, K5 against K6 on the same 262,144
 rays and in the whole frame.
+
+--renderD: renderD of the box (512x512, spp 32, sppe 32, sppse 32,
+``PathTracer(3)``) in forward mode (along the light's translation) and
+in reverse mode (``torch.autograd.grad`` of ``sum(w * renderD)`` for the
+four parameters of ``chip_smoke.train_setup``): host time and peak
+device memory of each at each interior chunk size (``DIFF_CHUNK_LANES``,
+2^20..2^23 lanes); K1's launches and device time in the reverse render's
+forward sweep and in its backward sweep (which launches the checkpointed
+chunks' K1 and K2 pair again), beside the bytes that saving the interior's
+hit payloads across the checkpoints would hold; the device's busy time
+per render of each mode with the kernels by device time; and whether
+``torch.func.jvp`` runs the forward mode in place of
+``torch.autograd.forward_ad``.
 
 Imports no JAX; exits non-zero without a CUDA card.
 """
@@ -96,7 +110,7 @@ def host_ms(fn, reps: int):
 def train(dev) -> int:
     from chip_smoke import (SPPE, SPPSE, KernelCalls, cuda_ms, se_pass_ms,
                             train_step_fn)
-    from psdr_jit_tpu_torch.integrator import base, edge, fused
+    from psdr_jit_tpu_torch.integrator import base, fused
     from psdr_jit_tpu_torch.ops import image
     from psdr_jit_tpu_torch.ops import intersect as ix
     from psdr_jit_tpu_torch.ops import shade_mega as sm
@@ -175,7 +189,7 @@ def train(dev) -> int:
              (sm, "shade_adjoint_cuda", "K4"),
              (base.Integrator, "_render_primary_edges", "primary-edge pass"),
              (mk, "li_mega_pair", "K2 pair"),
-             (edge.SecondaryEdgeMixin, "render_secondary_edges",
+             (base.Integrator, "render_secondary_edges",
               "secondary-edge pass"),
              (ix, "sweep_cuda", "K1"),
              (image._SplatDerivativeOnly, "backward", "splat gather")]
@@ -216,6 +230,100 @@ def train(dev) -> int:
                        ("scene compile", "interior pass", "primary-edge pass",
                         "secondary-edge pass"))
     print(f"  leaves and the backward through the scene compile: {rest:.3f}")
+    return 0
+
+
+def renderd(dev) -> int:
+    from chip_smoke import (SPPE, SPPSE, KernelCalls, cuda_ms, renderd_grads,
+                            renderd_tangent, renderd_weight, train_setup)
+    from psdr_jit_tpu_torch.integrator import base
+    from psdr_jit_tpu_torch.ops import intersect as ix
+    from psdr_jit_tpu_torch.ops import megakernel as mk_
+
+    sc = pt.Scene.from_arrays(np.load(ROOT / "tests/data/cbox_scene.npz"),
+                              device=dev)
+    sc.opts.sppe, sc.opts.sppse = SPPE, SPPSE
+    sc.configure()
+    w_, h_, spp = sc.opts.width, sc.opts.height, sc.opts.spp
+    integ = pt.PathTracer(DEPTH)
+    setup = train_setup(sc)
+    w = renderd_weight(w_ * h_, dev)
+    print(f"renderD {w_}x{h_} spp {spp} sppe {SPPE} sppse {SPPSE} depth "
+          f"{DEPTH}")
+
+    def fwd():
+        return renderd_tangent(integ, sc, setup, "tx", 1.0)
+
+    def rev():
+        return renderd_grads(integ, sc, setup, w)
+
+    default = base.DIFF_CHUNK_LANES
+    for lanes in (1 << 20, 1 << 21, 1 << 22, 1 << 23):
+        base.DIFF_CHUNK_LANES = lanes
+        for name, fn in (("forward", fwd), ("reverse", rev)):
+            fn()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            med, lo, hi = host_ms(fn, 3)
+            peak = torch.cuda.max_memory_allocated(dev) / 1e9
+            print(f"interior chunk 2^{lanes.bit_length() - 1} lanes: "
+                  f"{name} host ms median {med:.3f} min {lo:.3f} max "
+                  f"{hi:.3f}, peak {peak:.3f} GB")
+    base.DIFF_CHUNK_LANES = default
+
+    # K1 (and K2 pair) in the reverse render's two sweeps
+    params, apply_params, _ = setup
+    p = {k: v.clone().requires_grad_() for k, v in params.items()}
+    apply_params(p)
+    sites = {"K1": (ix, "sweep_cuda"), "K2-pair": (mk_, "li_mega_pair_cuda")}
+    with KernelCalls(sites) as fwd_calls:
+        img = integ.renderD(sc, 0, seed=0)
+        torch.cuda.synchronize()
+    with KernelCalls(sites) as bwd_calls:
+        torch.autograd.grad((img * w).sum(), list(p.values()))
+        torch.cuda.synchronize()
+    apply_params(params)
+    del img
+    n_int = -(-w_ * h_ // max(base.DIFF_CHUNK_LANES // spp, 1))
+    for sweep, rec in (("forward sweep", fwd_calls), ("backward sweep",
+                                                      bwd_calls)):
+        for k, calls in rec.calls.items():
+            ms = sum(cuda_ms(lambda: fn(*args), 3) for fn, args, _ in calls)
+            print(f"reverse render, {sweep}: {k} {len(calls)} launches "
+                  f"{ms:.4f} ms")
+    # the forward sweep launches the interior's chunks first; the backward
+    # sweep launches the same K1 calls again when it recomputes them
+    interior = fwd_calls.calls["K1"][:n_int * (1 + 2 * DEPTH)]
+    ms_int = sum(cuda_ms(lambda: fn(*args), 3) for fn, args, _ in interior)
+    print(f"re-launching the interior's K1 in the backward sweep: "
+          f"{len(interior)} launches {ms_int:.4f} ms a render")
+    lanes = w_ * h_ * spp
+    saved = lanes * (1 + 2 * DEPTH) * 16
+    print(f"saving the interior's hit payloads instead (tri id, valid, u, "
+          f"v: 16 B a lane an intersection): {lanes} lanes x "
+          f"{1 + 2 * DEPTH} = {saved / 1e9:.3f} GB held to the backward")
+
+    for name, fn in (("forward", fwd), ("reverse", rev)):
+        med, lo, hi = host_ms(fn, 3)
+        busy = busy_ms(fn, 2, rows=20)
+        print(f"{name} host ms median {med:.3f}; device busy per render "
+              f"(profiler) {busy:.3f} ms, idle share {1 - busy / med:.3f}")
+
+    # torch.func.jvp in place of torch.autograd.forward_ad
+    def render_tx(tx):
+        apply_params({**params, "tx": tx})
+        return integ.renderD(sc, 0, seed=0)
+
+    try:
+        _, tan = torch.func.jvp(render_tx, (torch.zeros(()),),
+                                (torch.ones(()),))
+        ref = fwd()[1]
+        print(f"torch.func.jvp runs: rel L1 against forward_ad "
+              f"{float((tan - ref).abs().sum() / ref.abs().sum()):.3e}")
+    except Exception as exc:  # the outcome is what this line reports
+        print(f"torch.func.jvp fails: {type(exc).__name__}: {exc}"[:400])
+    finally:
+        apply_params(params)
     return 0
 
 
@@ -353,6 +461,8 @@ def main() -> int:
         return train(dev)
     if "--large" in sys.argv[1:]:
         return large(dev)
+    if "--renderD" in sys.argv[1:]:
+        return renderd(dev)
     sc = pt.Scene.from_arrays(np.load(ROOT / "tests/data/cbox_scene.npz"),
                               device=dev)
     sd = sc.configure()

@@ -248,10 +248,13 @@ def test_step_leaves_the_scene_detached():
 
 
 def test_unported_terms_and_scenes_raise():
-    """Scenes outside the attached shade's scope raise
-    NotImplementedError; the step never drops a term. The secondary-edge
-    term (sppse > 0) runs: it moves the block's vertex-offset gradient and
-    leaves the loss and image as they are."""
+    """The step never drops a term. The secondary-edge term (sppse > 0)
+    runs: it moves the block's vertex-offset gradient and leaves the loss
+    and image as they are. A scene outside the attached shade's scope (a
+    two-sided material), which raised NotImplementedError before the
+    attached general Li was ported, trains through it: its loss is the
+    sum of its image, and its image renderC's up to the two
+    formulations' rounding."""
     integ = pt.PathTracer(2)
     p0 = {"tx": np.float32(0.0), "dv": np.zeros((20, 3), np.float32),
           "alb": np.float32([0.7, 0.7, 0.7]),
@@ -266,6 +269,9 @@ def test_unported_terms_and_scenes_raise():
     assert _rel(grads["dv"], ref[1]["dv"]) > 0.05
     sc = _port_scene()
     sc.bsdfs[1].twoSide = True
-    with pytest.raises(NotImplementedError, match="scope"):
-        integ.loss_and_grad(sc, {}, lambda p: None,
-                            lambda rows, pix: rows.sum(-1))
+    loss, grads, img = integ.loss_and_grad(sc, {}, lambda p: None,
+                                           lambda rows, pix: rows.sum(-1),
+                                           seed=SEED)
+    assert grads == {} and abs(float(loss) - float(img.sum())) <= 1e-5 * abs(
+        float(loss))
+    assert _rel(img.numpy(), integ.renderC(sc, seed=SEED).numpy()) < 5e-3

@@ -92,11 +92,15 @@ def test_hide_emitters(setup):
 
 
 def test_pathtracer_li_advances_sampler(setup):
-    """PathTracer.Li goes through li_mega (detached) or li_interior
-    (attached, ``diff=True``) and keeps the draw schedule: 2 draws per
-    depth, as the JAX package's Li. The attached Li shades the same paths:
-    its radiance differs from the detached Li's only where the stash's
-    bilinear bounce origins move a grazing hit."""
+    """PathTracer.Li goes through li_mega (detached), li_interior
+    (attached, ``diff=True``, for a caller that pulls back in reverse mode
+    only, ``vjp_ok``: the training step) or the attached general Li
+    (``diff=True`` otherwise, as renderD) and keeps the draw schedule: 2
+    draws per depth, as the JAX package's Li. The attached Li shades the
+    same paths: its radiance differs from the detached Li's only where the
+    stash's bilinear bounce origins move a grazing hit, and the general
+    Li's where its path-formulation hit points do (the bound of
+    tests/test_torch_render.py between the two formulations)."""
     sd, tables, sampler, ray = setup
     s = pt.Sampler(SEED, sampler.lane)
     s.cnt = sampler.cnt
@@ -108,11 +112,18 @@ def test_pathtracer_li_advances_sampler(setup):
     assert torch.equal(li, ref)
     s = pt.Sampler(SEED, sampler.lane)
     s.cnt = sampler.cnt
-    att = pt.PathTracer(2).Li(sd, s, ray, active, diff=True)
+    att = pt.PathTracer(2).Li(sd, s, ray, active, diff=True, vjp_ok=True)
     assert s.cnt == sampler.cnt + 4
     assert att.shape == ref.shape and torch.isfinite(att).all()
     # measured: 1.2e-5 relative L1
     assert float((att - ref).abs().sum() / ref.abs().sum()) < 1e-4
+    s = pt.Sampler(SEED, sampler.lane)
+    s.cnt = sampler.cnt
+    gen = pt.PathTracer(2).Li(sd, s, ray, active, diff=True)
+    assert s.cnt == sampler.cnt + 4
+    assert gen.shape == ref.shape and torch.isfinite(gen).all()
+    # measured: 4.0e-4 relative L1
+    assert float((gen - ref).abs().sum() / ref.abs().sum()) < 5e-3
 
 
 def test_sincos_polynomials():

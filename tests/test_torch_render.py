@@ -84,13 +84,20 @@ def test_seed_and_batch_pix_conventions(scenes):
 
 
 def test_later_slices_raise(scenes):
-    """renderD comes in a later slice: it raises, never drops a term. The
-    secondary-edge term of the training step (sppse > 0) no longer
-    raises: the step takes it."""
+    """renderD and the secondary-edge term of the training step
+    (sppse > 0), once left to later slices, no longer raise. At sppe =
+    sppse = 0 renderD is the interior term alone, the attached general
+    Li: a finite image equal to renderC's (K2's formulation) as the JAX
+    package's renderD equals its renderC (tests/test_render.py:116)."""
     _, sc = scenes
     integ = pt.PathTracer(2)
-    with pytest.raises(NotImplementedError, match="renderD"):
-        integ.renderD(sc)
+    assert (sc.opts.sppe, sc.opts.sppse) == (0, 0)
+    d = integ.renderD(sc, 0, seed=2)
+    c = integ.renderC(sc, 0, seed=2)
+    assert d.shape == (32 * 32, 3) and bool(torch.isfinite(d).all())
+    rel = (d - c).abs() / (c.abs() + 1e-4)
+    assert float((rel < 1e-3).float().mean()) > 0.9
+    np.testing.assert_allclose(float(d.mean()), float(c.mean()), rtol=1e-2)
     sc.opts.sppse = 1
     try:
         loss, grads, img = integ.loss_and_grad(

@@ -128,10 +128,11 @@ def test_scene_roundtrip_builds_same_objects():
 
 
 def test_out_of_scope_scenes_raise():
-    """A two-sided cbox renders through the general Li and a 300-face
-    extra mesh configures (Morton-ordered); training on such scenes (the
-    attached general Li) and a textured BSDF still raise. With no card,
-    the entry points' default device raises instead of falling back."""
+    """A two-sided cbox renders through the general Li and trains
+    through the attached general Li (it raised before the attached
+    general Li was ported), and a 300-face extra mesh configures
+    (Morton-ordered); a textured BSDF still raises. With no card, the
+    entry points' default device raises instead of falling back."""
     jsc = make_cbox(width=8, height=8, spp=1)
     arrays = pt.scene_to_arrays(jsc)
     sc = pt.Scene.from_arrays(arrays, device=CPU)
@@ -139,9 +140,15 @@ def test_out_of_scope_scenes_raise():
     assert not mk.applicable(sc.configure())
     img = pt.PathTracer(1).renderC(sc)
     assert img.shape == (64, 3) and bool(torch.isfinite(img).all())
-    with pytest.raises(NotImplementedError, match="attached general Li"):
-        pt.PathTracer(1).loss_and_grad(sc, {}, lambda p: None,
-                                       lambda rows, pix: rows.sum(-1))
+    alb = sc.bsdfs[1].reflectance.clone()
+
+    def apply(p):
+        sc.bsdfs[1].reflectance = p["alb"]
+
+    loss, grads, img1 = pt.PathTracer(1).loss_and_grad(
+        sc, {"alb": alb}, apply, lambda rows, pix: rows.sum(-1))
+    assert bool(torch.isfinite(loss)) and img1.shape == (64, 3)
+    assert float(grads["alb"].abs().sum()) > 0
     big = pt.Scene.from_arrays(arrays, device=CPU)
     extra = pt.Mesh().load_raw(np.random.default_rng(0).random((900, 3)),
                                np.arange(900).reshape(300, 3))
