@@ -12,7 +12,7 @@ gallery and on exact ties through both of its sweeps; K3, the attached
 shade; K4, its adjoint; K5, the same walk at 513 to 4,096 triangles, also
 at the top of its range and on exact ties; K6, the same walk on a tree
 split at the middle), checks a
-32x32 render against ``tests/golden_cbox32.npy``, then drives four main
+32x32 render against ``tests/golden_cbox32.npy``, then drives five main
 paths at full size as a user would, each with the launch counts set to 0
 just before it and read just after:
 
@@ -38,16 +38,26 @@ just before it and read just after:
   (102,412 triangles): a picking query and a frame at 256x256, spp 4,
   ``PathTracer(2)``, through the general Li and K6; and the same frame of
   the 1,292-triangle gallery through K5 and of the 492-triangle gallery
-  through K1.
+  through K1;
+* BASELINE config #3, a Microfacet mesh under a lat-long environment map,
+  on the stand-in assets of ``envmap_arrays`` (5,132 triangles with the
+  map's bounding box, a 512x1024 map whose 2,091,012-cell importance
+  table samples by alias rows): a frame at 128x128, spp 32,
+  ``PathTracer(1)``; a training step at spp, sppe and sppse 32, guided,
+  with gradients to the vertex offsets and the radiance texture; and the
+  three per-term forward-mode renderDs along the mesh's translation,
+  every intersection through K6.
 
 64x64 training steps of the box (sppse 0, sppse 8, and sppse 8 guided by
 one table on both sides), a 64x64 renderD of the box (forward and reverse
-mode) and of the 1,292-triangle gallery (forward mode) and a 64x64 frame
-of the 5,132-triangle gallery run through the kernels and, on the CPU,
-through the plain versions, and the two must agree. One training step
-and one gallery frame run with every launch recorded, and each launch is
-held against its plain version on the inputs it was given; so do K1's
-launches in the first chunk of the step's secondary-edge pass. Kernels,
+mode) and of the 1,292-triangle gallery (forward mode), a 64x64 frame
+of the 5,132-triangle gallery, and a 64x64 frame, guided step and renderD
+of the envmap stand-in run through the kernels and, on the CPU, through
+the plain versions, and the two must agree. One training step of the box
+and of the envmap stand-in and one gallery frame run with every launch
+recorded, and each launch is held against its plain version on the
+inputs it was given; so do K1's launches in the first chunk of the box
+step's secondary-edge pass. Kernels,
 frames and step are timed against their plain versions, and each
 kernel's least possible time on an H100 (its bound) is computed from its
 inputs.
@@ -99,6 +109,16 @@ LARGE = (256, 256, 4)
 LARGE_DEPTH = 2
 WIDE = (512, 512, 8)  # the same scene's larger frame, timed only
 CHECK_RAYS = 1 << 18  # rays of the [K5] and [K6] checks
+# the envmap path, BASELINE config #3 (bench.py _time_envmap) on the
+# stand-in of envmap_arrays(): width, height and spp = sppe = sppse of the
+# frame and the step, PathTracer(1), the guiding grid, and the three
+# per-term renderDs (spp, sppe, sppse) of the tutorial's gradient images
+ENVMAP = (128, 128, 32)
+ENVMAP_DEPTH = 1
+ENVMAP_GUIDE = (2000, 5, 5, 32)
+ENVMAP_TERMS = ((128, 0, 0), (0, 128, 0), (0, 0, 128))
+# [envmap-64]: the guiding grid (8,192 cells, so alias rows and their coin)
+ENVMAP_GUIDE_64 = (128, 4, 4, 4)
 # cycles the card spins in cuda_ms while the host queues the timed calls
 # (~5 ms on an H100)
 HOLD_CYCLES = 10_000_000
@@ -778,6 +798,98 @@ def gallery_arrays(width=256, height=256, spp=4, n_spheres=80, subdiv=3,
     out["sensor.0.to_world_raw"] = np.asarray(
         [[1.0, 0, 0, 5.0], [0, 1.0, 0, 5.0], [0, 0, 1.0, -9.0],
          [0, 0, 0, 1.0]], np.float32)
+    out["sensor.0.to_world_right"] = eye
+    return out
+
+
+def envmap_standin(subdiv: int = 4, map_hw=(512, 1024), seed: int = 0):
+    """``(vertices, faces, radiance)``, numpy, of the stand-in for BASELINE
+    config #3's assets (the tutorial's bunny and 1k ballroom map, which the
+    repository does not hold): a unit icosphere subdivided ``subdiv`` times
+    (5,120 triangles at 4, within 3% of the bunny's 4,968), each vertex
+    pushed along itself by ``1 + 0.2 s(v)``, ``s`` the mean of 4 plane waves
+    of seeded directions, frequencies and phases, then scaled to radius 40;
+    and an ``map_hw + (3,)`` lat-long HDR map: a sky of 0.2 to 1.0 by
+    elevation plus 12 warm Gaussian lamps (sigma 4 texels at 1,024 wide,
+    peaks 50 to 200) above the horizon, so that its importance table is
+    sharply non-uniform."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    v, f = _icosphere(subdiv)
+    dirs = rng.standard_normal((4, 3))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    freq = rng.uniform(2.0, 5.0, 4)
+    phase = rng.uniform(0.0, 2.0 * np.pi, 4)
+    s = np.sin(v.astype(np.float64) @ dirs.T * freq + phase).mean(1)
+    verts = (v * (40.0 * (1.0 + 0.2 * s))[:, None]).astype(np.float32)
+    h, w = map_hw
+    row = (np.arange(h) + 0.5) / h
+    sky = 1.0 - 0.8 * row  # 1.0 at the zenith, 0.2 at the nadir
+    tex = np.broadcast_to((sky[:, None, None]
+                           * np.asarray([0.8, 0.9, 1.0])[None, None, :]),
+                          (h, w, 3)).copy()
+    sigma = max(4.0 * w / 1024.0, 1.0)
+    yy, xx = np.meshgrid(np.arange(h) + 0.5, np.arange(w) + 0.5,
+                         indexing="ij")
+    for _ in range(12):
+        cy, cx = rng.uniform(0.1, 0.5) * h, rng.uniform(0.0, 1.0) * w
+        dx = np.abs(xx - cx)
+        dx = np.minimum(dx, w - dx)  # the map wraps in longitude
+        g = np.exp(-((yy - cy) ** 2 + dx ** 2) / (2.0 * sigma ** 2))
+        tex += (rng.uniform(50.0, 200.0) * g)[..., None] * np.asarray(
+            [1.0, 0.75, 0.45])
+    return verts, f, tex.astype(np.float32)
+
+
+def envmap_arrays(width=128, height=128, spp=32, sppe=32, sppse=32,
+                  subdiv=4, map_hw=(512, 1024), seed=0) -> dict:
+    """BASELINE config #3's scene (``tests/scenes.py`` ``make_bunny_envmap``)
+    on the stand-in assets of :func:`envmap_standin`, as the dict
+    ``interop.scene_to_arrays`` makes of it: a ``MicrofacetBSDF([0.2, 0.9,
+    0.9], [0.01] * 3, 0.3)`` mesh, smooth-shaded with edges on, moved to
+    z = -100 by its ``to_world_raw``, under the map, seen by a
+    ``PerspectiveCamera(80, 1e-6, 1e7)`` whose ``to_world`` is diag(-1, 1,
+    -1, 1). With the bounding mesh the scene holds 5,132 triangles at
+    ``subdiv`` 4, so every intersection on the card goes through K6."""
+    import numpy as np
+
+    verts, faces, tex = envmap_standin(subdiv, map_hw, seed)
+    eye = np.asarray(_EYE4, np.float32)
+    out = {"opts": np.asarray([width, height, spp, sppe, sppse], np.int64),
+           "seed": np.asarray(0, np.int64),
+           "counts": np.asarray([1, 1, 1, 1], np.int64),
+           "bsdf_ids": np.asarray(["bunny"]),
+           "bsdf.0.twoSide": np.asarray(False),
+           "bsdf.0.type": np.asarray("MicrofacetBSDF")}
+    uv = np.asarray([1.0, 0.0, 0.0, 0.0], np.float32)
+    for name, value in (("specularReflectance", [0.2, 0.9, 0.9]),
+                        ("diffuseReflectance", [0.01] * 3),
+                        ("roughness", [0.3])):
+        out[f"bsdf.0.{name}.data"] = np.asarray(value, np.float32).reshape(
+            1, 1, -1)
+        out[f"bsdf.0.{name}.uv"] = uv
+    out["emitter.0.type"] = np.asarray("EnvironmentMap")
+    out["emitter.0.radiance.data"] = tex
+    out["emitter.0.radiance.uv"] = uv
+    out["emitter.0.scale"] = np.asarray(1.0, np.float32)
+    out["emitter.0.to_world_raw"] = eye
+    out["emitter.0.to_world_left"] = eye
+    out["mesh.0.vertex_positions_raw"] = verts
+    out["mesh.0.face_indices"] = faces
+    out["mesh.0.to_world_left"] = eye
+    out["mesh.0.to_world_raw"] = np.asarray(
+        [[1.0, 0, 0, 0], [0, 1.0, 0, 0], [0, 0, 1.0, -100.0],
+         [0, 0, 0, 1.0]], np.float32)
+    out["mesh.0.to_world_right"] = eye
+    out["mesh.0.use_face_normals"] = np.asarray(False)
+    out["mesh.0.enable_edges"] = np.asarray(True)
+    out["mesh.0.bsdf_id"] = np.asarray(0, np.int64)
+    out["mesh.0.emitter_id"] = np.asarray(-1, np.int64)
+    out["sensor.0.fov_near_far"] = np.asarray([80.0, 1e-6, 1e7], np.float64)
+    out["sensor.0.to_world_left"] = eye
+    out["sensor.0.to_world_raw"] = np.diag([-1.0, 1.0, -1.0, 1.0]).astype(
+        np.float32)
     out["sensor.0.to_world_right"] = eye
     return out
 
@@ -2206,6 +2318,352 @@ def renderd_k5_phase(dev) -> dict:
     return launches
 
 
+def envmap_setup(scene, seed: int = SEED):
+    """``(params, apply_params, pixel_loss)`` of the envmap training step
+    (``bench.py _time_envmap``): offsets of the mesh's raw vertices
+    ``dv`` and of the map's radiance texture ``dr``, an L2 loss against a
+    seeded random target."""
+    import numpy as np
+    import torch
+
+    mesh, env = scene.meshes[0], scene.emitter_env
+    verts = mesh.vertex_positions_raw.clone()
+    tex = env.radiance.data.clone()
+    target = torch.from_numpy(np.random.default_rng(seed).random(
+        (scene.opts.num_pixels, 3)).astype(np.float32)).to(scene.device)
+
+    def apply_params(p):
+        mesh.vertex_positions_raw = verts + p["dv"]
+        env.radiance.data = tex + p["dr"]
+
+    def pixel_loss(rows, pix):
+        return ((rows - target[pix]) ** 2).sum(-1)
+
+    params = {"dv": torch.zeros_like(verts), "dr": torch.zeros_like(tex)}
+    return params, apply_params, pixel_loss
+
+
+def mesh_tx_tangent(integrator, scene, seed: int = SEED):
+    """``forward_mode`` of renderD along the x translation of mesh 0."""
+    import torch
+
+    mesh = scene.meshes[0]
+    base = mesh.to_world_raw.clone()
+
+    def set_tx(v):
+        mesh.to_world_raw = base + torch.nn.functional.pad(
+            v.reshape(1, 1).to(base.device), (3, 0, 0, 3))
+
+    return forward_mode(integrator, scene, set_tx, torch.zeros(()), 1.0,
+                        seed)
+
+
+def device_busy_ms(fn) -> float:
+    """The summed device time of the operations one call of ``fn``
+    issues (``torch.profiler``), after a warm-up call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3
+
+
+def step_split(integrator, step, reps: int = 3) -> dict:
+    """Median spans (CUDA events on the card's stream) of the training
+    step's parts over ``reps`` steps: the scene compile, the interior
+    pass, the primary-edge pass and the secondary-edge pass."""
+    import torch
+    from psdr_jit_tpu_torch.integrator import fused
+    from psdr_jit_tpu_torch.scene.scene import Scene
+
+    sites = {"compile": (Scene, "configure_data"),
+             "interior": (fused, "_interior_scan"),
+             "primary_edges": (type(integrator), "_render_primary_edges"),
+             "secondary_edges": (type(integrator),
+                                 "render_secondary_edges")}
+    spans = {k: [] for k in sites}
+    saved = {k: getattr(m, n) for k, (m, n) in sites.items()}
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            spans[name].append((start, end))
+            return out
+        return wrapper
+
+    for k, (m, n) in sites.items():
+        setattr(m, n, timed(k, saved[k]))
+    try:
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+    finally:
+        for k, (m, n) in sites.items():
+            setattr(m, n, saved[k])
+    return {k: statistics.median(a.elapsed_time(b) for a, b in v)
+            for k, v in spans.items()}
+
+
+def envmap_64_phase(dev):
+    """[envmap-64]: the 5,132-triangle stand-in of ``envmap_arrays`` at
+    64x64, spp 8, sppe 8, sppse 8, ``PathTracer(1)``, through the kernels
+    and, on the CPU, through the plain versions: a frame, a training step
+    guided by one table built on the card (the same table on both sides:
+    the card's mass table sums with float atomics) and the forward-mode
+    renderD tangent along the mesh's x translation. Loss and images within
+    1e-4 rel L1, the gradients and the tangent within 1e-3."""
+    import torch
+    import psdr_jit_tpu_torch as pt
+    from psdr_jit_tpu_torch.scene.scene import tree_map
+
+    arrays = envmap_arrays(64, 64, 8, 8, 8)
+    guider = pt.PathTracer(ENVMAP_DEPTH)
+    out = {}
+    for name, device in (("kernels", dev), ("plain", torch.device("cpu"))):
+        sc = pt.Scene.from_arrays(arrays, device=device)
+        sc.configure()
+        if name == "kernels":
+            guider.preprocess_secondary_edges(sc, 0, ENVMAP_GUIDE_64, 1)
+        table = tree_map(lambda x: x.to(device), guider.warpper[0])
+        integ = pt.PathTracer(ENVMAP_DEPTH)
+        t0 = time.perf_counter()
+        img = integ.renderC(sc, 0, seed=SEED)
+        params, apply_params, pixel_loss = envmap_setup(sc)
+        loss, grads, img_t = integ.loss_and_grad(
+            sc, params, apply_params, pixel_loss, 0, SEED, warp=table)
+        primal, tangent = mesh_tx_tangent(integ, sc)
+        out[name] = dict(img=img.cpu(), loss=float(loss), img_t=img_t.cpu(),
+                         grads={k: v.cpu() for k, v in grads.items()},
+                         primal=primal.cpu(), tangent=tangent.cpu(),
+                         ms=(time.perf_counter() - t0) * 1e3)
+    k, p = out["kernels"], out["plain"]
+    rels = {"frame": rel_l1(k["img"], p["img"]),
+            "loss": abs(k["loss"] - p["loss"]) / abs(p["loss"]),
+            "step_image": rel_l1(k["img_t"], p["img_t"]),
+            **{f"grad_{n}": rel_l1(k["grads"][n], p["grads"][n])
+               for n in p["grads"]},
+            "primal": rel_l1(k["primal"], p["primal"]),
+            "tangent": rel_l1(k["tangent"], p["tangent"])}
+    log("envmap-64", triangles=20 * 4 ** 4 + 12, spp=8, sppe=8, sppse=8,
+        depth=ENVMAP_DEPTH, guide=",".join(map(str, ENVMAP_GUIDE_64)),
+        rel_l1=",".join(f"{n}:{v:.3e}" for n, v in rels.items()),
+        ms=f"{k['ms']:.1f}", plain_cpu_ms=f"{p['ms']:.1f}")
+    require(all(rels[n] < 1e-4 for n in ("frame", "loss", "step_image",
+                                         "primal")),
+            "envmap-64: an image or the loss differs from the plain path")
+    require(all(v < 1e-3 for n, v in rels.items()
+                if n.startswith("grad_") or n == "tangent"),
+            "envmap-64: a gradient or the tangent differs from the plain "
+            "path by >= 1e-3")
+    require(all(float(x.abs().sum()) > 0 for x in
+                [p["tangent"], *p["grads"].values()]),
+            "envmap-64: a gradient or the tangent is zero")
+
+
+def envmap_phases(dev, kernels) -> dict:
+    """[envmap-table], [main-path-envmap], [envmap], [envmap-K6]: BASELINE
+    config #3's path on the stand-in at full size (``ENVMAP``): the
+    importance table's host build, then with the launch counts set to 0
+    before each part and read after it, the frame (renderC), the guided
+    training step (loss_and_grad after ``preprocess_secondary_edges``
+    with ``ENVMAP_GUIDE``) and the three per-term forward-mode renderDs
+    along the mesh's x translation: K6 only, its launches as the routing
+    says, no plain version; their times, the step's rays, peak memory,
+    split and device busy share; then every K6 launch of one step held
+    bit for bit against its plain version on its own inputs, with each
+    ray set's dead share. Returns the main path's launches."""
+    import torch
+    import psdr_jit_tpu_torch as pt
+    from psdr_jit_tpu_torch.emitter.envmap import build_envmap_distribution
+    from psdr_jit_tpu_torch.integrator import base
+    from psdr_jit_tpu_torch.ops import _cuda, bvh
+    from psdr_jit_tpu_torch.ops import intersect as ix
+    from psdr_jit_tpu_torch.scene.scene import tree_map
+
+    W, H, S = ENVMAP
+    n_pix = W * H
+    sc = pt.Scene.from_arrays(envmap_arrays(W, H, S, S, S), device=dev)
+    t0 = time.perf_counter()
+    table = build_envmap_distribution(tree_map(
+        lambda x: x.detach().cpu(), sc.emitter_env.radiance)).with_alias()
+    table_ms = (time.perf_counter() - t0) * 1e3
+    _, configure_ms = _synced_ms(sc.configure)
+    sd = sc.data
+    cells = sd.emitters[0].cell_distrb
+    f = sd.tri.p0.shape[0]
+    log("envmap-table", cells=cells.num_cells,
+        res=",".join(map(str, cells.res)), build_ms=f"{table_ms:.1f}",
+        configure_ms=f"{configure_ms:.1f}", coin=sd.emitter_coin_needed,
+        triangles=f, route=ix.walk_name(f))
+    require(cells.num_cells == 2 * 1023 * 2 * 511 and table.needs_coin
+            and sd.emitter_coin_needed and ix.walk_name(f) == "K6",
+            "envmap-table: not the 2,091,012-cell table with alias rows")
+    require(torch.equal(cells.distrb.alias_rows.cpu(),
+                        table.distrb.alias_rows),
+            "envmap-table: configure() built another table")
+
+    integ = pt.PathTracer(ENVMAP_DEPTH)
+    _, guide_ms = _synced_ms(lambda: integ.preprocess_secondary_edges(
+        sc, 0, ENVMAP_GUIDE, 1))
+    params, apply_params, pixel_loss = envmap_setup(sc)
+
+    def step():
+        return integ.loss_and_grad(sc, params, apply_params, pixel_loss, 0,
+                                   SEED)
+
+    def term(t):
+        sc.opts = pt.RenderOption(W, H, *t)
+        try:
+            return mesh_tx_tangent(integ, sc)
+        finally:
+            sc.opts = pt.RenderOption(W, H, S, S, S)
+
+    per_li = 1 + 2 * ENVMAP_DEPTH
+
+    def chunks(lanes, size):
+        return -(-lanes // size)
+
+    want = {"frame": chunks(n_pix * S, base.GENERAL_CHUNK_LANES) * per_li,
+            "step": (chunks(n_pix * S, base.TRAIN_CHUNK_LANES) * per_li
+                     + chunks(n_pix * S, base.TRAIN_CHUNK_LANES) * 2 * per_li
+                     + chunks(n_pix * S, base.SE_CHUNK_LANES) * 3)}
+    for t in ENVMAP_TERMS:
+        want[f"renderD_{'_'.join(map(str, t))}"] = (
+            chunks(n_pix * t[0], base.DIFF_CHUNK_LANES) * per_li
+            + chunks(n_pix * t[1], base.TRAIN_CHUNK_LANES) * 2 * per_li
+            + chunks(n_pix * t[2], base.SE_CHUNK_LANES) * 3)
+    runs = {"frame": lambda: integ.renderC(sc, 0, seed=SEED), "step": step,
+            **{f"renderD_{'_'.join(map(str, t))}": functools.partial(term, t)
+               for t in ENVMAP_TERMS}}
+    got, outs = {}, {}
+    torch.cuda.synchronize()
+    with PlainCalls() as plain:
+        for name, fn in runs.items():
+            _cuda.reset_launches()
+            outs[name] = fn()
+            torch.cuda.synchronize()
+            got[name] = dict(_cuda.LAUNCHES)
+        plain_count = plain.count
+    k6 = {n: g["K6"] for n, g in got.items()}
+    log("main-path-envmap", triangles=f, K6_LAUNCHES=sum(k6.values()),
+        **{f"K6_{n}": v for n, v in k6.items()},
+        K6_expected=",".join(f"{n}:{v}" for n, v in want.items()),
+        other_launches=sum(v for g in got.values() for k, v in g.items()
+                           if k != "K6"), plain_calls=plain_count)
+    require(k6 == want, "envmap main path: K6 launches != the routing's")
+    require(all(v == 0 for g in got.values() for k, v in g.items()
+                if k != "K6"),
+            "envmap main path: another kernel ran (K1 to K5)")
+    require(plain_count == 0, "envmap main path: a plain version ran")
+
+    img = outs["frame"]
+    loss, grads, img_t = outs["step"]
+    require(tuple(img.shape) == (n_pix, 3) and bool(
+        torch.isfinite(img).all()) and float(img.mean()) > 0,
+        "envmap frame: non-finite, misshapen or black")
+    require(bool(torch.isfinite(loss)) and all(
+        bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0
+        for g in grads.values()),
+        "envmap step: non-finite or zero loss or gradient")
+    # the step's image is the attached Li of the frame's estimator
+    t_rel = rel_l1(img_t, img)
+    require(t_rel < 1e-3, "envmap step: image differs from renderC's")
+    tangents = {n: outs[n][1] for n in outs if n.startswith("renderD")}
+    require(all(bool(torch.isfinite(t).all()) and float(t.abs().sum()) > 0
+                for t in tangents.values()),
+            "envmap renderD: a per-term tangent is non-finite or zero")
+
+    # the float atomics of the texture's and the vertices' adjoints
+    _, grads2, _ = step()
+    spread = {k: rel_l1(grads2[k], grads[k]) for k in grads}
+    frame_ms = wall_ms(runs["frame"], 3)
+    frame_busy = device_busy_ms(runs["frame"])
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_ms = wall_ms(step, 3)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    step_busy = device_busy_ms(step)
+    split = step_split(integ, step)
+    term_ms = {n: wall_ms(runs[n], 3) for n in tangents}
+    rays = n_pix * (S * (1 + 2 * ENVMAP_DEPTH)
+                    + S * 2 * (1 + 2 * ENVMAP_DEPTH) + S * 3)
+    frame_rays = n_pix * S * (1 + 2 * ENVMAP_DEPTH)
+    log("envmap", size=f"{W}x{H}", spp=S, sppe=S, sppse=S,
+        depth=ENVMAP_DEPTH, guide=",".join(map(str, ENVMAP_GUIDE)),
+        guide_ms=f"{guide_ms:.1f}", frame_ms=f"{frame_ms:.2f}",
+        frame_mrays_per_s=f"{frame_rays / frame_ms / 1e3:.1f}",
+        frame_busy_ms=f"{frame_busy:.2f}",
+        frame_idle_share=f"{1 - frame_busy / frame_ms:.3f}",
+        loss=f"{float(loss):.6e}",
+        grad_l1=",".join(f"{k}:{float(g.abs().sum()):.4e}"
+                         for k, g in grads.items()),
+        run_to_run_rel_l1=",".join(f"{k}:{v:.3e}" for k, v in
+                                   spread.items()),
+        step_image_rel_l1_vs_frame=f"{t_rel:.3e}", step_ms=f"{step_ms:.2f}",
+        rays=rays, mrays_per_s=f"{rays / step_ms / 1e3:.1f}",
+        peak_gb=f"{peak_gb:.3f}", step_busy_ms=f"{step_busy:.2f}",
+        step_idle_share=f"{1 - step_busy / step_ms:.3f}",
+        split_ms=",".join(f"{k}:{v:.2f}" for k, v in split.items()),
+        renderD_ms=",".join(f"{n[8:]}:{v:.2f}" for n, v in term_ms.items()),
+        tangent_l1=",".join(f"{n[8:]}:{float(t.abs().sum()):.4e}"
+                            for n, t in tangents.items()))
+
+    # [envmap-K6]: every K6 launch of one step against its plain version
+    with KernelCalls({"K6": (bvh, "walk_cuda")}) as rec:
+        step()
+        torch.cuda.synchronize()
+    calls = rec.calls["K6"]
+    require(len(calls) == want["step"], "envmap-K6: launches of a step != "
+            "the routing's")
+    rec6, a, tests, launch_ms = intersect_record(
+        "K6 tree traversal, envmap step", "psdr_jit_tpu_torch/csrc/bvh.cu",
+        "psdr_jit_tpu/ops/bvh.py:309", calls, k6_plain)
+    names = ([f"interior_{x}" for x in ("camera", "shadow", "bounce")]
+             + [f"pe_{s}_{x}" for s in ("n", "p")
+                for x in ("camera", "shadow", "bounce")]
+             + [f"se_{x}" for x in ("visibility", "receiver", "camera")])
+    dead = [1 - float(c[1][3].float().mean()) for c in calls]
+    sky = [float(((c[2][1] >= f - 12) & c[1][3]).float().sum()
+                 / c[1][3].float().sum().clamp_min(1)) for c in calls]
+    # live rays with a zero direction: bounces from hits without a BSDF
+    # (the sky box), traced as the JAX package traces them and then masked
+    still = [float(((c[1][2] == 0).all(-1) & c[1][3]).float().sum()
+                   / c[1][3].float().sum().clamp_min(1)) for c in calls]
+    n_rays = sum(c[1][1].shape[0] for c in calls)
+    own = [sum(x) for x in zip(*(walk_counted(c[1], "K6") for c in calls))]
+    log("envmap-K6", launches=len(calls), rays=n_rays,
+        bitwise_equal_to_plain=a["bitwise"], mismatches=a["mismatches"],
+        dead_share=",".join(f"{n}:{d:.4f}" for n, d in zip(names, dead)),
+        sky_box_share_of_live=",".join(f"{n}:{x:.4f}"
+                                       for n, x in zip(names, sky)),
+        zero_direction_share_of_live=",".join(
+            f"{n}:{x:.4f}" for n, x in zip(names, still)),
+        launch_ms=",".join(f"{x:.4f}" for x in launch_ms),
+        ms=f"{rec6['ms']:.4f}", plain_ms=f"{rec6['plain_ms']:.1f}",
+        bound_ms=f"{rec6['bound_ms']:.4f}", bound_by=rec6["bound_by"],
+        tests_per_ray=f"{own[0] / n_rays:.1f}",
+        node_visits_per_ray=f"{own[1] / n_rays:.1f}",
+        needed_tests_per_ray=f"{tests / n_rays:.2f}")
+    require(a["bitwise"], "envmap-K6: K6 not bitwise equal to its plain "
+            "traversal on the step's rays")
+    kernels["K6"].update(
+        envmap_step_ms=rec6["ms"], envmap_step_plain_ms=rec6["plain_ms"],
+        envmap_step_bound_ms=rec6["bound_ms"],
+        envmap_step_launches=len(calls),
+        max_abs_err=max(kernels["K6"]["max_abs_err"], rec6["max_abs_err"]))
+    return {"K6": sum(k6.values())}
+
+
 def main() -> int:
     try:
         import torch
@@ -2230,6 +2688,7 @@ def main() -> int:
                                                     interior_lane_setup)
     from psdr_jit_tpu_torch.scene.scene import tree_map
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda:0")
@@ -2510,6 +2969,12 @@ def main() -> int:
     k1_frame_phase(dev)
     launches_dk5 = renderd_k5_phase(dev)
 
+    # ---- 9. the envmap path (BASELINE config #3 on the stand-in) -----------
+    t_env = time.perf_counter()
+    envmap_64_phase(dev)
+    launches_e = envmap_phases(dev, kernels)
+    env_s = time.perf_counter() - t_env
+
     kernels["K1"]["launches_step"] = launches_t["K1"]
     kernels["K1"]["launches_renderD"] = launches_d["K1"]
     kernels["K2-pair"]["launches_renderD"] = launches_d["K2-pair"]
@@ -2524,7 +2989,10 @@ def main() -> int:
            for k in ("K2-stash", "K3", "K4")]
         + [{**kernels["K5"], "launches": launches_l["K5"]
             + launches_dk5["K5"]},
-           {**kernels["K6"], "launches": launches_l["K6"]}])}
+           {**kernels["K6"], "launches": launches_l["K6"]
+            + launches_e["K6"]}])}
+    log("total", seconds=f"{time.perf_counter() - t_start:.1f}",
+        envmap_seconds=f"{env_s:.1f}")
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

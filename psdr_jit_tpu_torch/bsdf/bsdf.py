@@ -2,71 +2,141 @@
 ``psdr_jit_tpu/bsdf/bsdf.py``).
 
 The JAX package dispatches by a masked loop over the scene's BSDF
-instances. Every BSDF of the port is a constant ``DiffuseBSDF``, so here
-each lane gathers its material's reflectance and two-sided flag by slot
-from the stacked table of :func:`material_table` (``SceneData.materials``)
-and evaluates once; lanes without a material (slot -1) get the loop's
-zeros."""
+instances. Here the loop runs over BSDF *types*: :func:`material_table`
+(``SceneData.materials``) stacks each type's parameters into one table
+with a row a slot (zeros in the rows of other types' slots), each lane
+gathers its material's row by slot, every type present evaluates its
+lanes in one pass, and the results combine with ``torch.where``. So the
+launches of a bounce do not grow with the number of BSDF instances.
+Lanes without a material (slot -1) get zeros."""
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from ..core.records import BSDFSample
 from ..ops.gather import gather_rows
 
+DIFFUSE, MICROFACET = 0, 1
+
 
 class BSDF:
     """Interface of a material: ``eval`` (f cos theta_o, differentiable),
     ``sample`` (a detached :class:`BSDFSample`) and ``pdf`` (detached),
-    all on local-frame directions of an intersection ``its``."""
+    all on local-frame directions of an intersection ``its``.
+    ``_tensor_fields`` names the attributes that hold its parameters
+    (tensors or bitmaps), which the scene compile maps."""
 
     twoSide: bool = False
+    _tensor_fields: tuple = ()
 
     def __repr__(self) -> str:
         return type(self).__name__
 
 
-def material_table(bsdfs, device):
-    """``(reflectance (n, 3), two_side (n,) bool)`` of the scene's BSDFs."""
+@dataclasses.dataclass
+class Materials:
+    """The scene's BSDFs as per-type tables, a row a slot."""
+
+    kind: torch.Tensor      # (n,) int64 type of each slot
+    two_side: torch.Tensor  # (n,) bool
+    # type -> its parameter tables (n, ...): DIFFUSE (reflectance,),
+    # MICROFACET (specular, diffuse, roughness (n, 1))
+    params: dict
+
+
+def material_table(bsdfs, device) -> Materials:
+    """Per-type parameter tables of the scene's BSDFs on ``device``."""
     from .diffuse import DiffuseBSDF
+    from .microfacet import MicrofacetBSDF
 
-    if not all(isinstance(b, DiffuseBSDF) for b in bsdfs):
-        raise NotImplementedError("only constant DiffuseBSDFs are ported")
-    refl = torch.stack([b.reflectance.to(device) for b in bsdfs])
-    two = torch.tensor([b.twoSide for b in bsdfs], dtype=torch.bool).to(
-        device)
-    return refl, two
+    kinds, rows = [], {DIFFUSE: [], MICROFACET: []}
+    z3 = torch.zeros(3, dtype=torch.float32)
+    for b in bsdfs:
+        if isinstance(b, DiffuseBSDF):
+            kinds.append(DIFFUSE)
+            d, m = (b.reflectance,), (z3, z3, z3[:1])
+        elif isinstance(b, MicrofacetBSDF):
+            kinds.append(MICROFACET)
+            spec, diff, rough = b.constants()
+            d, m = (z3,), (spec, diff, rough.reshape(1))
+        else:
+            raise NotImplementedError(
+                f"{type(b).__name__}: only DiffuseBSDF and MicrofacetBSDF "
+                "are ported")
+        rows[DIFFUSE].append(d)
+        rows[MICROFACET].append(m)
+    params = {k: tuple(torch.stack([r[i].to(device) for r in rows[k]])
+                       for i in range(len(rows[k][0])))
+              for k in sorted(set(kinds))}
+    return Materials(
+        kind=torch.tensor(kinds, dtype=torch.int64).to(device),
+        two_side=torch.tensor([b.twoSide for b in bsdfs],
+                              dtype=torch.bool).to(device),
+        params=params)
 
 
-def _lanes(materials, slot):
-    refl, two = materials
+def _passes(materials, slot, active):
+    """``(type, its lanes, the lanes' parameter rows, two-sided flags)`` for
+    each type present."""
+    if not materials.params:
+        return
     j = torch.clamp(slot, min=0).long()
-    return gather_rows(refl, j), two[j], slot >= 0
+    m = active & (slot >= 0)
+    kind, two = materials.kind[j], materials.two_side[j]
+    for k, tables in materials.params.items():
+        mk = m & (kind == k) if len(materials.params) > 1 else m
+        yield k, mk, [gather_rows(t, j) for t in tables], two
 
 
 def eval_dispatch(materials, slot, its, wo, active):
     """``(..., 3)`` f cos theta_o of each lane's material; 0 for slot -1.
     ``materials`` is :func:`material_table`'s."""
     from .diffuse import diffuse_eval
+    from .microfacet import microfacet_eval
 
-    refl, two, has = _lanes(materials, slot)
-    return diffuse_eval(refl, two, its.wi, wo, active & has)
+    out = torch.zeros(wo.shape, dtype=torch.float32, device=wo.device)
+    for k, m, p, two in _passes(materials, slot, active):
+        if k == DIFFUSE:
+            val = diffuse_eval(p[0], two, its.wi, wo, m)
+        else:
+            val = microfacet_eval(p[0], p[1], p[2][..., 0], two, its.wi, wo,
+                                  m)
+        out = torch.where(m[..., None], val, out)
+    return out
 
 
 def sample_dispatch(materials, slot, its, rnd3, active) -> BSDFSample:
     from .diffuse import diffuse_sample
+    from .microfacet import microfacet_sample
 
-    _, two, has = _lanes(materials, slot)
-    m = active & has
-    bs = diffuse_sample(two, its.wi, rnd3, m)
-    return BSDFSample(wo=torch.where(m[..., None], bs.wo, 0.0),
-                      pdf=torch.where(m, bs.pdf, 0.0), eta=bs.eta,
-                      is_valid=bs.is_valid)
+    shape = rnd3.shape[:-1]
+    out = BSDFSample(
+        wo=rnd3.new_zeros(shape + (3,)), pdf=rnd3.new_zeros(shape),
+        eta=rnd3.new_ones(shape),
+        is_valid=torch.zeros(shape, dtype=torch.bool, device=rnd3.device))
+    for k, m, p, two in _passes(materials, slot, active):
+        if k == DIFFUSE:
+            bs = diffuse_sample(two, its.wi, rnd3, m)
+        else:
+            bs = microfacet_sample(p[2][..., 0], two, its.wi, rnd3, m)
+        out = BSDFSample(wo=torch.where(m[..., None], bs.wo, out.wo),
+                         pdf=torch.where(m, bs.pdf, out.pdf), eta=out.eta,
+                         is_valid=torch.where(m, bs.is_valid, out.is_valid))
+    return out
 
 
 def pdf_dispatch(materials, slot, its, wo, active):
     from .diffuse import diffuse_pdf
+    from .microfacet import microfacet_pdf
 
-    _, two, has = _lanes(materials, slot)
-    return diffuse_pdf(two, its.wi, wo, active & has)
+    out = torch.zeros(wo.shape[:-1], dtype=torch.float32, device=wo.device)
+    for k, m, p, two in _passes(materials, slot, active):
+        if k == DIFFUSE:
+            val = diffuse_pdf(two, its.wi, wo, m)
+        else:
+            val = microfacet_pdf(p[2][..., 0], two, its.wi, wo, m)
+        out = torch.where(m, val, out)
+    return out

@@ -53,6 +53,8 @@ def diffuse_pdf(two_side, wi, wo, active):
 
 
 class DiffuseBSDF(BSDF):
+    _tensor_fields = ("reflectance",)
+
     def __init__(self, reflectance=(0.5, 0.5, 0.5), twoSide: bool = False):
         self.reflectance = reflectance
         self.twoSide = bool(twoSide)

@@ -78,6 +78,15 @@ def normalize(v):
     return v * safe_rsqrt(squared_norm(v))[..., None]
 
 
+def lerp(a, b, t):
+    return a + (b - a) * t
+
+
+def mulsign(x, s):
+    """x * sign(s) with sign(0) = +1 (Dr.Jit's ``mulsign``)."""
+    return torch.where(s >= 0.0, x, -x)
+
+
 def sign_eps(x, eps):
     """{-1, 0, +1} as int32 with a dead zone of +-``eps`` (reference
     utils.h:48-54)."""
@@ -107,6 +116,27 @@ def ray_intersect_triangle(p0, e1, e2, ray):
     v = f * dot(ray.d, q)
     t = f * dot(e2, q)
     return torch.stack([u, v], dim=-1), t
+
+
+def ray_intersect_scene_aabb(ray, lower, upper):
+    """Rays against the scene's box from the inside (reference
+    utils.h:145-164): ``(t, n, G)``, the distance to the exit face, that
+    face's inward normal and the geometry factor ``dot(n, -d) / t^2``. A
+    zero direction component never leaves through its axis: its slab time
+    is +inf. The exit axis is the first of the smallest slab times."""
+    inv_d = safe_div(torch.ones_like(ray.d), ray.d)
+    t1 = (lower - ray.o) * inv_d
+    t2 = (upper - ray.o) * inv_d
+    t_far = torch.where(ray.d == 0.0, float("inf"), torch.maximum(t1, t2))
+    tx, ty, tz = t_far.unbind(-1)
+    ax0 = (tx <= ty) & (tx <= tz)
+    ax1 = ~ax0 & (ty <= tz)
+    ax2 = ~ax0 & ~ax1
+    t = torch.where(ax0, tx, torch.where(ax1, ty, tz))
+    n = -torch.sign(ray.d) * torch.stack([ax0, ax1, ax2], -1).to(
+        ray.d.dtype)
+    g = dot(n, -ray.d) * safe_div(torch.ones_like(t), t * t)
+    return t, n, g
 
 
 def mis_weight(pdf1, pdf2):

@@ -15,6 +15,8 @@ EDGE_EPSILON = 1e-5
 
 PI = 3.14159265358979323846
 INV_PI = 1.0 / PI
+TWO_PI = 2.0 * PI
+INV_TWO_PI = 1.0 / TWO_PI
 
 
 @dataclasses.dataclass(init=False)
@@ -87,6 +89,31 @@ class Frame:
     def to_world(self, v):
         return (self.s * v[..., 0:1] + self.t * v[..., 1:2]
                 + self.n * v[..., 2:3])
+
+
+def _sin_theta_2(v):
+    return v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1]
+
+
+def _inv_sin_theta(s2):
+    from .math import _sqrt
+
+    return 1.0 / _sqrt(torch.clamp(s2, min=1e-30))
+
+
+def sin_phi(v):
+    """sin(phi) of local directions (..., 3); 0 at the pole
+    (reference frame.h)."""
+    s2 = _sin_theta_2(v)
+    return torch.where(torch.abs(s2) <= 4.0 * EPSILON, 0.0, torch.clamp(
+        v[..., 1] * _inv_sin_theta(s2), -1.0, 1.0))
+
+
+def cos_phi(v):
+    """cos(phi) of local directions (..., 3); 1 at the pole."""
+    s2 = _sin_theta_2(v)
+    return torch.where(torch.abs(s2) <= 4.0 * EPSILON, 1.0, torch.clamp(
+        v[..., 0] * _inv_sin_theta(s2), -1.0, 1.0))
 
 
 @dataclasses.dataclass

@@ -50,8 +50,10 @@ class AreaLightData:
         ok = active & (its.wi[..., 2] > 0.0)
         return torch.where(ok[..., None], self.radiance, 0.0)
 
-    def sample_position(self, ref_p, sample2, active) -> PositionSample:
-        """A point on the light, uniform by area (area.cpp:29-45)."""
+    def sample_position(self, ref_p, sample2, active,
+                        u_coin=None) -> PositionSample:
+        """A point on the light, uniform by area (area.cpp:29-45); an area
+        light takes no alias coin."""
         ps = sample_position(self.mesh_data, sample2)
         ps.is_valid = ps.is_valid & active
         return ps

@@ -346,7 +346,8 @@ class Integrator:
         """``chunk_vals(lane)`` of the primary-edge term (as
         :func:`chunked_splat_pullback` takes it), attached to ``sd``'s
         edge endpoints. Stream ``seed + STREAM_PRIMARY``: one draw for the
-        edge sample, then ``Li_pair`` from ``sampler.cnt``."""
+        edge sample (two where the table takes an alias coin), then
+        ``Li_pair`` from ``sampler.cnt``."""
         sensor = sd.sensors[sensor_id]
         if sensor.edge_info is None:
             raise ValueError("no primary edges configured: set sppe > 0 "
@@ -354,7 +355,10 @@ class Integrator:
 
         def chunk_vals(lane):
             sampler = Sampler(seed + STREAM_PRIMARY, lane)
-            es = sample_primary_edge(sensor, sampler.next_1d())
+            u1 = sampler.next_1d()
+            coin = sampler.next_1d() if sensor.edge_info.distrb.needs_coin \
+                else None
+            es = sample_primary_edge(sensor, u1, coin)
             valid = es.idx >= 0
             with detached():
                 delta = self.Li_pair(sd, sampler, es.ray_n, es.ray_p, valid)

@@ -29,7 +29,8 @@ from ..core.types import EPSILON, SHADOW_EPSILON, Ray
 from ..ops.gather import gather_rows
 from .base import STREAM_SECONDARY
 
-def eval_secondary_edge(sd, sensor, sample3, diff: bool, u_coin=None):
+def eval_secondary_edge(sd, sensor, sample3, diff: bool, u_coin=None,
+                        u_coin_emitter=None):
     """``(pixel_idx, value)`` of the boundary samples ``sample3`` (N, 3).
 
     ``diff=True``: ``value`` is derivative-only (``result -
@@ -37,8 +38,10 @@ def eval_secondary_edge(sd, sensor, sample3, diff: bool, u_coin=None):
     triangles, the receiver's triangle and the camera pose.
     ``diff=False``: ``value`` is the detached guiding integrand (no normal
     velocity factor) and every pixel index is -1.
-    ``u_coin``: the edge table's alias coin, where it needs one."""
-    bss = sd.sample_boundary_segment_direct(sample3, u_coin=u_coin)
+    ``u_coin``, ``u_coin_emitter``: the edge table's and the emitters'
+    alias coins, where they need one."""
+    bss = sd.sample_boundary_segment_direct(sample3, u_coin=u_coin,
+                                            u_coin_emitter=u_coin_emitter)
     with detached():
         valid = bss.is_valid
         p0, p2 = bss.p0.detach(), bss.p2
@@ -128,10 +131,10 @@ def _guiding_round(sd, sensor_id: int, seed: int, base, unit, cell_idx,
                                          device=cell_idx.device))
     sample3 = (base + sampler.next_nd(3)) * unit
     se_coin = sampler.next_1d() if sd.sec_edge_distrb.needs_coin else None
-    if sd.emitter_coin_needed:
-        sampler.next_1d()
+    em_coin = sampler.next_1d() if sd.emitter_coin_needed else None
     _, value0 = eval_secondary_edge(sd, sd.sensors[sensor_id], sample3,
-                                    diff=False, u_coin=se_coin)
+                                    diff=False, u_coin=se_coin,
+                                    u_coin_emitter=em_coin)
     value0 = scrub_nonfinite(value0)
     if spp_cell > 1:
         value0 = value0 / float(spp_cell)
@@ -199,10 +202,10 @@ class SecondaryEdgeMixin:
                 sample3, pdf0 = warp.sample_reuse(sample3, w_coin)
             se_coin = (sampler.next_1d() if sd.sec_edge_distrb.needs_coin
                        else None)
-            if sd.emitter_coin_needed:
-                sampler.next_1d()
+            em_coin = sampler.next_1d() if sd.emitter_coin_needed else None
             idx, value = eval_secondary_edge(sd, sensor, sample3, diff=True,
-                                             u_coin=se_coin)
+                                             u_coin=se_coin,
+                                             u_coin_emitter=em_coin)
             if pdf0 is not None:
                 value = torch.where((pdf0 > EPSILON)[..., None],
                                     safe_div(value, pdf0[..., None]), value)

@@ -29,11 +29,13 @@ from .edge import SecondaryEdgeMixin
 def nee_contribution(sd, its, sampler, active, throughput,
                      diff: bool = False):
     """Next-event estimation (path.cpp:47-83): the light sample draws one
-    counter (``next_2d``); an area light draws no alias coin. With
+    counter (``next_2d``), then, where ``sd.emitter_coin_needed`` (an
+    environment map's table with alias rows), the alias coin. With
     ``diff`` the contribution is attached (the light point, the shadow
     ray's hit and the materials carry gradients; the MIS pdfs do not)."""
     u2 = sampler.next_2d()
-    ps = sd.sample_emitter_position(its.p, u2, active)
+    coin = sampler.next_1d() if sd.emitter_coin_needed else None
+    ps = sd.sample_emitter_position(its.p, u2, active, coin)
     active_direct = active & ps.is_valid & ~sd.is_emitter(its, active)
     wod = ps.p - its.p
     dist_sqr = dot(wod, wod)
@@ -100,7 +102,8 @@ class PathTracer(SecondaryEdgeMixin, Integrator):
     def Li(self, sd, sampler, ray, active, diff: bool = False,
            vjp_ok: bool = False):
         """Radiance along ``ray``; advances ``sampler.cnt`` by
-        ``2 * max_depth`` like the JAX package's draw schedule.
+        ``2 * max_depth`` (``3 * max_depth`` where the emitters take an
+        alias coin) like the JAX package's draw schedule.
 
         Detached (``diff=False``): K2 (:func:`mega.li_mega`) where
         ``mega.applicable(sd)``, else :meth:`_li_general`. Attached

@@ -7,11 +7,14 @@ arrays convert themselves), and :func:`scene_from_arrays` rebuilds the
 same scene in this package through the normal ``add_*`` calls. The dict
 saves to and loads from ``.npz`` as it is, so a machine without JAX can
 render a scene that was built with it. :func:`params_to_torch` does the
-same for a training step's parameters, so both packages can take the same
-step.
+same for a training step's parameters (a radiance texture among them), so
+both packages can take the same step.
 
-Scope: constant ``DiffuseBSDF``s, ``AreaLight``s, field-of-view
-``PerspectiveCamera``s and ``OrthographicCamera``s; anything else raises.
+Scope: constant ``DiffuseBSDF``s, ``MicrofacetBSDF``s (their three
+bitmaps with their UV transforms), ``AreaLight``s, an ``EnvironmentMap``,
+field-of-view ``PerspectiveCamera``s and ``OrthographicCamera``s; anything
+else raises. A key ``bsdf.{j}.type`` or ``emitter.{k}.type`` is written
+only for a type other than ``DiffuseBSDF`` or ``AreaLight``.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 
 _TRANSFORMS = ("to_world_left", "to_world_raw", "to_world_right")
+_MICROFACET = ("specularReflectance", "diffuseReflectance", "roughness")
 _CAMERAS = ("PerspectiveCamera", "OrthographicCamera")
 
 
@@ -31,8 +35,24 @@ def _tensor(x):
     return torch.tensor(np.asarray(x, np.float32))
 
 
-def scene_to_arrays(scene) -> dict:
-    """``psdr_jit_tpu.Scene`` -> ``{name: np.ndarray}``."""
+def _put_bitmap(out, key, bm):
+    out[f"{key}.data"] = _f32(bm.data)
+    out[f"{key}.uv"] = np.asarray([bm.scale, bm.rot, *np.asarray(bm.trans)],
+                                  np.float32)
+
+
+def _get_bitmap(a, key):
+    from .core.bitmap import Bitmap
+
+    scale, rot, tx, ty = (float(v) for v in a[f"{key}.uv"])
+    return Bitmap(_tensor(a[f"{key}.data"]), scale, rot, (tx, ty))
+
+
+def scene_to_arrays(scene, cell_table: bool = False) -> dict:
+    """``psdr_jit_tpu.Scene`` -> ``{name: np.ndarray}``. ``cell_table``:
+    also carry the masses of an environment map's importance table as the
+    JAX scene's last ``configure()`` built it (``emitter.{k}.cell_pmf``),
+    so that the port can sample from that very table."""
     o = scene.opts
     out = {
         "opts": np.asarray([o.width, o.height, o.spp, o.sppe, o.sppse],
@@ -44,19 +64,38 @@ def scene_to_arrays(scene) -> dict:
         "bsdf_ids": np.asarray([str(b) for b in scene.bsdf_ids] or [""]),
     }
     for j, b in enumerate(scene.bsdfs):
+        kind = type(b).__name__
+        out[f"bsdf.{j}.twoSide"] = np.asarray(bool(b.twoSide))
+        if kind == "MicrofacetBSDF":
+            out[f"bsdf.{j}.type"] = np.asarray(kind)
+            for name in _MICROFACET:
+                _put_bitmap(out, f"bsdf.{j}.{name}", getattr(b, name))
+            continue
         data = np.asarray(getattr(getattr(b, "reflectance", None), "data",
                                   np.zeros(0)))
-        if type(b).__name__ != "DiffuseBSDF" or data.size != 3:
+        if kind != "DiffuseBSDF" or data.size != 3:
             raise NotImplementedError(
-                f"BSDF {j} ({type(b).__name__}): only constant DiffuseBSDFs "
-                "carry over")
+                f"BSDF {j} ({kind}): only constant DiffuseBSDFs and "
+                "MicrofacetBSDFs carry over")
         out[f"bsdf.{j}.reflectance"] = _f32(data).reshape(3)
-        out[f"bsdf.{j}.twoSide"] = np.asarray(bool(b.twoSide))
     for k, em in enumerate(scene.emitters):
-        if type(em).__name__ != "AreaLight":
+        kind = type(em).__name__
+        if kind == "EnvironmentMap":
+            out[f"emitter.{k}.type"] = np.asarray(kind)
+            _put_bitmap(out, f"emitter.{k}.radiance", em.radiance)
+            out[f"emitter.{k}.scale"] = _f32(em.scale).reshape(())
+            for name in ("to_world_raw", "to_world_left"):
+                out[f"emitter.{k}.{name}"] = _f32(getattr(em, name))
+            cells = getattr(em, "_cell_distrb_cache", None)
+            if cell_table and cells is not None:
+                out[f"emitter.{k}.cell_pmf"] = _f32(cells.distrb.pmf)
+                out[f"emitter.{k}.cell_res"] = np.asarray(cells.res,
+                                                          np.int64)
+            continue
+        if kind != "AreaLight":
             raise NotImplementedError(
-                f"emitter {k} ({type(em).__name__}): only AreaLights carry "
-                "over")
+                f"emitter {k} ({kind}): only AreaLights and an "
+                "EnvironmentMap carry over")
         out[f"emitter.{k}.radiance"] = _f32(em.radiance).reshape(3)
         out[f"emitter.{k}.mesh_index"] = np.asarray(int(em.mesh_index),
                                                     np.int64)
@@ -92,8 +131,11 @@ def scene_to_arrays(scene) -> dict:
 def scene_from_arrays(arrays, device="cuda"):
     """``{name: array}`` (or a loaded ``.npz``) -> this package's Scene on
     ``device`` (the card unless the caller asks for the CPU)."""
-    from . import (AreaLight, DiffuseBSDF, Mesh, OrthographicCamera,
-                   PerspectiveCamera, RenderOption, Scene)
+    from . import (AreaLight, DiffuseBSDF, EnvironmentMap, MicrofacetBSDF,
+                   Mesh, OrthographicCamera, PerspectiveCamera, RenderOption,
+                   Scene)
+    from .core.distribution import HyperCubeDistribution
+    from .scene.scene import tree_map
 
     a = {k: np.asarray(arrays[k]) for k in arrays.keys()}
     sc = Scene(device=device)
@@ -111,10 +153,34 @@ def scene_from_arrays(arrays, device="cuda"):
             setattr(cam, name, _tensor(a[f"sensor.{s}.{name}"]))
         sc.add_Sensor(cam)
     for j in range(n_bsdfs):
-        sc.add_BSDF(DiffuseBSDF(_tensor(a[f"bsdf.{j}.reflectance"])),
-                    str(a["bsdf_ids"][j]),
+        kind = str(a.get(f"bsdf.{j}.type", "DiffuseBSDF"))
+        if kind == "MicrofacetBSDF":
+            bsdf = MicrofacetBSDF(*(_get_bitmap(a, f"bsdf.{j}.{name}")
+                                    for name in _MICROFACET))
+        elif kind == "DiffuseBSDF":
+            bsdf = DiffuseBSDF(_tensor(a[f"bsdf.{j}.reflectance"]))
+        else:
+            raise NotImplementedError(f"BSDF {j}: {kind}")
+        sc.add_BSDF(bsdf, str(a["bsdf_ids"][j]),
                     twoSide=bool(a[f"bsdf.{j}.twoSide"]))
+
+    def add_envmaps():
+        """The environment map whose turn in the emitter order has come."""
+        k = len(sc.emitters)
+        if k < n_emitters and str(a.get(f"emitter.{k}.type", "")) == \
+                "EnvironmentMap":
+            env = EnvironmentMap(_get_bitmap(a, f"emitter.{k}.radiance"),
+                                 float(a[f"emitter.{k}.scale"]))
+            env.to_world_left = _tensor(a[f"emitter.{k}.to_world_left"])
+            sc.add_EnvironmentMap(env, _tensor(a[f"emitter.{k}.to_world_raw"]))
+            if f"emitter.{k}.cell_pmf" in a:
+                env._cell_distrb_cache = tree_map(
+                    lambda x: x.to(sc.device), HyperCubeDistribution.init(
+                        a[f"emitter.{k}.cell_res"],
+                        _tensor(a[f"emitter.{k}.cell_pmf"])).with_alias())
+
     for i in range(n_meshes):
+        add_envmaps()
         mesh = Mesh()
         mesh.enable_edges = bool(a[f"mesh.{i}.enable_edges"])
         mesh.load_raw(_tensor(a[f"mesh.{i}.vertex_positions_raw"]),
@@ -130,6 +196,7 @@ def scene_from_arrays(arrays, device="cuda"):
                 raise ValueError("emitters must follow mesh order")
             emitter = AreaLight(_tensor(a[f"emitter.{emitter_id}.radiance"]))
         sc.add_Mesh(mesh, None, "", emitter)
+    add_envmaps()
     if len(sc.emitters) != n_emitters:
         raise ValueError(f"{n_emitters} emitters listed, "
                          f"{len(sc.emitters)} attached to meshes")

@@ -28,7 +28,11 @@ per-lane BSDF and emitter dispatch and the emitter sampling; and the
 secondary-edge term's boundary-segment sampling and differentiable
 (``mode="solid"``) intersection.
 
-Not ported yet: environment maps.
+A scene with an :class:`~psdr_jit_tpu_torch.emitter.envmap.EnvironmentMap`
+(one at most) gets an inward-facing box around the scene and its cameras,
+the bounding mesh, whose emitter is the map; it stays at the tail of the
+triangle order. The map's importance table is built by
+:meth:`Scene.configure` and cached on the map.
 """
 
 from __future__ import annotations
@@ -50,9 +54,13 @@ from ..core.distribution import (SEARCHSORTED_DENSE_MAX,
                                  DiscreteDistribution)
 from ..core.records import BoundarySegSample, PositionSample
 from ..shape.mesh import Mesh, SecondaryEdgeInfo, TriangleInfo, cpu_f32
+from ..sensor.sensor import floored_edge_distrb
 from ..bsdf.bsdf import (BSDF, eval_dispatch, material_table, pdf_dispatch,
                          sample_dispatch)
 from ..emitter.area import AreaLight, AreaLightData, area_light_weight
+from ..emitter.envmap import (EnvironmentMap, EnvironmentMapData,
+                              build_envmap_distribution)
+from ..core.bitmap import Bitmap
 from ..ops import intersect
 from ..ops.gather import gather_rows
 
@@ -94,8 +102,8 @@ def morton_order(centroids) -> np.ndarray:
 
 
 def tree_map(fn, x):
-    """Apply ``fn`` to every tensor of a SceneData (dataclasses, tuples and
-    configured BSDFs), rebuilding the containers."""
+    """Apply ``fn`` to every tensor of a SceneData (dataclasses, such as
+    bitmaps, tuples and configured BSDFs), rebuilding the containers."""
     if isinstance(x, torch.Tensor):
         return fn(x)
     if dataclasses.is_dataclass(x) and not isinstance(x, type):
@@ -106,7 +114,8 @@ def tree_map(fn, x):
         return tuple(tree_map(fn, v) for v in x)
     if isinstance(x, BSDF):
         y = copy.copy(x)
-        y.reflectance = fn(x.reflectance)
+        for name in x._tensor_fields:
+            setattr(y, name, tree_map(fn, getattr(x, name)))
         return y
     return x
 
@@ -121,11 +130,11 @@ class SceneData:
     mesh_bsdf_slot: torch.Tensor     # (M,) int32, -1 = none
     mesh_emitter_slot: torch.Tensor  # (M,) int32, -1 = none
     bsdfs: tuple                     # BSDF objects
-    emitters: tuple                  # AreaLightData
+    emitters: tuple                  # AreaLightData, EnvironmentMapData
     emitters_distrb: Optional[DiscreteDistribution]
     sensors: tuple                   # SensorData
-    lower: torch.Tensor              # (3,) scene AABB
-    upper: torch.Tensor              # (3,)
+    lower: torch.Tensor              # (3,) scene AABB (with an envmap, the
+    upper: torch.Tensor              # (3,) bounding mesh's box)
     # the edges of every edge-enabled mesh in mesh order, and their
     # length-weighted distribution (sppse > 0 only)
     sec_edge: Optional[SecondaryEdgeInfo] = None
@@ -237,20 +246,23 @@ class SceneData:
                             active)
 
     # -- emitter sampling (scene.cpp:987-1024) ------------------------------
-    def sample_emitter_position(self, ref_p, sample2,
-                                active) -> PositionSample:
+    def sample_emitter_position(self, ref_p, sample2, active,
+                                u_coin=None) -> PositionSample:
         """A point on a light: one light directly, several through the
-        emitter distribution with the second uniform reused."""
+        emitter distribution with the second uniform reused. ``u_coin``:
+        the environment map's alias coin, where
+        :attr:`emitter_coin_needed`."""
         if not self.emitters:
             raise ValueError("the scene has no emitter")
         if len(self.emitters) == 1:
-            return self.emitters[0].sample_position(ref_p, sample2, active)
+            return self.emitters[0].sample_position(ref_p, sample2, active,
+                                                    u_coin)
         e_idx, e_pdf, u = self.emitters_distrb.sample_reuse(sample2[..., 1])
         sample2 = torch.stack([sample2[..., 0], u], dim=-1)
         out = None
         for i, em in enumerate(self.emitters):
             m = active & (e_idx == i)
-            ps = em.sample_position(ref_p, sample2, m)
+            ps = em.sample_position(ref_p, sample2, m, u_coin)
             if out is None:
                 out = ps
                 continue
@@ -275,21 +287,25 @@ class SceneData:
 
     @property
     def emitter_coin_needed(self) -> bool:
-        """Whether emitter-position sampling takes an alias coin (a large
-        environment-map importance table): never, while the port's only
-        emitters are area lights."""
-        return False
+        """Whether emitter-position sampling takes an alias coin, as an
+        environment map's importance table with alias rows does: callers
+        draw one more uniform iff this holds (JAX scene.py:275-284)."""
+        return any(isinstance(em, EnvironmentMapData)
+                   and em.cell_distrb.needs_coin for em in self.emitters)
 
     # -- boundary segment sampling (scene.cpp:1027-1068) --------------------
     def sample_boundary_segment_direct(self, sample3, active=None,
-                                       u_coin=None) -> BoundarySegSample:
+                                       u_coin=None, u_coin_emitter=None
+                                       ) -> BoundarySegSample:
         """A segment from a point on a silhouette-candidate edge to a point
         on a light. The first uniform picks the edge by length (``u_coin``:
         the edge table's alias coin where it needs one) and is reused along
-        it; the other two sample the light. The edge point ``p0`` carries
-        the gradients of the edge's vertices; all else is detached. A
-        segment is valid where the light faces the edge point and the edge
-        is a boundary edge or a silhouette seen from the light point."""
+        it; the other two sample the light (``u_coin_emitter``: the
+        environment map's alias coin where it needs one). The edge point
+        ``p0`` carries the gradients of the edge's vertices; all else is
+        detached. A segment is valid where the light faces the edge point
+        and the edge is a boundary edge or a silhouette seen from the light
+        point."""
         se = self.sec_edge
         if se is None:
             raise ValueError("no secondary edges configured: set sppse > 0 "
@@ -315,7 +331,7 @@ class SceneData:
             p0_det = p0.detach()
             pdf0 = safe_div(pdf0, norm(e1_det))
             ps2 = self.sample_emitter_position(p0_det, sample3[..., 1:3],
-                                               active)
+                                               active, u_coin_emitter)
             e = ps2.p - p0_det
             dist_sqr = squared_norm(e)
             e = e * safe_div(1.0, safe_sqrt(dist_sqr))[..., None]
@@ -344,11 +360,13 @@ class Scene:
         self.bsdf_ids: list = []
         self.emitters: list = []
         self.sensors: list = []
+        self.emitter_env: Optional[EnvironmentMap] = None
         self.param_map: dict = {}
         self.seed = 0
         self._data: Optional[SceneData] = None
         self._tri_perm = None
         self._sec_edge_distrb_cache: Optional[DiscreteDistribution] = None
+        self._pe_distrb_caches: dict = {}
 
     @classmethod
     def from_arrays(cls, arrays, device="cuda") -> "Scene":
@@ -375,6 +393,22 @@ class Scene:
         self.bsdf_ids.append(bsdf_id)
         self._rebuild_param_map()
         return len(self.bsdfs) - 1
+
+    def add_EnvironmentMap(self, env, to_world=None, scale=None):
+        """Add the scene's one environment map: an :class:`EnvironmentMap`,
+        or a radiance array with its transform and scale (the reference's
+        two overloads, psdr.cpp:397-398)."""
+        if self.emitter_env is not None:
+            raise ValueError("A scene is only allowed to have one envmap!")
+        if not isinstance(env, EnvironmentMap):
+            env = EnvironmentMap(env, scale=1.0 if scale is None else scale)
+        elif scale is not None:
+            env.scale = scale
+        if to_world is not None:
+            env.to_world_raw = torch.as_tensor(to_world, dtype=torch.float32)
+        self.emitter_env = env
+        self.emitters.append(env)
+        self._rebuild_param_map()
 
     def add_Mesh(self, mesh: Mesh, transform=None, bsdf_id: str = "",
                  emitter: Optional[AreaLight] = None):
@@ -410,21 +444,31 @@ class Scene:
         if not self.sensors:
             raise ValueError("Missing sensor!")
         opts = self.opts
+        mesh_list = list(self.meshes)
         mesh_datas = [m.configure_data(with_edges=opts.sppse > 0)
-                      for m in self.meshes]
+                      for m in mesh_list]
         lower = torch.stack([md.vertex_positions.detach().amin(0)
                              for md in mesh_datas]).amin(0)
         upper = torch.stack([md.vertex_positions.detach().amax(0)
                              for md in mesh_datas]).amax(0)
+        env = self.emitter_env
+        if env is not None:
+            # the bounding mesh (scene.py:576-618), the last mesh
+            lower, upper = self._sky_box(lower, upper)
+            bound = _make_bound_mesh(lower, upper)
+            bound.emitter_id = self.emitters.index(env)
+            env.mesh_index = len(mesh_list)
+            mesh_list.append(bound)
+            mesh_datas.append(bound.configure_data())
         tri = TriangleInfo(*(
             torch.cat([getattr(md.tri, f.name) for md in mesh_datas])
             for f in dataclasses.fields(TriangleInfo)))
         face_normal_mask = torch.cat([
             torch.full((m.num_faces,), bool(m.use_face_normals))
-            for m in self.meshes])
+            for m in mesh_list])
         face_mesh_id = torch.cat([
             torch.full((m.num_faces,), i, dtype=torch.int32)
-            for i, m in enumerate(self.meshes)])
+            for i, m in enumerate(mesh_list)])
         # Morton-reorder the global triangle stream (scene.py:635-651): the
         # permutation comes from the last configure() and stays as it is
         # when parameters move
@@ -436,31 +480,32 @@ class Scene:
                                  for f in dataclasses.fields(TriangleInfo)))
             face_normal_mask = face_normal_mask[full]
             face_mesh_id = face_mesh_id[full]
-        mesh_bsdf_slot = torch.tensor([m.bsdf_id for m in self.meshes],
+        mesh_bsdf_slot = torch.tensor([m.bsdf_id for m in mesh_list],
                                       dtype=torch.int32)
-        mesh_emitter_slot = torch.tensor([m.emitter_id for m in self.meshes],
+        mesh_emitter_slot = torch.tensor([m.emitter_id for m in mesh_list],
                                          dtype=torch.int32)
 
-        # emitter weights (scene.cpp:489-515); the normalized weight is
-        # detached, as in the JAX package
+        # emitter weights (scene.cpp:489-515): an area light's is its area
+        # times its luminance, the map's the sum of the others (1 when it
+        # is alone); the normalized weight is detached, as in the JAX
+        # package
         emitter_datas, emitters_distrb = [], None
         if self.emitters:
-            radiances = [cpu_f32(em.radiance) for em in self.emitters]
-            weights = [area_light_weight(r, mesh_datas[em.mesh_index])
-                       for em, r in zip(self.emitters, radiances)]
+            weights = [area_light_weight(cpu_f32(em.radiance),
+                                         mesh_datas[em.mesh_index])
+                       if isinstance(em, AreaLight) else torch.zeros(())
+                       for em in self.emitters]
+            total = sum(weights)
+            env_w = torch.where(total > 0.0, total, 1.0)
+            weights = [env_w if em is env else w
+                       for em, w in zip(self.emitters, weights)]
             wsum = sum(weights)
             emitters_distrb = DiscreteDistribution.init(torch.stack(weights))
             emitter_datas = [
-                AreaLightData(radiance=r,
-                              sampling_weight=safe_div(w, wsum).detach(),
-                              mesh_data=mesh_datas[em.mesh_index],
-                              mesh_index=em.mesh_index)
-                for em, r, w in zip(self.emitters, radiances, weights)]
-        bsdfs = []
-        for b in self.bsdfs:
-            b = copy.copy(b)
-            b.reflectance = cpu_f32(b.reflectance)
-            bsdfs.append(b)
+                self._emitter_data(em, safe_div(w, wsum).detach(),
+                                   mesh_datas, lower, upper)
+                for em, w in zip(self.emitters, weights)]
+        bsdfs = [tree_map(cpu_f32, b) for b in self.bsdfs]
 
         # secondary edges: every mesh's table in mesh order, sampled by
         # detached length (scene.cpp:546-571); a table above
@@ -479,6 +524,20 @@ class Scene:
             if cache is not None and cache.size == sec_edge_distrb.size:
                 sec_edge_distrb = cache
 
+        # large primary-edge tables: the floored alias table of the last
+        # configure(), while its size holds (JAX scene.py:749-762)
+        sensors = []
+        for i, s in enumerate(self.sensors):
+            sdat = s.configure_data(opts.width, opts.height, mesh_list,
+                                    mesh_datas, with_edges=opts.sppe > 0)
+            cache = self._pe_distrb_caches.get(i)
+            ei = sdat.edge_info
+            if (cache is not None and ei is not None
+                    and cache.size == ei.distrb.size):
+                sdat = dataclasses.replace(sdat, edge_info=dataclasses.replace(
+                    ei, distrb=cache))
+            sensors.append(sdat)
+
         sd = SceneData(
             tri=tri,
             face_normal_mask=face_normal_mask,
@@ -488,10 +547,7 @@ class Scene:
             bsdfs=tuple(bsdfs),
             emitters=tuple(emitter_datas),
             emitters_distrb=emitters_distrb,
-            sensors=tuple(s.configure_data(opts.width, opts.height,
-                                           self.meshes, mesh_datas,
-                                           with_edges=opts.sppe > 0)
-                          for s in self.sensors),
+            sensors=tuple(sensors),
             lower=lower,
             upper=upper,
             sec_edge=sec_edge,
@@ -499,19 +555,86 @@ class Scene:
         )
         return tree_map(lambda x: x.to(self.device), sd)
 
+    def _sky_box(self, lower, upper):
+        """The bounding mesh's box: the geometry's and every camera's (a
+        perspective camera's eye, an orthographic camera's film corners),
+        widened by 5% of its largest extent and at least 1e-3 of its
+        magnitude (JAX scene.py:576-613; the reference's min-extent margin
+        collapses for flat scenes)."""
+        from ..sensor.orthographic import OrthographicCamera
+
+        aspect = float(self.opts.width) / float(self.opts.height)
+        pts = []
+        for s in self.sensors:
+            tw = (cpu_f32(s.to_world_left) @ cpu_f32(s.to_world_raw)
+                  @ cpu_f32(s.to_world_right)).detach()
+            if isinstance(s, OrthographicCamera):
+                for cx in (-1.2, 1.2):
+                    for cy in (-1.2 / aspect, 1.2 / aspect):
+                        pts.append(torch.tensor([cx, cy, 0.0]) @ tw[:3, :3].T
+                                   + tw[:3, 3])
+            else:
+                pts.append(tw[:3, 3])
+        if pts:
+            pts = torch.stack(pts)
+            lower = torch.minimum(lower, pts.amin(0))
+            upper = torch.maximum(upper, pts.amax(0))
+        margin = torch.maximum(
+            0.05 * (upper - lower).amax(),
+            1e-3 * torch.clamp((upper.abs() + lower.abs()).amax(), min=1.0))
+        return lower - margin, upper + margin
+
+    def _emitter_data(self, em, weight, mesh_datas, lower, upper):
+        """The configured emitter ``em`` with its normalized ``weight``."""
+        if isinstance(em, AreaLight):
+            return AreaLightData(radiance=cpu_f32(em.radiance),
+                                 sampling_weight=weight,
+                                 mesh_data=mesh_datas[em.mesh_index],
+                                 mesh_index=em.mesh_index)
+        # the importance table of the last configure(), else built now
+        # (detached) without alias rows (scene.py:691-713)
+        radiance = tree_map(cpu_f32, em.radiance)
+        cells = em._cell_distrb_cache
+        if cells is None:
+            cells = build_envmap_distribution(radiance)
+        to_world = cpu_f32(em.to_world_left) @ cpu_f32(em.to_world_raw)
+        return EnvironmentMapData(
+            radiance=radiance, scale=cpu_f32(em.scale), to_world=to_world,
+            from_world=torch.linalg.inv(to_world), cell_distrb=cells,
+            lower=lower, upper=upper, sampling_weight=weight,
+            mesh_index=em.mesh_index)
+
     def configure(self) -> SceneData:
         """(Re)build and cache the scene data (reference sc.configure()),
-        with the Morton permutation of the current geometry and, above
-        ``SEARCHSORTED_DENSE_MAX`` secondary edges, the edge table's alias
-        rows, which later scene compiles reuse (scene.py:805-830)."""
+        with the Morton permutation of the current geometry, the
+        environment map's importance table with its alias rows, and, for
+        edge tables above ``SEARCHSORTED_DENSE_MAX`` entries, the
+        secondary-edge table's alias rows and each camera's floored
+        primary-edge table (``sensor.floored_edge_distrb``); later scene
+        compiles reuse them all (JAX scene.py:795-852)."""
         self._tri_perm = self._compute_tri_perm()
+        env = self.emitter_env
+        if env is not None:
+            cells = build_envmap_distribution(
+                tree_map(cpu_f32, env.radiance)).with_alias()
+            env._cell_distrb_cache = tree_map(lambda x: x.to(self.device),
+                                              cells)
         self._sec_edge_distrb_cache = None
+        self._pe_distrb_caches = {}
         self._data = self.configure_data()
         sed = self._data.sec_edge_distrb
         if sed is not None and sed.size > SEARCHSORTED_DENSE_MAX:
-            self._sec_edge_distrb_cache = sed.with_alias()
-            self._data = dataclasses.replace(
-                self._data, sec_edge_distrb=self._sec_edge_distrb_cache)
+            self._sec_edge_distrb_cache = sed = sed.with_alias()
+        sensors = []
+        for i, sdat in enumerate(self._data.sensors):
+            ei = sdat.edge_info
+            if ei is not None and ei.distrb.size > SEARCHSORTED_DENSE_MAX:
+                self._pe_distrb_caches[i] = floored_edge_distrb(ei)
+                sdat = dataclasses.replace(sdat, edge_info=dataclasses.replace(
+                    ei, distrb=self._pe_distrb_caches[i]))
+            sensors.append(sdat)
+        self._data = dataclasses.replace(self._data, sec_edge_distrb=sed,
+                                         sensors=tuple(sensors))
         return self._data
 
     def _world_tri_centroids(self) -> np.ndarray:
@@ -549,6 +672,25 @@ class Scene:
             return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
         return self.data.ray_intersect(Ray(f32(ray_o), f32(ray_d)))
+
+
+def _make_bound_mesh(lower, upper) -> Mesh:
+    """The inward-facing box ``[lower, upper]`` for an environment map
+    (scene.cpp:447-470): face normals, no edges, no BSDF. Corner ``i``
+    takes ``upper`` on the axes whose bit is set in ``i``."""
+    corners = torch.arange(8)
+    sel = torch.stack([(corners >> j) & 1 for j in range(3)], -1).to(
+        torch.float32)
+    verts = lower * (1.0 - sel) + upper * sel
+    faces = torch.tensor([[0, 1, 3], [0, 3, 2], [1, 5, 7], [1, 7, 3],
+                          [2, 3, 7], [2, 7, 6], [0, 5, 1], [0, 4, 5],
+                          [0, 2, 6], [0, 6, 4], [4, 7, 5], [4, 6, 7]],
+                         dtype=torch.int32)
+    mesh = Mesh()
+    mesh.use_face_normals = True
+    mesh.enable_edges = False
+    mesh.load_raw(verts, faces)
+    return mesh
 
 
 def _checked_device(device) -> torch.device:

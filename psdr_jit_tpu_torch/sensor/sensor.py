@@ -121,11 +121,30 @@ def _dot2(a, b):
     return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]
 
 
-def sample_primary_edge(sensor: SensorData, sample1) -> PrimaryEdgeSample:
+def floored_edge_distrb(info: PrimaryEdgeInfo) -> DiscreteDistribution:
+    """The table a scene compile samples a large primary-edge set from
+    while the geometry moves (JAX scene.py:759-783): the silhouettes'
+    lengths plus 1/16 of their total spread over every projected edge by
+    length, so that an edge that becomes a silhouette after the last
+    ``configure()`` stays sampleable (a non-silhouette draw weighs 0),
+    with alias rows. Detached."""
+    with detached():
+        keep = info.edge_length
+        e = info.p1 - info.p0
+        raw = safe_sqrt(_dot2(e, e))
+        tk = keep.sum()
+        tr = torch.clamp(raw.sum(), min=1e-30)
+        mass = keep + raw * (torch.where(tk > 0.0, tk, tr) / tr / 16.0)
+        return DiscreteDistribution.init(mass).with_alias()
+
+
+def sample_primary_edge(sensor: SensorData, sample1,
+                        u_coin=None) -> PrimaryEdgeSample:
     """Sample a point on a projected silhouette edge
-    (perspective.cpp:200-226)."""
+    (perspective.cpp:200-226); ``u_coin`` is the edge table's alias coin
+    where it needs one."""
     info = sensor.edge_info
-    edge_idx, pdf, u = info.distrb.sample_reuse(sample1)
+    edge_idx, pdf, u = info.distrb.sample_reuse(sample1, u_coin)
     j = edge_idx.long()
     # gather_rows, an index_select: the backward of ``p0[j]`` is a sorted
     # index_put that walks each edge's run of duplicate samples serially,

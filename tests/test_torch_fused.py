@@ -161,9 +161,11 @@ def _feed_jax_rays(monkeypatch):
         return Ray(t(j.o) + (ray.o - ray.o.detach()),
                    t(j.d) + (ray.d - ray.d.detach()))
 
-    def edge(sensor, sample1):
-        es = port_edge(sensor, sample1)
-        j = j_sample_pe(jsensor, jnp.asarray(sample1.numpy()))
+    def edge(sensor, sample1, u_coin=None):
+        es = port_edge(sensor, sample1, u_coin)
+        j = j_sample_pe(jsensor, jnp.asarray(sample1.numpy()),
+                        None if u_coin is None else jnp.asarray(
+                            u_coin.numpy()))
         return dataclasses.replace(es, ray_n=Ray(t(j.ray_n.o), t(j.ray_n.d)),
                                    ray_p=Ray(t(j.ray_p.o), t(j.ray_p.d)))
 

@@ -26,8 +26,9 @@ import pytest
 import torch
 
 import psdr_jit_tpu_torch as pt
-from chip_smoke import (K1_GALLERY, edge_rays, gallery_arrays, mixed_rays,
-                        swapped_children, tie_case, train_setup)
+from chip_smoke import (K1_GALLERY, edge_rays, envmap_arrays, envmap_setup,
+                        gallery_arrays, mixed_rays, swapped_children,
+                        tie_case, train_setup)
 from psdr_jit_tpu_torch.integrator import base
 from psdr_jit_tpu_torch.integrator.base import interior_lane_setup
 from psdr_jit_tpu_torch.ops import _cuda
@@ -471,6 +472,33 @@ def test_secondary_edge_step_on_card(cuda):
     assert torch.equal(img.cpu(), img_p)
     for k, g in grads_p.items():
         assert _rel(grads[k], g) < 1e-5, k
+
+
+@pytest.mark.gpu
+def test_envmap_step_on_card(cuda):
+    """loss_and_grad of BASELINE config #3's stand-in (5,132 triangles, a
+    512x1024 map, Microfacet) through K6 against the same step on the CPU:
+    only the last bits of ``sin``, ``cos``, ``atan2``, ``acos`` and
+    ``exp2`` differ between the two (``[envmap-64]`` of chip_smoke.py
+    measured 3.6e-7 in the loss and 3.5e-5 in a gradient); K6 launched 12
+    times (3 an interior chunk, 6 a primary-edge chunk, 3 a
+    secondary-edge chunk)."""
+    steps = []
+    for device in (cuda, "cpu"):
+        sc = pt.Scene.from_arrays(envmap_arrays(32, 32, 4, 4, 4),
+                                  device=device)
+        sc.configure()
+        _cuda.reset_launches()
+        steps.append(pt.PathTracer(1).loss_and_grad(sc, *envmap_setup(sc),
+                                                    seed=3))
+        if device == cuda:
+            assert _cuda.LAUNCHES["K6"] == 12
+            assert sum(_cuda.LAUNCHES.values()) == 12
+    (loss, grads, img), (loss_p, grads_p, img_p) = steps
+    assert abs(float(loss) - float(loss_p)) < 1e-5 * abs(float(loss_p))
+    assert _rel(img.cpu(), img_p) < 1e-5
+    for k, g in grads_p.items():
+        assert float(g.abs().sum()) > 0 and _rel(grads[k], g) < 1e-3, k
 
 
 @pytest.mark.gpu
