@@ -119,6 +119,20 @@ ENVMAP_GUIDE = (2000, 5, 5, 32)
 ENVMAP_TERMS = ((128, 0, 0), (0, 128, 0), (0, 0, 128))
 # [envmap-64]: the guiding grid (8,192 cells, so alias rows and their coin)
 ENVMAP_GUIDE_64 = (128, 4, 4, 4)
+# the textured path, BASELINE config #4 (texture and radiance recovery) on
+# the UV-mapped box of textured_cbox_arrays(): width, height and spp =
+# sppe = sppse, PathTracer(3), the albedo and block texture sizes, the
+# Adam steps (one sensor each, in turn) and their learning rate
+TEXTURED = (512, 512, 32)
+TEXTURED_DEPTH = 3
+TEXTURED_TEX = (1024, 512)
+TEXTURED_STEPS = 4
+TEXTURED_LR = 0.05
+# the gallery training step (bench.py _time_bvh_grad): 80 spheres at
+# subdivision 3 (102,412 triangles) at 256x256, spp = sppe = sppse 4,
+# PathTracer(2), gradients to the first sphere's vertices and the radiance
+GALLERY_STEP = (256, 256, 4, 80, 3)
+GALLERY_STEP_DEPTH = 2
 # cycles the card spins in cuda_ms while the host queues the timed calls
 # (~5 ms on an H100)
 HOLD_CYCLES = 10_000_000
@@ -629,14 +643,14 @@ def train_setup(scene, seed: int = SEED):
         light.to_world_raw = base + torch.nn.functional.pad(
             p["tx"].reshape(1, 1), (3, 0, 0, 3))
         block.vertex_positions_raw = verts + p["dv"]
-        scene.bsdfs[1].reflectance = p["alb"]
+        scene.bsdfs[1].reflectance.data = p["alb"].reshape(1, 1, 3)
         scene.emitters[0].radiance = p["rad"]
 
     def pixel_loss(rows, pix):
         return ((rows - target[pix]) ** 2).sum(-1)
 
     params = {"tx": torch.zeros(()), "dv": torch.zeros_like(verts),
-              "alb": scene.bsdfs[1].reflectance.clone(),
+              "alb": scene.bsdfs[1].reflectance.data.reshape(3).clone(),
               "rad": scene.emitters[0].radiance.clone()}
     return params, apply_params, pixel_loss
 
@@ -662,6 +676,24 @@ def forward_mode(integrator, scene, set_param, value, direction,
                    else tangent.clone())
     set_param(value)
     return primal, tangent
+
+
+def func_jvp(integrator, scene, set_param, value, direction,
+             seed: int = SEED, **kwargs):
+    """``(primal, tangent)`` of ``integrator.renderD(scene)`` by
+    ``torch.func.jvp`` of the render as a function of ``value``, which
+    ``set_param`` puts on the scene objects (``value`` back after)."""
+    import torch
+
+    def render(v):
+        set_param(v)
+        return integrator.renderD(scene, 0, seed=seed, **kwargs)
+
+    try:
+        return torch.func.jvp(render, (value,), (torch.as_tensor(
+            direction, dtype=torch.float32).to(value.device),))
+    finally:
+        set_param(value)
 
 
 def renderd_tangent(integrator, scene, setup, name, direction,
@@ -732,15 +764,16 @@ def _icosphere(subdiv: int):
 
 
 def gallery_arrays(width=256, height=256, spp=4, n_spheres=80, subdiv=3,
-                   seed=0) -> dict:
+                   seed=0, sppe=0, sppse=0, edge_spheres=0) -> dict:
     """The large-scene gallery of ``tests/scenes.py`` ``make_gallery`` as
     the dict ``interop.scene_to_arrays`` makes of it, built with numpy: a
     lit box room [0, 10]^3 (open front) holding a jittered grid of
     ``n_spheres`` smooth icospheres, ``n_spheres * 20 * 4^subdiv + 12``
-    triangles (102,412 by default). The card's machine has no JAX."""
+    triangles (102,412 by default), the first ``edge_spheres`` of them
+    with their edges on. The card's machine has no JAX."""
     import numpy as np
 
-    out = {"opts": np.asarray([width, height, spp, 0, 0], np.int64),
+    out = {"opts": np.asarray([width, height, spp, sppe, sppse], np.int64),
            "seed": np.asarray(0, np.int64)}
     eye = np.asarray(_EYE4, np.float32)
     ids = ["light", "wall"] + [f"m{i}" for i in range(6)]
@@ -780,7 +813,8 @@ def gallery_arrays(width=256, height=256, spp=4, n_spheres=80, subdiv=3,
                 c += rng.uniform(-0.3, 0.3, 3)
                 r = rng.uniform(0.35, 0.6)
                 meshes.append(((sv * r + c[None, :]).astype(np.float32), sf,
-                               False, False, f"m{placed % 6}"))
+                               False, placed < edge_spheres,
+                               f"m{placed % 6}"))
                 placed += 1
     for i, (v, f, fn, edges, bsdf) in enumerate(meshes):
         out[f"mesh.{i}.vertex_positions_raw"] = v
@@ -891,6 +925,124 @@ def envmap_arrays(width=128, height=128, spp=32, sppe=32, sppse=32,
     out["sensor.0.to_world_raw"] = np.diag([-1.0, 1.0, -1.0, 1.0]).astype(
         np.float32)
     out["sensor.0.to_world_right"] = eye
+    return out
+
+
+# the Cornell box's centre, which the textured box's other cameras face
+CBOX_CENTRE = (278.0, 274.4, 279.6)
+QUAD_UV = ((0.0, 0.0), (1.0, 0.0), (1.0, 1.0), (0.0, 1.0))
+
+
+def texture_map(h: int, w: int, channels: int, lo: float, hi: float,
+                seed: int):
+    """A seeded (h, w, channels) float32 texture in [lo, hi]: an 8x8
+    checker (weight 0.6) plus value noise (0.4), a 9x9 grid of uniform
+    values a channel, bilinearly interpolated across the texture."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    checker = ((yy * 8 // h + xx * 8 // w) % 2).astype(np.float64)
+    grid = rng.random((9, 9, channels))
+    fy, fx = yy * (8.0 / max(h - 1, 1)), xx * (8.0 / max(w - 1, 1))
+    y0, x0 = np.minimum(fy.astype(int), 7), np.minimum(fx.astype(int), 7)
+    ty, tx = (fy - y0)[..., None], (fx - x0)[..., None]
+    noise = ((1 - ty) * ((1 - tx) * grid[y0, x0] + tx * grid[y0, x0 + 1])
+             + ty * ((1 - tx) * grid[y0 + 1, x0] + tx * grid[y0 + 1, x0 + 1]))
+    val = 0.6 * checker[..., None] + 0.4 * noise
+    return (lo + (hi - lo) * val).astype(np.float32)
+
+
+def _look_at(origin, target):
+    """Camera-to-world of a camera at ``origin`` facing ``target``, y up
+    (the reference's look_at: columns left, up, direction, origin)."""
+    import numpy as np
+
+    o, t = np.asarray(origin, np.float64), np.asarray(target, np.float64)
+    d = (t - o) / np.linalg.norm(t - o)
+    left = np.cross([0.0, 1.0, 0.0], d)
+    left /= np.linalg.norm(left)
+    m = np.eye(4)
+    m[:3, 0], m[:3, 1], m[:3, 2], m[:3, 3] = left, np.cross(d, left), d, o
+    return m.astype(np.float32)
+
+
+def textured_cameras():
+    """The to_world of the textured box's four sensors: the README camera
+    at (278, 273, -800) facing +z, then three facing the box's centre:
+    the README camera's eye yawed by +20 and -20 degrees about the
+    centre's vertical, and raised by 150."""
+    import numpy as np
+
+    eye = np.asarray([278.0, 273.0, -800.0])
+    c = np.asarray(CBOX_CENTRE)
+    mats = [np.asarray([[1.0, 0, 0, 278.0], [0, 1, 0, 273.0],
+                        [0, 0, 1, -800.0], [0, 0, 0, 1.0]], np.float32)]
+    for deg in (20.0, -20.0):
+        a = np.radians(deg)
+        rot = np.asarray([[np.cos(a), 0.0, np.sin(a)], [0.0, 1.0, 0.0],
+                          [-np.sin(a), 0.0, np.cos(a)]])
+        mats.append(_look_at(c + rot @ (eye - c), c))
+    mats.append(_look_at(eye + [0.0, 150.0, 0.0], c))
+    return mats
+
+
+def textured_textures(tex=TEXTURED_TEX, seed: int = 0) -> dict:
+    """The textured box's seeded textures: the white walls' albedo
+    (``tex[0]``² x 3 in 0.05-0.95), the tall block's diffuse albedo
+    (``tex[1]``² x 3, same range) and roughness (``tex[1]``² x 1 in
+    0.1-0.6)."""
+    a, b = tex
+    return {"albedo": texture_map(a, a, 3, 0.05, 0.95, seed),
+            "block": texture_map(b, b, 3, 0.05, 0.95, seed + 1),
+            "roughness": texture_map(b, b, 1, 0.1, 0.6, seed + 2)}
+
+
+def textured_cbox_arrays(width=512, height=512, spp=32, sppe=32, sppse=32,
+                         tex=TEXTURED_TEX, seed: int = 0) -> dict:
+    """BASELINE config #4's scene on the Cornell box, as the dict
+    ``interop.scene_to_arrays`` makes of it: ``make_cbox``'s geometry
+    (``tests/data/cbox_scene.npz``) with every quad UV-mapped (0, 0), (1,
+    0), (1, 1), (0, 1); the white walls (``bsdfs[2]``) a ``DiffuseBSDF``
+    of the seeded albedo texture of :func:`textured_textures`; the tall
+    block (mesh 2) a ``MicrofacetBSDF`` of a constant 0.04 specular and
+    the seeded diffuse and roughness textures (``bsdfs[5]``, id "tall");
+    the other materials and the area light as in ``make_cbox``; four
+    field-of-view 39 cameras (:func:`textured_cameras`)."""
+    import numpy as np
+
+    base = np.load(SCENE_NPZ)
+    out = {k: base[k] for k in base.files}
+    out["opts"] = np.asarray([width, height, spp, sppe, sppse], np.int64)
+    n_meshes = int(out["counts"][0])
+    out["counts"] = np.asarray([n_meshes, 6, 1, 4], np.int64)
+    out["bsdf_ids"] = np.asarray([*out["bsdf_ids"].tolist(), "tall"])
+    maps = textured_textures(tex, seed)
+    ident = np.asarray([1.0, 0.0, 0.0, 0.0], np.float32)
+    del out["bsdf.2.reflectance"]
+    out["bsdf.2.reflectance.data"] = maps["albedo"]
+    out["bsdf.2.reflectance.uv"] = ident
+    out["bsdf.5.twoSide"] = np.asarray(False)
+    out["bsdf.5.type"] = np.asarray("MicrofacetBSDF")
+    for name, value in (("specularReflectance",
+                         np.full((1, 1, 3), 0.04, np.float32)),
+                        ("diffuseReflectance", maps["block"]),
+                        ("roughness", maps["roughness"])):
+        out[f"bsdf.5.{name}.data"] = value
+        out[f"bsdf.5.{name}.uv"] = ident
+    for i in range(n_meshes):
+        faces = out[f"mesh.{i}.face_indices"]
+        n_quads = out[f"mesh.{i}.vertex_positions_raw"].shape[0] // 4
+        out[f"mesh.{i}.vertex_uv"] = np.tile(np.asarray(QUAD_UV, np.float32),
+                                             (n_quads, 1))
+        out[f"mesh.{i}.face_uv_indices"] = faces.copy()
+    out["mesh.2.bsdf_id"] = np.asarray(5, np.int64)
+    eye = np.asarray(_EYE4, np.float32)
+    for s, m in enumerate(textured_cameras()):
+        out[f"sensor.{s}.fov_near_far"] = out["sensor.0.fov_near_far"]
+        out[f"sensor.{s}.to_world_left"] = eye
+        out[f"sensor.{s}.to_world_raw"] = m
+        out[f"sensor.{s}.to_world_right"] = eye
     return out
 
 
@@ -2343,6 +2495,31 @@ def envmap_setup(scene, seed: int = SEED):
     return params, apply_params, pixel_loss
 
 
+def gallery_step_setup(scene, seed: int = SEED):
+    """``(params, apply_params, pixel_loss)`` of the gallery's training step
+    (``bench.py _time_bvh_grad``): offsets of the first sphere's (mesh 6,
+    edges on) raw vertices ``dv`` and of the light's radiance ``dr``, an
+    L2 loss against a seeded random target."""
+    import numpy as np
+    import torch
+
+    mesh, em = scene.meshes[6], scene.emitters[0]
+    verts = mesh.vertex_positions_raw.clone()
+    rad = em.radiance.clone()
+    target = torch.from_numpy(np.random.default_rng(seed).random(
+        (scene.opts.num_pixels, 3)).astype(np.float32)).to(scene.device)
+
+    def apply_params(p):
+        mesh.vertex_positions_raw = verts + p["dv"]
+        em.radiance = rad + p["dr"]
+
+    def pixel_loss(rows, pix):
+        return ((rows - target[pix]) ** 2).sum(-1)
+
+    params = {"dv": torch.zeros_like(verts), "dr": torch.zeros_like(rad)}
+    return params, apply_params, pixel_loss
+
+
 def mesh_tx_tangent(integrator, scene, seed: int = SEED):
     """``forward_mode`` of renderD along the x translation of mesh 0."""
     import torch
@@ -2664,6 +2841,423 @@ def envmap_phases(dev, kernels) -> dict:
     return {"K6": sum(k6.values())}
 
 
+def func_jvp_phase(arrays, dev):
+    """[func-jvp]: ``torch.func.jvp`` of renderD of the box at 64x64, spp
+    8, sppe 8, sppse 8, ``PathTracer(3)``, along the light's translation,
+    on the card (the kernels are PyTorch operators, so functorch's tensors
+    never reach a launch), against ``torch.autograd.forward_ad``: the
+    primal and the tangent within 1e-5 rel L1 (the order of the splats'
+    float atomics), K1 and K2 pair launched."""
+    import torch
+    import psdr_jit_tpu_torch as pt
+    from psdr_jit_tpu_torch.ops import _cuda
+
+    sc = pt.Scene.from_arrays(arrays, device=dev)
+    sc.opts = pt.RenderOption(64, 64, 8, 8, 8)
+    setup = train_setup(sc)
+    params, apply_params, _ = setup
+    integ = pt.PathTracer(DEPTH)
+    p_f, t_f = renderd_tangent(integ, sc, setup, "tx", 1.0)
+    _cuda.reset_launches()
+    p_j, t_j = func_jvp(integ, sc, lambda v: apply_params(
+        {**params, "tx": v}), params["tx"], 1.0)
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    rels = {"primal": rel_l1(p_j, p_f), "tangent": rel_l1(t_j, t_f)}
+    log("func-jvp", size="64x64", spp=8, sppe=8, sppse=8, depth=DEPTH,
+        K1_LAUNCHES=launches["K1"], K2_pair_LAUNCHES=launches["K2-pair"],
+        rel_l1_vs_forward_ad=",".join(f"{k}:{v:.3e}"
+                                      for k, v in rels.items()),
+        tangent_l1=f"{float(t_f.abs().sum()):.4e}")
+    require(launches["K1"] > 0 and launches["K2-pair"] > 0,
+            "func-jvp: the kernels were not launched")
+    require(float(t_f.abs().sum()) > 0, "func-jvp: a zero tangent")
+    require(all(v < 1e-5 for v in rels.values()),
+            "func-jvp: torch.func.jvp differs from forward_ad")
+
+
+def textured_setup(scene):
+    """``(params, apply_params)`` of the textured box's recovery: the data
+    of its three textures (``albedo``, ``block``, ``roughness``) and the
+    light's ``radiance``."""
+    maps = {"albedo": scene.bsdfs[2].reflectance,
+            "block": scene.bsdfs[5].diffuseReflectance,
+            "roughness": scene.bsdfs[5].roughness}
+    em = scene.emitters[0]
+
+    def apply_params(p):
+        for k, bm in maps.items():
+            bm.data = p[k]
+        em.radiance = p["radiance"]
+
+    params = {k: bm.data.clone() for k, bm in maps.items()}
+    params["radiance"] = em.radiance.clone()
+    return params, apply_params
+
+
+def textured_start(params):
+    """BASELINE config #4's start: every texture at 0.5, the radiance x
+    1.5."""
+    import torch
+
+    return {k: 1.5 * v if k == "radiance" else torch.full_like(v, 0.5)
+            for k, v in params.items()}
+
+
+def l2_loss(target):
+    return lambda rows, pix: ((rows - target[pix]) ** 2).sum(-1)
+
+
+def albedo_weight(shape, device, seed: int = 4):
+    """A seeded direction in the albedo texture's space (the tangent's)."""
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        shape).astype(np.float32)).to(device)
+
+
+def texture_64_phase(dev):
+    """[texture-64]: the textured box (``textured_cbox_arrays`` at 64x64,
+    spp 4, sppe 4, sppse 4, the full-size textures), ``PathTracer(3)``,
+    through the kernels and, on the CPU, through the plain versions: a
+    frame from sensor 1, a training step from sensor 2 at the recovery's
+    start against a seeded target, with gradients to the three textures
+    and the radiance, and the renderD tangent along a seeded direction of
+    the albedo texture. Loss and images within 1e-4 rel L1, gradients and
+    the tangent within 1e-3."""
+    import numpy as np
+    import torch
+    import psdr_jit_tpu_torch as pt
+
+    arrays = textured_cbox_arrays(64, 64, 4, 4, 4)
+    target = np.random.default_rng(SEED).random((64 * 64, 3)).astype(
+        np.float32)
+    out = {}
+    for name, device in (("kernels", dev), ("plain", torch.device("cpu"))):
+        sc = pt.Scene.from_arrays(arrays, device=device)
+        sc.configure()
+        integ = pt.PathTracer(TEXTURED_DEPTH)
+        params, apply_params = textured_setup(sc)
+        params = {k: v.to(device) for k, v in params.items()}
+        t0 = time.perf_counter()
+        img = integ.renderC(sc, 1, seed=SEED)
+        loss, grads, img_t = integ.loss_and_grad(
+            sc, textured_start(params), apply_params,
+            l2_loss(torch.from_numpy(target).to(device)), 2, SEED)
+        apply_params(params)
+        primal, tangent = forward_mode(
+            integ, sc, lambda v: apply_params({**params, "albedo": v}),
+            params["albedo"], albedo_weight(params["albedo"].shape, device))
+        out[name] = dict(img=img.cpu(), loss=float(loss), img_t=img_t.cpu(),
+                         grads={k: v.cpu() for k, v in grads.items()},
+                         primal=primal.cpu(), tangent=tangent.cpu(),
+                         ms=(time.perf_counter() - t0) * 1e3)
+    k, p = out["kernels"], out["plain"]
+    rels = {"frame": rel_l1(k["img"], p["img"]),
+            "loss": abs(k["loss"] - p["loss"]) / abs(p["loss"]),
+            "step_image": rel_l1(k["img_t"], p["img_t"]),
+            **{f"grad_{n}": rel_l1(k["grads"][n], p["grads"][n])
+               for n in p["grads"]},
+            "primal": rel_l1(k["primal"], p["primal"]),
+            "tangent": rel_l1(k["tangent"], p["tangent"])}
+    log("texture-64", spp=4, sppe=4, sppse=4, depth=TEXTURED_DEPTH,
+        textures=",".join(map(str, TEXTURED_TEX)),
+        rel_l1=",".join(f"{n}:{v:.3e}" for n, v in rels.items()),
+        ms=f"{k['ms']:.1f}", plain_cpu_ms=f"{p['ms']:.1f}")
+    require(all(rels[n] < 1e-4 for n in ("frame", "loss", "step_image",
+                                         "primal")),
+            "texture-64: an image or the loss differs from the plain path")
+    require(all(v < 1e-3 for n, v in rels.items()
+                if n.startswith("grad_") or n == "tangent"),
+            "texture-64: a gradient or the tangent differs from the plain "
+            "path by >= 1e-3")
+    require(all(float(x.abs().sum()) > 0 for x in
+                [p["tangent"], *p["grads"].values()]),
+            "texture-64: a gradient or the tangent is zero")
+
+
+def general_launches(n_pix: int, spp: int, sppe: int, sppse: int,
+                     depth: int, interior_chunk: int) -> int:
+    """The closest-hit launches of a render or step outside the
+    megakernels' scope: ``1 + 2 depth`` a chunk of the interior term
+    (``interior_chunk`` lanes) and of each of the primary-edge term's two
+    sequential Li, three a chunk of the secondary-edge term."""
+    from psdr_jit_tpu_torch.integrator import base
+
+    def chunks(lanes, size):
+        return -(-lanes // size)
+
+    per_li = 1 + 2 * depth
+    return (chunks(n_pix * spp, interior_chunk) * per_li
+            + chunks(n_pix * sppe, base.TRAIN_CHUNK_LANES) * 2 * per_li
+            + chunks(n_pix * sppse, base.SE_CHUNK_LANES) * 3)
+
+
+def textured_phases(dev) -> dict:
+    """[main-path-texture], [texture], [texture-recovery]: BASELINE config
+    #4 on the textured box at full size (``TEXTURED``: 512x512, spp, sppe
+    and sppse 32, ``PathTracer(3)``, 1024x1024 and 512x512 textures).
+    With the launch counts set to 0 before each part and read after it:
+    a frame, four target frames (renderC from each sensor at seed 1000 +
+    k with the true textures), the recovery (from textures 0.5 and the
+    radiance x 1.5, ``TEXTURED_STEPS`` steps of ``torch.optim.Adam`` at
+    ``TEXTURED_LR``, step i from sensor i mod 4 against its target,
+    gradients to the three textures' data and the radiance) and renderD
+    along a seeded direction of the albedo texture, forward and reverse:
+    K1 only, as the routing says, no plain version. Then their times, the
+    step's rays, peak memory, split and device busy share. Returns the
+    main path's launches."""
+    import torch
+    import psdr_jit_tpu_torch as pt
+    from psdr_jit_tpu_torch.integrator import base
+    from psdr_jit_tpu_torch.ops import _cuda
+
+    W, H, S = TEXTURED
+    n_pix = W * H
+    sc = pt.Scene.from_arrays(textured_cbox_arrays(W, H, S, S, S), device=dev)
+    sc.configure()
+    integ = pt.PathTracer(TEXTURED_DEPTH)
+    truth, apply_params = textured_setup(sc)
+    truth = {k: v.to(dev) for k, v in truth.items()}
+    apply_params(truth)
+    weight = albedo_weight(truth["albedo"].shape, dev)
+    pix_w = renderd_weight(n_pix, dev)
+    state = {}
+
+    def targets():
+        return [integ.renderC(sc, k, seed=1000 + k) for k in range(4)]
+
+    def recovery():
+        tg = state["targets"]
+        p = {k: v.clone().requires_grad_()
+             for k, v in textured_start(truth).items()}
+        opt = torch.optim.Adam(list(p.values()), lr=TEXTURED_LR)
+        losses, step_ms = [], []
+        for i in range(TEXTURED_STEPS):
+            t0 = time.perf_counter()
+            loss, grads, _ = integ.loss_and_grad(
+                sc, {k: v.detach() for k, v in p.items()}, apply_params,
+                l2_loss(tg[i % 4]), i % 4, SEED + i)
+            for k, v in p.items():
+                v.grad = grads[k]
+            opt.step()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+            state["grads"] = grads
+        apply_params(truth)
+        return p, losses, step_ms
+
+    def forward():
+        return forward_mode(integ, sc, lambda v: apply_params(
+            {**truth, "albedo": v}), truth["albedo"], weight)
+
+    def reverse():
+        p = {k: v.clone().requires_grad_() for k, v in truth.items()}
+        apply_params(p)
+        try:
+            img = integ.renderD(sc, 0, seed=SEED)
+            return torch.autograd.grad((img * pix_w).sum(), p["albedo"])[0]
+        finally:
+            apply_params(truth)
+
+    per_li = 1 + 2 * TEXTURED_DEPTH
+    want = {"frame": general_launches(n_pix, S, 0, 0, TEXTURED_DEPTH,
+                                      base.GENERAL_CHUNK_LANES),
+            "targets": 4 * general_launches(n_pix, S, 0, 0, TEXTURED_DEPTH,
+                                            base.GENERAL_CHUNK_LANES),
+            "recovery": TEXTURED_STEPS * general_launches(
+                n_pix, S, S, S, TEXTURED_DEPTH, base.TRAIN_CHUNK_LANES),
+            "renderD_forward": general_launches(
+                n_pix, S, S, S, TEXTURED_DEPTH, base.DIFF_CHUNK_LANES)}
+    runs = {"frame": lambda: integ.renderC(sc, 0, seed=SEED),
+            "targets": targets, "recovery": recovery,
+            "renderD_forward": forward, "renderD_reverse": reverse}
+    got, outs = {}, {}
+    torch.cuda.synchronize()
+    with PlainCalls() as plain:
+        for name, fn in runs.items():
+            _cuda.reset_launches()
+            outs[name] = fn()
+            torch.cuda.synchronize()
+            got[name] = dict(_cuda.LAUNCHES)
+            if name == "targets":
+                state["targets"] = outs[name]
+        plain_count = plain.count
+    k1 = {n: g["K1"] for n, g in got.items()}
+    others = sum(v for g in got.values() for k, v in g.items() if k != "K1")
+    log("main-path-texture", K1_LAUNCHES=sum(k1.values()),
+        **{f"K1_{n}": v for n, v in k1.items()},
+        K1_expected=",".join(f"{n}:{v}" for n, v in want.items()),
+        per_li=per_li, other_launches=others, plain_calls=plain_count)
+    require(all(k1[n] == v for n, v in want.items()),
+            "textured main path: K1 launches != the routing's")
+    require(k1["renderD_reverse"] > 0, "textured renderD: K1 not launched")
+    require(others == 0, "textured main path: another kernel ran (K2 to "
+            "K6)")
+    require(plain_count == 0, "textured main path: a plain version ran")
+
+    img = outs["frame"]
+    p, losses, adam_ms = outs["recovery"]
+    require(tuple(img.shape) == (n_pix, 3) and bool(
+        torch.isfinite(img).all()) and float(img.mean()) > 0,
+        "textured frame: non-finite, misshapen or black")
+    require(all(bool(torch.isfinite(t).all()) for t in outs["targets"]),
+            "textured targets: non-finite")
+    require(all(torch.isfinite(torch.tensor(losses))) and all(
+        bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0
+        for g in state["grads"].values()),
+        "textured recovery: non-finite or zero loss or gradient")
+    primal, tangent = outs["renderD_forward"]
+    g_rev = outs["renderD_reverse"]
+    require(bool(torch.isfinite(tangent).all()) and float(
+        tangent.abs().sum()) > 0 and bool(torch.isfinite(g_rev).all())
+        and float(g_rev.abs().sum()) > 0,
+        "textured renderD: a non-finite or zero tangent or gradient")
+    # the adjoint identity: <w, J d> = <J^T w, d>
+    fwd_dot = float((tangent * pix_w).sum())
+    rev_dot = float((g_rev * weight).sum())
+    adjoint = abs(fwd_dot - rev_dot) / abs(rev_dot)
+    err = {k: float((p[k].detach() - truth[k]).abs().mean())
+           for k in truth}
+    err0 = {k: float((v - truth[k]).abs().mean())
+            for k, v in textured_start(truth).items()}
+
+    start = textured_start(truth)
+
+    def step():
+        return integ.loss_and_grad(sc, start, apply_params,
+                                   l2_loss(state["targets"][0]), 0, SEED)
+
+    frame_ms = wall_ms(runs["frame"], 3)
+    frame_busy = device_busy_ms(runs["frame"])
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_ms = wall_ms(step, 3)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    step_busy = device_busy_ms(step)
+    split = step_split(integ, step)
+    apply_params(truth)
+    fwd_ms = wall_ms(forward, 3)
+    torch.cuda.reset_peak_memory_stats(dev)
+    rev_ms = wall_ms(reverse, 3)
+    rev_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    rays = n_pix * (S * (1 + 2 * TEXTURED_DEPTH)
+                    + S * 2 * (1 + 2 * TEXTURED_DEPTH) + S * 3)
+    frame_rays = n_pix * S * (1 + 2 * TEXTURED_DEPTH)
+    log("texture", size=f"{W}x{H}", spp=S, sppe=S, sppse=S,
+        depth=TEXTURED_DEPTH, textures=",".join(map(str, TEXTURED_TEX)),
+        frame_ms=f"{frame_ms:.2f}",
+        frame_mrays_per_s=f"{frame_rays / frame_ms / 1e3:.1f}",
+        frame_busy_ms=f"{frame_busy:.2f}",
+        frame_idle_share=f"{1 - frame_busy / frame_ms:.3f}",
+        step_ms=f"{step_ms:.2f}", rays=rays,
+        mrays_per_s=f"{rays / step_ms / 1e3:.1f}",
+        peak_gb=f"{peak_gb:.3f}", step_busy_ms=f"{step_busy:.2f}",
+        step_idle_share=f"{1 - step_busy / step_ms:.3f}",
+        split_ms=",".join(f"{k}:{v:.2f}" for k, v in split.items()),
+        renderD_forward_ms=f"{fwd_ms:.2f}",
+        renderD_reverse_ms=f"{rev_ms:.2f}",
+        renderD_reverse_peak_gb=f"{rev_peak_gb:.3f}",
+        adjoint_rel=f"{adjoint:.3e}")
+    log("texture-recovery", steps=TEXTURED_STEPS, lr=TEXTURED_LR,
+        sensors="i mod 4", loss=",".join(f"{x:.6e}" for x in losses),
+        step_ms=",".join(f"{x:.1f}" for x in adam_ms),
+        mean_abs_err_start=",".join(f"{k}:{v:.4f}" for k, v in err0.items()),
+        mean_abs_err_end=",".join(f"{k}:{v:.4f}" for k, v in err.items()))
+    require(adjoint < 1e-3, "textured renderD: forward and reverse mode "
+            "disagree (adjoint identity)")
+    return {"K1": sum(k1.values())}
+
+
+def gallery_step_phases(dev) -> dict:
+    """[gallery-step-64], [main-path-gallery-step], [gallery-step]: the
+    gallery's training step (``bench.py _time_bvh_grad``,
+    ``gallery_step_setup``): at 64x64 (spp, sppe, sppse 4, the full 80
+    spheres) through K6 and through its plain version on the card's
+    tensors (``PlainRoute``): loss and image within 1e-4, gradients
+    within 1e-3; then at full size (``GALLERY_STEP``, ``PathTracer(2)``)
+    with the launch counts set to 0: K6 only, as the routing says, no
+    plain version; its time, rays (``bench.py``'s count), peak memory and
+    busy share. Returns its K6 launches."""
+    import torch
+    import psdr_jit_tpu_torch as pt
+    from psdr_jit_tpu_torch.integrator import base
+    from psdr_jit_tpu_torch.ops import _cuda
+
+    W, H, S, n_spheres, subdiv = GALLERY_STEP
+    integ = pt.PathTracer(GALLERY_STEP_DEPTH)
+    small = pt.Scene.from_arrays(gallery_arrays(
+        64, 64, S, n_spheres, subdiv, sppe=S, sppse=S, edge_spheres=1),
+        device=dev)
+    small.configure()
+
+    def small_step():
+        return integ.loss_and_grad(small, *gallery_step_setup(small),
+                                   seed=SEED)
+
+    loss_k, g_k, img_k = small_step()
+    with PlainRoute():
+        loss_p, g_p, img_p = small_step()
+    rels = {"loss": abs(float(loss_k) - float(loss_p)) / abs(float(loss_p)),
+            "image": rel_l1(img_k, img_p),
+            **{f"grad_{k}": rel_l1(g_k[k], g_p[k]) for k in g_p}}
+    log("gallery-step-64", spp=S, sppe=S, sppse=S,
+        depth=GALLERY_STEP_DEPTH,
+        rel_l1_vs_plain=",".join(f"{k}:{v:.3e}" for k, v in rels.items()))
+    require(rels["loss"] < 1e-4 and rels["image"] < 1e-4,
+            "gallery-step-64: loss or image differs from the plain path")
+    require(all(v < 1e-3 for k, v in rels.items() if k.startswith("grad")),
+            "gallery-step-64: a gradient differs from the plain path")
+    require(all(float(g.abs().sum()) > 0 for g in g_p.values()),
+            "gallery-step-64: a parameter got no gradient")
+
+    sc = pt.Scene.from_arrays(gallery_arrays(
+        W, H, S, n_spheres, subdiv, sppe=S, sppse=S, edge_spheres=1),
+        device=dev)
+    sc.configure()
+    f = sc.data.tri.p0.shape[0]
+    setup = gallery_step_setup(sc)
+
+    def step():
+        return integ.loss_and_grad(sc, *setup, seed=SEED)
+
+    step()
+    torch.cuda.synchronize()
+    with PlainCalls() as plain:
+        _cuda.reset_launches()
+        loss, grads, img = step()
+        torch.cuda.synchronize()
+        got = dict(_cuda.LAUNCHES)
+        plain_count = plain.count
+    want = general_launches(W * H, S, S, S, GALLERY_STEP_DEPTH,
+                            base.TRAIN_CHUNK_LANES)
+    log("main-path-gallery-step", triangles=f, K6_LAUNCHES=got["K6"],
+        K6_expected=want, other_launches=sum(
+            v for k, v in got.items() if k != "K6"),
+        plain_calls=plain_count)
+    require(got["K6"] == want, "gallery step: K6 launches != the routing's")
+    require(all(v == 0 for k, v in got.items() if k != "K6"),
+            "gallery step: another kernel ran")
+    require(plain_count == 0, "gallery step: a plain version ran")
+    require(bool(torch.isfinite(loss)) and all(
+        bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0
+        for g in grads.values()),
+        "gallery step: non-finite or zero loss or gradient")
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_ms = wall_ms(step, 3)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    busy = device_busy_ms(step)
+    d = GALLERY_STEP_DEPTH
+    rays = W * H * (S * (1 + 2 * d) + S * 2 * (1 + 2 * d) + S * 3)
+    log("gallery-step", size=f"{W}x{H}", spp=S, sppe=S, sppse=S, depth=d,
+        triangles=f, loss=f"{float(loss):.6e}", step_ms=f"{step_ms:.2f}",
+        rays=rays, mrays_per_s=f"{rays / step_ms / 1e3:.1f}",
+        peak_gb=f"{peak_gb:.3f}", busy_ms=f"{busy:.2f}",
+        idle_share=f"{1 - busy / step_ms:.3f}")
+    return {"K6": got["K6"]}
+
+
 def main() -> int:
     try:
         import torch
@@ -2975,13 +3569,29 @@ def main() -> int:
     launches_e = envmap_phases(dev, kernels)
     env_s = time.perf_counter() - t_env
 
+    # ---- 10. torch.func.jvp on the card -------------------------------------
+    func_jvp_phase(arrays, dev)
+
+    # ---- 11. the textured path (BASELINE config #4) ---------------------------
+    t_tex = time.perf_counter()
+    texture_64_phase(dev)
+    launches_x = textured_phases(dev)
+    tex_s = time.perf_counter() - t_tex
+
+    # ---- 12. the gallery training step ---------------------------------------
+    t_gal = time.perf_counter()
+    launches_g = gallery_step_phases(dev)
+    gal_s = time.perf_counter() - t_gal
+
     kernels["K1"]["launches_step"] = launches_t["K1"]
     kernels["K1"]["launches_renderD"] = launches_d["K1"]
+    kernels["K1"]["launches_texture"] = launches_x["K1"]
+    kernels["K6"]["launches_gallery_step"] = launches_g["K6"]
     kernels["K2-pair"]["launches_renderD"] = launches_d["K2-pair"]
     kernels["K5"]["launches_renderD"] = launches_dk5["K5"]
     record = {"kernels": (
         [{**kernels["K1"], "launches": launches["K1"] + launches_t["K1"]
-          + launches_d["K1"]},
+          + launches_d["K1"] + launches_x["K1"]},
          {**kernels["K2"], "launches": launches["K2"]},
          {**kernels["K2-pair"], "launches": launches_t["K2-pair"]
           + launches_d["K2-pair"]}]
@@ -2990,9 +3600,10 @@ def main() -> int:
         + [{**kernels["K5"], "launches": launches_l["K5"]
             + launches_dk5["K5"]},
            {**kernels["K6"], "launches": launches_l["K6"]
-            + launches_e["K6"]}])}
+            + launches_e["K6"] + launches_g["K6"]}])}
     log("total", seconds=f"{time.perf_counter() - t_start:.1f}",
-        envmap_seconds=f"{env_s:.1f}")
+        envmap_seconds=f"{env_s:.1f}", texture_seconds=f"{tex_s:.1f}",
+        gallery_step_seconds=f"{gal_s:.1f}")
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

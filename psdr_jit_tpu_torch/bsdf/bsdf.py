@@ -6,9 +6,11 @@ instances. Here the loop runs over BSDF *types*: :func:`material_table`
 (``SceneData.materials``) stacks each type's parameters into one table
 with a row a slot (zeros in the rows of other types' slots), each lane
 gathers its material's row by slot, every type present evaluates its
-lanes in one pass, and the results combine with ``torch.where``. So the
-launches of a bounce do not grow with the number of BSDF instances.
-Lanes without a material (slot -1) get zeros."""
+lanes in one pass, and the results combine with ``torch.where``. A
+textured parameter is read per lane at the hit's ``uv`` from one atlas of
+the type's textures (``core.bitmap.BitmapTable``). So the launches of a
+bounce do not grow with the number of BSDF instances or textures. Lanes
+without a material (slot -1) get zeros."""
 
 from __future__ import annotations
 
@@ -16,8 +18,9 @@ import dataclasses
 
 import torch
 
+from ..core.bitmap import Bitmap, BitmapTable
+from ..core.math import detached
 from ..core.records import BSDFSample
-from ..ops.gather import gather_rows
 
 DIFFUSE, MICROFACET = 0, 1
 
@@ -42,8 +45,8 @@ class Materials:
 
     kind: torch.Tensor      # (n,) int64 type of each slot
     two_side: torch.Tensor  # (n,) bool
-    # type -> its parameter tables (n, ...): DIFFUSE (reflectance,),
-    # MICROFACET (specular, diffuse, roughness (n, 1))
+    # type -> its parameters, a BitmapTable each: DIFFUSE (reflectance,),
+    # MICROFACET (specular, diffuse, roughness)
     params: dict
 
 
@@ -53,22 +56,22 @@ def material_table(bsdfs, device) -> Materials:
     from .microfacet import MicrofacetBSDF
 
     kinds, rows = [], {DIFFUSE: [], MICROFACET: []}
-    z3 = torch.zeros(3, dtype=torch.float32)
+    z3, z1 = Bitmap.from_value(0.0, 3), Bitmap.from_value(0.0, 1)
     for b in bsdfs:
         if isinstance(b, DiffuseBSDF):
             kinds.append(DIFFUSE)
-            d, m = (b.reflectance,), (z3, z3, z3[:1])
+            d, m = (b.reflectance,), (z3, z3, z1)
         elif isinstance(b, MicrofacetBSDF):
             kinds.append(MICROFACET)
-            spec, diff, rough = b.constants()
-            d, m = (z3,), (spec, diff, rough.reshape(1))
+            d, m = (z3,), (b.specularReflectance, b.diffuseReflectance,
+                           b.roughness)
         else:
             raise NotImplementedError(
                 f"{type(b).__name__}: only DiffuseBSDF and MicrofacetBSDF "
                 "are ported")
         rows[DIFFUSE].append(d)
         rows[MICROFACET].append(m)
-    params = {k: tuple(torch.stack([r[i].to(device) for r in rows[k]])
+    params = {k: tuple(BitmapTable.build([r[i] for r in rows[k]], device)
                        for i in range(len(rows[k][0])))
               for k in sorted(set(kinds))}
     return Materials(
@@ -79,8 +82,8 @@ def material_table(bsdfs, device) -> Materials:
 
 
 def _passes(materials, slot, active):
-    """``(type, its lanes, the lanes' parameter rows, two-sided flags)`` for
-    each type present."""
+    """``(type, its lanes, its parameter tables, the lanes' slots,
+    two-sided flags)`` for each type present."""
     if not materials.params:
         return
     j = torch.clamp(slot, min=0).long()
@@ -88,17 +91,24 @@ def _passes(materials, slot, active):
     kind, two = materials.kind[j], materials.two_side[j]
     for k, tables in materials.params.items():
         mk = m & (kind == k) if len(materials.params) > 1 else m
-        yield k, mk, [gather_rows(t, j) for t in tables], two
+        yield k, mk, tables, j, two
+
+
+def _roughness(tables, j, uv):
+    """The Microfacet lanes' roughness, detached (sampling and pdfs)."""
+    with detached():
+        return tables[2].eval(j, uv)[..., 0]
 
 
 def eval_dispatch(materials, slot, its, wo, active):
-    """``(..., 3)`` f cos theta_o of each lane's material; 0 for slot -1.
-    ``materials`` is :func:`material_table`'s."""
+    """``(..., 3)`` f cos theta_o of each lane's material at its hit's
+    ``uv``; 0 for slot -1. ``materials`` is :func:`material_table`'s."""
     from .diffuse import diffuse_eval
     from .microfacet import microfacet_eval
 
     out = torch.zeros(wo.shape, dtype=torch.float32, device=wo.device)
-    for k, m, p, two in _passes(materials, slot, active):
+    for k, m, tables, j, two in _passes(materials, slot, active):
+        p = [t.eval(j, its.uv) for t in tables]
         if k == DIFFUSE:
             val = diffuse_eval(p[0], two, its.wi, wo, m)
         else:
@@ -117,11 +127,12 @@ def sample_dispatch(materials, slot, its, rnd3, active) -> BSDFSample:
         wo=rnd3.new_zeros(shape + (3,)), pdf=rnd3.new_zeros(shape),
         eta=rnd3.new_ones(shape),
         is_valid=torch.zeros(shape, dtype=torch.bool, device=rnd3.device))
-    for k, m, p, two in _passes(materials, slot, active):
+    for k, m, tables, j, two in _passes(materials, slot, active):
         if k == DIFFUSE:
             bs = diffuse_sample(two, its.wi, rnd3, m)
         else:
-            bs = microfacet_sample(p[2][..., 0], two, its.wi, rnd3, m)
+            bs = microfacet_sample(_roughness(tables, j, its.uv), two,
+                                   its.wi, rnd3, m)
         out = BSDFSample(wo=torch.where(m[..., None], bs.wo, out.wo),
                          pdf=torch.where(m, bs.pdf, out.pdf), eta=out.eta,
                          is_valid=torch.where(m, bs.is_valid, out.is_valid))
@@ -133,10 +144,11 @@ def pdf_dispatch(materials, slot, its, wo, active):
     from .microfacet import microfacet_pdf
 
     out = torch.zeros(wo.shape[:-1], dtype=torch.float32, device=wo.device)
-    for k, m, p, two in _passes(materials, slot, active):
+    for k, m, tables, j, two in _passes(materials, slot, active):
         if k == DIFFUSE:
             val = diffuse_pdf(two, its.wi, wo, m)
         else:
-            val = microfacet_pdf(p[2][..., 0], two, its.wi, wo, m)
+            val = microfacet_pdf(_roughness(tables, j, its.uv), two, its.wi,
+                                 wo, m)
         out = torch.where(m, val, out)
     return out

@@ -1,18 +1,18 @@
-"""Lambertian BSDF with a constant reflectance (counterpart of
-``psdr_jit_tpu/bsdf/diffuse.py``, reference src/bsdf/diffuse.cpp; textured
-reflectance is not ported).
+"""Lambertian BSDF with a constant or textured reflectance (counterpart of
+``psdr_jit_tpu/bsdf/diffuse.py``, reference src/bsdf/diffuse.cpp).
 
 The JAX package's ``eval``, ``sample`` and ``pdf`` methods are the
 per-lane functions :func:`diffuse_eval`, :func:`diffuse_sample` and
 :func:`diffuse_pdf`, which take the reflectance and the two-sided flag as
 tensors, so the scene's dispatch (``bsdf/bsdf.py``) evaluates every lane
-with its own material's values in one pass."""
+with its own material's values, read at its hit's ``uv``, in one pass."""
 
 from __future__ import annotations
 
 import torch
 
 from ..core import warp
+from ..core.bitmap import Bitmap, Bitmap3f
 from ..core.records import BSDFSample
 from ..core.types import INV_PI
 from .bsdf import BSDF
@@ -60,21 +60,19 @@ class DiffuseBSDF(BSDF):
         self.twoSide = bool(twoSide)
 
     @property
-    def reflectance(self) -> torch.Tensor:
-        """The constant RGB reflectance, ``(3,)`` float32. A tensor set
-        here keeps its autograd graph, so a training step can set it."""
+    def reflectance(self) -> Bitmap:
+        """The RGB reflectance, a :class:`Bitmap`: 1x1 for a constant,
+        (H, W, 3) for a texture. A training step sets its ``data`` (a
+        tensor set there keeps its autograd graph)."""
         return self._reflectance
 
     @reflectance.setter
     def reflectance(self, value):
-        refl = torch.as_tensor(value, dtype=torch.float32).reshape(-1)
-        if refl.numel() == 1:
-            refl = refl.repeat(3)
-        if refl.numel() != 3:
-            raise NotImplementedError(
-                "DiffuseBSDF takes a constant RGB reflectance; textured "
-                "reflectance comes with the rest of the BSDF surface")
-        self._reflectance = refl
+        """A :class:`Bitmap`, an RGB value or an (H, W, 3) array."""
+        if isinstance(value, Bitmap):
+            self._reflectance = value
+        else:
+            self._reflectance = Bitmap3f(value)
 
     def __repr__(self) -> str:
-        return f"DiffuseBSDF[reflectance={self.reflectance.tolist()}]"
+        return f"DiffuseBSDF[reflectance={self.reflectance.resolution}]"

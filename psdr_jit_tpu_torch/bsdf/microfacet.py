@@ -2,13 +2,12 @@
 form of Schlick's Fresnel (counterpart of ``psdr_jit_tpu/bsdf/microfacet.py``,
 reference src/bsdf/microfacet.cpp).
 
-The parameters are bitmaps (``core/bitmap.py``) evaluated at a hit's
-texture coordinates. Hits carry no texture coordinates yet (meshes with
-UVs are not ported), so only constant (1x1) bitmaps are taken: the
-scene's material table holds their values, and
+The parameters are bitmaps (``core/bitmap.py``), constant or textured,
+evaluated at a hit's texture coordinates: the scene's material table
+(``bsdf.material_table``) reads each lane's values, and
 :func:`microfacet_eval`, :func:`microfacet_sample` and
-:func:`microfacet_pdf` evaluate every lane with its own material's
-values, as ``bsdf/diffuse.py`` does."""
+:func:`microfacet_pdf` evaluate every lane with its own values, as
+``bsdf/diffuse.py`` does."""
 
 from __future__ import annotations
 
@@ -103,19 +102,6 @@ class MicrofacetBSDF(BSDF):
         self.diffuseReflectance = _bitmap(diffuse, 3)
         self.roughness = _bitmap(roughness, 1)
         self.twoSide = bool(twoSide)
-
-    def constants(self):
-        """``(specular (3,), diffuse (3,), roughness ())``, the values of
-        its constant bitmaps; a textured one raises."""
-        for name in self._tensor_fields:
-            if not getattr(self, name).is_constant:
-                raise NotImplementedError(
-                    f"MicrofacetBSDF.{name}: textured parameters need "
-                    "meshes with texture coordinates, which are not ported "
-                    "yet; use a constant")
-        return (self.specularReflectance.data.reshape(3),
-                self.diffuseReflectance.data.reshape(3),
-                self.roughness.data.reshape(()))
 
     def __repr__(self) -> str:
         return "MicrofacetBSDF[]"

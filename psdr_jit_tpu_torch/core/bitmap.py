@@ -13,12 +13,16 @@ package's packing), gathered with ``ops.gather.gather_rows``: its backward
 sums a texture's cotangents by row, where an advanced-index gather's
 backward serialises the many lanes that share a texel on the card.
 
+:class:`BitmapTable` evaluates a stack of bitmaps lane by lane, each lane
+at its own slot and UV: the BSDF dispatch's per-type parameters.
+
 Image files are not read yet: a path raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -29,14 +33,20 @@ def _f32(x) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32)
 
 
-def eval_bitmap(data, scale, rot, trans, uv, flip_v: bool,
-                envmap_mode: bool):
-    """Bilinear lookup of ``data`` (H, W, C) at ``uv`` (..., 2) through the
-    UV transform: (..., C). Step for step bitmap.cpp:61-131."""
+def pack_taps(data):
+    """``data`` (H, W, C) as the ``(H*W, 4C)`` table of a lookup's four
+    taps: each texel beside its +1 neighbours in x, in y and in both,
+    pre-shifted with wrap-around."""
     h, w, nc = data.shape
-    if h == 1 and w == 1:
-        return data[0, 0].expand(uv.shape[:-1] + (nc,))
-    c, s = torch.cos(rot), torch.sin(rot)
+    rx = torch.roll(data, -1, 1)
+    return torch.cat([data, rx, torch.roll(data, -1, 0),
+                      torch.roll(rx, -1, 0)], -1).reshape(h * w, 4 * nc)
+
+
+def _texture_xy(uv, scale, c, s, tx, ty, flip_v: bool):
+    """Texture-space ``(x, y)`` of ``uv`` (..., 2) through the UV transform
+    (scale, rotation by cos ``c`` and sin ``s``, translation), before
+    wrapping (bitmap.cpp:61-86)."""
     u0, v0 = uv[..., 0] - 0.5, uv[..., 1] - 0.5
     x = u0 * c + v0 * s + 0.5
     y = -u0 * s + v0 * c + 0.5
@@ -46,8 +56,29 @@ def eval_bitmap(data, scale, rot, trans, uv, flip_v: bool,
     y = y * scale
     x = x - (-0.5 + scale / 2.0)
     y = y + (-0.5 + scale / 2.0)
-    x = x + trans[0]
-    y = y + trans[1]
+    return x + tx, y + ty
+
+
+def _blend(taps, w1x, w1y, nc: int):
+    """The bilinear blend of a lookup's four taps (``pack_taps`` rows)."""
+    v00, v10 = taps[..., 0:nc], taps[..., nc:2 * nc]
+    v01, v11 = taps[..., 2 * nc:3 * nc], taps[..., 3 * nc:4 * nc]
+    w0x, w0y = 1.0 - w1x, 1.0 - w1y
+    w0x, w1x, w0y, w1y = (a[..., None] for a in (w0x, w1x, w0y, w1y))
+    v0 = w0x * v00 + w1x * v10
+    v1 = w0x * v01 + w1x * v11
+    return w0y * v0 + w1y * v1
+
+
+def eval_bitmap(data, scale, rot, trans, uv, flip_v: bool,
+                envmap_mode: bool):
+    """Bilinear lookup of ``data`` (H, W, C) at ``uv`` (..., 2) through the
+    UV transform: (..., C). Step for step bitmap.cpp:61-131."""
+    h, w, nc = data.shape
+    if h == 1 and w == 1:
+        return data[0, 0].expand(uv.shape[:-1] + (nc,))
+    x, y = _texture_xy(uv, scale, torch.cos(rot), torch.sin(rot), trans[0],
+                       trans[1], flip_v)
     if envmap_mode:
         x = x - 0.5 / w
     x = x - torch.floor(x)
@@ -64,17 +95,7 @@ def eval_bitmap(data, scale, rot, trans, uv, flip_v: bool,
     py = torch.clamp(py, 0, h - 1)
     # the +1 neighbours pre-shifted: x wraps (the envmap mode's
     # (px + 1) mod w; px + 1 <= w - 1 otherwise), y never reaches the wrap
-    rx = torch.roll(data, -1, 1)
-    packed = torch.cat([data, rx, torch.roll(data, -1, 0),
-                        torch.roll(rx, -1, 0)], -1).reshape(h * w, 4 * nc)
-    taps = gather_rows(packed, py * w + px)
-    v00, v10 = taps[..., 0:nc], taps[..., nc:2 * nc]
-    v01, v11 = taps[..., 2 * nc:3 * nc], taps[..., 3 * nc:4 * nc]
-    w0x, w0y = 1.0 - w1x, 1.0 - w1y
-    w0x, w1x, w0y, w1y = (a[..., None] for a in (w0x, w1x, w0y, w1y))
-    v0 = w0x * v00 + w1x * v10
-    v1 = w0x * v01 + w1x * v11
-    return w0y * v0 + w1y * v1
+    return _blend(gather_rows(pack_taps(data), py * w + px), w1x, w1y, nc)
 
 
 @dataclasses.dataclass
@@ -127,6 +148,71 @@ class Bitmap:
         """The texture at ``uv`` (..., 2): (..., C)."""
         return eval_bitmap(self.data, self.scale, self.rot, self.trans, uv,
                            flip_v, envmap_mode)
+
+
+@dataclasses.dataclass
+class BitmapTable:
+    """A stack of bitmaps of C channels, a slot each, evaluated per lane
+    (``flip_v``, not in envmap mode): a constant slot's value is a row of
+    ``const`` (the 1x1 shortcut); the textured slots' ``pack_taps`` tables
+    are stacked into one ``atlas``, and each lane's four taps are one row
+    of it, at its slot's first row, width, height and UV transform. So a
+    lookup is one gather whatever the number of textures, with
+    :func:`eval_bitmap`'s arithmetic, bit for bit."""
+
+    const: torch.Tensor                   # (n, C); 0 in textured slots
+    atlas: Optional[torch.Tensor] = None  # (rows, 4C)
+    texel: Optional[torch.Tensor] = None  # (n, 3) int64 first row, W, H
+    #                                       (0, 1, 1) in constant slots
+    uv_xf: Optional[torch.Tensor] = None  # (n, 5) scale, cos, sin, trans
+
+    @staticmethod
+    def build(bitmaps, device) -> "BitmapTable":
+        nc = bitmaps[0].channels
+        const = torch.stack([b.data.reshape(nc).to(device) if b.is_constant
+                             else torch.zeros(nc, device=device)
+                             for b in bitmaps])
+        if all(b.is_constant for b in bitmaps):
+            return BitmapTable(const)
+        texel, uv_xf, packs, row = [], [], [], 0
+        z5 = torch.zeros(5, device=device)
+        for b in bitmaps:
+            if b.is_constant:  # a harmless 1x1 lookup, then discarded
+                texel.append((0, 1, 1))
+                uv_xf.append(z5)
+                continue
+            w, h = b.resolution
+            texel.append((row, w, h))
+            row += w * h
+            packs.append(pack_taps(b.data.to(device)))
+            uv_xf.append(torch.stack([b.scale, torch.cos(b.rot),
+                                      torch.sin(b.rot), b.trans[0],
+                                      b.trans[1]]).to(device))
+        return BitmapTable(const, torch.cat(packs),
+                           torch.tensor(texel, dtype=torch.int64,
+                                        device=device),
+                           torch.stack(uv_xf))
+
+    def eval(self, slot, uv):
+        """The value of each lane's slot ``slot`` (int64) at ``uv`` (...,
+        2): (..., C)."""
+        val = gather_rows(self.const, slot)
+        if self.atlas is None:
+            return val
+        tex = self.texel[slot]
+        w, h = tex[..., 1], tex[..., 2]
+        xf = gather_rows(self.uv_xf, slot)
+        x, y = _texture_xy(uv, *xf.unbind(-1), flip_v=True)
+        x = (x - torch.floor(x)) * (w - 1).to(x.dtype)
+        y = (y - torch.floor(y)) * (h - 1).to(y.dtype)
+        fx, fy = torch.floor(x), torch.floor(y)
+        px = torch.minimum(torch.clamp(torch.minimum(
+            fx.to(torch.int64), w - 2), min=0), w - 1)
+        py = torch.minimum(torch.clamp(torch.minimum(
+            fy.to(torch.int64), h - 2), min=0), h - 1)
+        taps = gather_rows(self.atlas, tex[..., 0] + py * w + px)
+        val_tex = _blend(taps, x - fx, y - fy, val.shape[-1])
+        return torch.where((w * h > 1)[..., None], val_tex, val)
 
 
 def _from(value, channels: int) -> Bitmap:

@@ -119,8 +119,7 @@ def cos_phi(v):
 @dataclasses.dataclass
 class Intersection:
     """Detached surface interaction record of the path formulation
-    (reference core/intersection.h:7-60); fields the slice has no data for
-    (uv texture coordinates, dp/du, dp/dv) are left out."""
+    (reference core/intersection.h:7-60)."""
 
     valid: torch.Tensor    # (...,) bool
     t: torch.Tensor        # (...,) distance
@@ -132,3 +131,6 @@ class Intersection:
     bc: torch.Tensor       # (..., 2) barycentrics
     tri_id: torch.Tensor   # (...,) int32 global triangle id (-1 = miss)
     mesh_id: torch.Tensor  # (...,) int32 mesh index
+    uv: torch.Tensor       # (..., 2) texture coordinates (0 without)
+    dp_du: torch.Tensor    # (..., 3) dp/du (0 without a UV frame)
+    dp_dv: torch.Tensor    # (..., 3) dp/dv

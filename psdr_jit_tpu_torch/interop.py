@@ -10,11 +10,14 @@ render a scene that was built with it. :func:`params_to_torch` does the
 same for a training step's parameters (a radiance texture among them), so
 both packages can take the same step.
 
-Scope: constant ``DiffuseBSDF``s, ``MicrofacetBSDF``s (their three
-bitmaps with their UV transforms), ``AreaLight``s, an ``EnvironmentMap``,
-field-of-view ``PerspectiveCamera``s and ``OrthographicCamera``s; anything
-else raises. A key ``bsdf.{j}.type`` or ``emitter.{k}.type`` is written
-only for a type other than ``DiffuseBSDF`` or ``AreaLight``.
+Scope: meshes with or without texture coordinates, ``DiffuseBSDF``s
+(a constant reflectance as ``bsdf.{j}.reflectance``, a texture as a
+bitmap with its UV transform), ``MicrofacetBSDF``s (their three bitmaps),
+``AreaLight``s, an ``EnvironmentMap``, field-of-view
+``PerspectiveCamera``s and ``OrthographicCamera``s; anything else raises.
+A key ``bsdf.{j}.type`` or ``emitter.{k}.type`` is written only for a
+type other than ``DiffuseBSDF`` or ``AreaLight``, and a mesh's
+``vertex_uv`` and ``face_uv_indices`` only where it has them.
 """
 
 from __future__ import annotations
@@ -71,13 +74,15 @@ def scene_to_arrays(scene, cell_table: bool = False) -> dict:
             for name in _MICROFACET:
                 _put_bitmap(out, f"bsdf.{j}.{name}", getattr(b, name))
             continue
-        data = np.asarray(getattr(getattr(b, "reflectance", None), "data",
-                                  np.zeros(0)))
-        if kind != "DiffuseBSDF" or data.size != 3:
+        if kind != "DiffuseBSDF":
             raise NotImplementedError(
-                f"BSDF {j} ({kind}): only constant DiffuseBSDFs and "
-                "MicrofacetBSDFs carry over")
-        out[f"bsdf.{j}.reflectance"] = _f32(data).reshape(3)
+                f"BSDF {j} ({kind}): only DiffuseBSDFs and MicrofacetBSDFs "
+                "carry over")
+        refl = b.reflectance
+        if np.asarray(refl.data).size == 3:
+            out[f"bsdf.{j}.reflectance"] = _f32(refl.data).reshape(3)
+        else:
+            _put_bitmap(out, f"bsdf.{j}.reflectance", refl)
     for k, em in enumerate(scene.emitters):
         kind = type(em).__name__
         if kind == "EnvironmentMap":
@@ -100,11 +105,12 @@ def scene_to_arrays(scene, cell_table: bool = False) -> dict:
         out[f"emitter.{k}.mesh_index"] = np.asarray(int(em.mesh_index),
                                                     np.int64)
     for i, m in enumerate(scene.meshes):
-        if getattr(m, "vertex_uv", None) is not None:
-            raise NotImplementedError(f"mesh {i}: texture coordinates do "
-                                      "not carry over")
         out[f"mesh.{i}.vertex_positions_raw"] = _f32(m.vertex_positions_raw)
         out[f"mesh.{i}.face_indices"] = np.asarray(m.face_indices, np.int32)
+        if m.vertex_uv is not None:
+            out[f"mesh.{i}.vertex_uv"] = _f32(m.vertex_uv)
+            out[f"mesh.{i}.face_uv_indices"] = np.asarray(m.face_uv_indices,
+                                                          np.int32)
         for name in _TRANSFORMS:
             out[f"mesh.{i}.{name}"] = _f32(getattr(m, name))
         out[f"mesh.{i}.use_face_normals"] = np.asarray(bool(m.use_face_normals))
@@ -157,6 +163,8 @@ def scene_from_arrays(arrays, device="cuda"):
         if kind == "MicrofacetBSDF":
             bsdf = MicrofacetBSDF(*(_get_bitmap(a, f"bsdf.{j}.{name}")
                                     for name in _MICROFACET))
+        elif f"bsdf.{j}.reflectance.data" in a:
+            bsdf = DiffuseBSDF(_get_bitmap(a, f"bsdf.{j}.reflectance"))
         elif kind == "DiffuseBSDF":
             bsdf = DiffuseBSDF(_tensor(a[f"bsdf.{j}.reflectance"]))
         else:
@@ -183,8 +191,11 @@ def scene_from_arrays(arrays, device="cuda"):
         add_envmaps()
         mesh = Mesh()
         mesh.enable_edges = bool(a[f"mesh.{i}.enable_edges"])
+        uv = (_tensor(a[f"mesh.{i}.vertex_uv"]),
+              torch.tensor(a[f"mesh.{i}.face_uv_indices"])) if (
+            f"mesh.{i}.vertex_uv" in a) else (None, None)
         mesh.load_raw(_tensor(a[f"mesh.{i}.vertex_positions_raw"]),
-                      torch.tensor(a[f"mesh.{i}.face_indices"]))
+                      torch.tensor(a[f"mesh.{i}.face_indices"]), *uv)
         for name in _TRANSFORMS:
             setattr(mesh, name, _tensor(a[f"mesh.{i}.{name}"]))
         mesh.use_face_normals = bool(a[f"mesh.{i}.use_face_normals"])

@@ -26,6 +26,13 @@ on a tree split by surface area and above on one split at the middle;
 ``K3``: the attached shade; ``K4``: its adjoint); each wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that it
 went through the kernels.
+
+Each launch is a PyTorch operator of the namespace ``OPS``
+(:func:`kernel_op`, ``torch.library.custom_op``) with a fake version that
+gives its outputs' shapes and types, so the dispatcher, not the launch,
+unwraps the tensors of ``torch.func`` transforms (whose wrappers have no
+data pointer for ctypes). The operators run on CUDA tensors only: the CPU
+path calls the plain versions, never an operator.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import inspect
 import os
 import shutil
 import subprocess
@@ -49,6 +57,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libpsdr_kernels.so"
 
+OPS = "psdr_jit_tpu_torch"  # the kernels' operator namespace
 LAUNCHES = {"K1": 0, "K2": 0, "K2-pair": 0, "K2-stash": 0, "K3": 0,
             "K4": 0, "K5": 0, "K6": 0}
 
@@ -56,6 +65,28 @@ LAUNCHES = {"K1": 0, "K2": 0, "K2-pair": 0, "K2-stash": 0, "K3": 0,
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def kernel_op(name: str, schema: str, data_outputs: bool = True):
+    """Register the decorated launch as the CUDA operator ``OPS::name`` of
+    ``schema``; attach its fake version with ``.register_fake``. With
+    ``data_outputs`` its outputs are data (hit ids and detached distances,
+    barycentrics and radiance), not functions of its inputs: autograd
+    marks them non-differentiable and passes no gradient back, and
+    ``torch.func`` goes through the operator."""
+    def wrap(fn):
+        op = torch.library.custom_op(f"{OPS}::{name}", fn, mutates_args=(),
+                                     device_types="cuda", schema=schema)
+        if data_outputs:
+            n_args = len(inspect.signature(fn).parameters)
+
+            def setup_context(ctx, inputs, output):
+                ctx.mark_non_differentiable(*output)
+
+            op.register_autograd(lambda ctx, *grads: (None,) * n_args,
+                                 setup_context=setup_context)
+        return op
+    return wrap
 
 
 def _nvcc() -> str:

@@ -55,8 +55,8 @@ import torch
 
 from . import _cuda
 from .intersect import (INF, K1_MAX_TRIS, K5_MAX_TRIS, PLAIN_RAY_CHUNK,
-                        SAH_LEAF, box_visit, finish_hits, hit_test,
-                        miss_like, widen_boxes)
+                        SAH_LEAF, box_visit, finish_hits, hit_outputs,
+                        hit_test, miss_like, widen_boxes)
 
 # Triangles per leaf (the last leaf may hold fewer). Chosen on the card
 # among 4, 6 and 8 (PERF.md); the kernel reads each leaf's count from the
@@ -422,22 +422,46 @@ def walk_cuda(bvh: BVH, ray_o, ray_d, active, counts=None, kernel="K6"):
     _cuda.require(active, "active", torch.bool, (n,), dev)
     if counts is not None:
         _cuda.require(counts, "counts", torch.int32, (n, 2), dev)
-    if any(x.data_ptr() % 16 for x in (bvh.tri4, bvh.node, bvh.root)):
+    t, ids, uv, c = walk_op(bvh.tri4, bvh.node, bvh.root, ray_o, ray_d,
+                            active, kernel, counts is not None)
+    if counts is not None:
+        counts.copy_(c)
+    return t, ids, uv
+
+
+def _walk_outputs(ray_o, count: bool):
+    n = ray_o.shape[0]
+    return (*hit_outputs(ray_o),
+            ray_o.new_empty((n if count else 0, 2), dtype=torch.int32))
+
+
+@_cuda.kernel_op("walk", "(Tensor tri4, Tensor node, Tensor root, "
+                 "Tensor ray_o, Tensor ray_d, Tensor active, str kernel, "
+                 "bool count) -> (Tensor, Tensor, Tensor, Tensor)")
+def walk_op(tri4, node, root, ray_o, ray_d, active, kernel, count):
+    """The walk's launch as ``kernel``, the operator behind
+    :func:`walk_cuda` (which checks its inputs): ``(t, id, uv, counts)``,
+    ``counts`` (N, 2) with ``count`` and (0, 2) without."""
+    if any(x.data_ptr() % 16 for x in (tri4, node, root)):
         raise ValueError("the walk reads its tables as float4: they must be "
                          "16-byte aligned")
-    t = torch.empty(n, dtype=torch.float32, device=dev)
-    ids = torch.empty(n, dtype=torch.int32, device=dev)
-    uv = torch.empty((n, 2), dtype=torch.float32, device=dev)
+    dev = ray_o.device
+    t, ids, uv, counts = _walk_outputs(ray_o, count)
+    n = ray_o.shape[0]
     if n == 0:
-        return t, ids, uv
+        return t, ids, uv, counts
     lib = _cuda.library()
     with torch.cuda.device(dev):
         err = lib.psdr_bvh(
-            bvh.tri4.data_ptr(), bvh.node.data_ptr(), bvh.root.data_ptr(),
+            tri4.data_ptr(), node.data_ptr(), root.data_ptr(),
             ray_o.data_ptr(), ray_d.data_ptr(), active.data_ptr(), n,
             t.data_ptr(), ids.data_ptr(), uv.data_ptr(),
-            None if counts is None else counts.data_ptr(),
-            _cuda.stream_of(dev))
+            counts.data_ptr() if count else None, _cuda.stream_of(dev))
     _cuda.check(err, f"{kernel} launch")
     _cuda.LAUNCHES[kernel] += 1
-    return t, ids, uv
+    return t, ids, uv, counts
+
+
+@walk_op.register_fake
+def _(tri4, node, root, ray_o, ray_d, active, kernel, count):
+    return _walk_outputs(ray_o, count)

@@ -328,20 +328,40 @@ def sweep_cuda(tri, box, ray_o, ray_d, active):
     _cuda.require(active, "active", torch.bool, (n,), dev)
     if n >= 1 << 31:
         raise ValueError(f"K1 queues active rays as int32: {n} rays")
-    t = torch.empty(n, dtype=torch.float32, device=dev)
-    ids = torch.empty(n, dtype=torch.int32, device=dev)
-    uv = torch.empty((n, 2), dtype=torch.float32, device=dev)
+    return k1_sweep_op(tri, box, ray_o, ray_d, active)
+
+
+def hit_outputs(ray_o):
+    """Empty ``(t (N,), id (N,) int32, uv (N, 2))`` beside ``ray_o``."""
+    n = ray_o.shape[0]
+    return (ray_o.new_empty(n), ray_o.new_empty(n, dtype=torch.int32),
+            ray_o.new_empty((n, 2)))
+
+
+@_cuda.kernel_op("k1_sweep", "(Tensor tri, Tensor box, Tensor ray_o, "
+                 "Tensor ray_d, Tensor active) -> (Tensor, Tensor, Tensor)")
+def k1_sweep_op(tri, box, ray_o, ray_d, active):
+    """K1's launch, the operator behind :func:`sweep_cuda` (which checks
+    its inputs)."""
+    dev = ray_o.device
+    t, ids, uv = hit_outputs(ray_o)
+    n = ray_o.shape[0]
     if n == 0:
         return t, ids, uv
     lib = _cuda.library()
     with torch.cuda.device(dev):
         err = lib.psdr_sweep(
-            tri.data_ptr(), box.data_ptr(), f_pad, ray_o.data_ptr(),
+            tri.data_ptr(), box.data_ptr(), tri.shape[1], ray_o.data_ptr(),
             ray_d.data_ptr(), active.data_ptr(), n, t.data_ptr(),
             ids.data_ptr(), uv.data_ptr(), _cuda.stream_of(dev))
     _cuda.check(err, "K1 launch")
     _cuda.LAUNCHES["K1"] += 1
     return t, ids, uv
+
+
+@k1_sweep_op.register_fake
+def _(tri, box, ray_o, ray_d, active):
+    return hit_outputs(ray_o)
 
 
 def needs_tree(f: int, device) -> bool:

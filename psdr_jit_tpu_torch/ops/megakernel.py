@@ -28,11 +28,15 @@ plain version of those sweeps and returns the unculled sweep's hits bit for
 bit. The plain versions here sweep unculled, and can record every sweep
 (:class:`Sweep`) for the counts and bounds of ``chip_smoke.py``.
 
-Scope (:func:`applicable`): every BSDF a one-sided constant
-``DiffuseBSDF``, exactly one emitter (an ``AreaLight``) and at most
-``MEGA_MAX_TRIS`` triangles. Each entry launches K2 on CUDA tensors and
-runs its plain PyTorch version (``*_plain``, one transcription of the
-same per-lane program) on CPU tensors.
+Scope (:func:`applicable`): every BSDF a one-sided ``DiffuseBSDF`` with
+a constant (1x1) reflectance, exactly one emitter (an ``AreaLight``) and
+at most ``MEGA_MAX_TRIS`` triangles. A UV-mapped mesh with constant BSDFs
+stays in scope: K2 keeps the frame of the shading normal, so it agrees
+with the general Li only at the estimator level there, as the JAX
+package's megakernel does (its ``shade_mega.py:39-44``). Each entry
+launches K2 on CUDA tensors and runs its plain PyTorch version
+(``*_plain``, one transcription of the same per-lane program) on CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -72,7 +76,7 @@ def applicable(sd) -> bool:
     if len(sd.emitters) != 1 or not isinstance(sd.emitters[0], AreaLightData):
         return False
     return all(isinstance(b, DiffuseBSDF) and not b.twoSide
-               for b in sd.bsdfs)
+               and b.reflectance.is_constant for b in sd.bsdfs)
 
 
 def build_tables(sd):
@@ -91,7 +95,8 @@ def build_tables(sd):
 
     face_mesh = sd.face_mesh_id.long()
     bslot = sd.mesh_bsdf_slot[face_mesh]
-    alb_table = torch.stack([b.reflectance for b in sd.bsdfs]).to(dev)
+    alb_table = torch.stack([b.reflectance.data.reshape(3)
+                             for b in sd.bsdfs]).to(dev)
     alb = torch.where((bslot >= 0)[:, None],
                       alb_table[torch.clamp(bslot, min=0).long()], 0.0)
     eslot = sd.mesh_emitter_slot[face_mesh]
@@ -353,6 +358,10 @@ def _lane_i32(lane):
         torch.int32).contiguous()
 
 
+_K2_MODES = {"K2": 0, "K2-pair": 1, "K2-stash": 2}
+_K2_NAMES = {v: k for k, v in _K2_MODES.items()}
+
+
 def _launch_k2(mode: str, tri, box, attr, light, misc, ray_o, ray_d, ray2,
                active, lane, seed: int, depth: int, cnt0: int,
                hide_emitters: bool, coherent_sweeps: int | None = None):
@@ -384,34 +393,60 @@ def _launch_k2(mode: str, tri, box, attr, light, misc, ray_o, ray_d, ray2,
     if lane.shape != (n,) or lane.device != dev or lane.is_floating_point():
         raise ValueError("lane: expected (N,) integer tensor on the rays' "
                          "device")
-    lane32 = _lane_i32(lane)
-    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    n_hits = 1 + 2 * depth
-    stash = mode == "K2-stash"
-    ids = torch.empty((n_hits, n) if stash else (0,), dtype=torch.int32,
-                      device=dev)
-    su = torch.empty((n_hits, n) if stash else (0,), dtype=torch.float32,
-                     device=dev)
-    sv = torch.empty_like(su)
-    if n > 0:
-        lib = _cuda.library()
-        with torch.cuda.device(dev):
-            err = lib.psdr_li_mega(
-                tri.data_ptr(), box.data_ptr(), attr.data_ptr(),
-                light.data_ptr(), misc.data_ptr(), f_pad, n_light,
-                ray_o.data_ptr(), ray_d.data_ptr(), o2.data_ptr(),
-                d2.data_ptr(), active.data_ptr(), lane32.data_ptr(),
-                int(seed) & 0xFFFFFFFF, n, depth, cnt0, int(hide_emitters),
-                _K2_MODES[mode], COHERENT_SWEEPS[mode]
-                if coherent_sweeps is None else coherent_sweeps,
-                out.data_ptr(), ids.data_ptr(),
-                su.data_ptr(), sv.data_ptr(), _cuda.stream_of(dev))
-        _cuda.check(err, f"{mode} launch")
-        _cuda.LAUNCHES[mode] += 1
-    return out, ((ids, su, sv) if stash else None)
+    out, ids, su, sv = k2_op(
+        tri, box, attr, light, misc, ray_o, ray_d, o2, d2, active,
+        _lane_i32(lane), int(seed) & 0xFFFFFFFF, depth, cnt0,
+        bool(hide_emitters), _K2_MODES[mode], COHERENT_SWEEPS[mode]
+        if coherent_sweeps is None else coherent_sweeps)
+    return out, ((ids, su, sv) if mode == "K2-stash" else None)
 
 
-_K2_MODES = {"K2": 0, "K2-pair": 1, "K2-stash": 2}
+def _k2_outputs(ray_o, depth: int, mode: int):
+    """Empty ``(radiance (N, 3), ids, u, v)``: the stash mode's hits
+    ``(1 + 2 depth, N)``, (0,) in the other modes."""
+    n = ray_o.shape[0]
+    hits = (1 + 2 * depth, n) if mode == _K2_MODES["K2-stash"] else (0,)
+    return (ray_o.new_empty((n, 3)), ray_o.new_empty(hits, dtype=torch.int32),
+            ray_o.new_empty(hits), ray_o.new_empty(hits))
+
+
+@_cuda.kernel_op("k2", "(Tensor tri, Tensor box, Tensor attr, Tensor light, "
+                 "Tensor misc, Tensor ray_o, Tensor ray_d, Tensor ray_o_p, "
+                 "Tensor ray_d_p, Tensor active, Tensor lane, int seed, "
+                 "int depth, int cnt0, bool hide_emitters, int mode, "
+                 "int coherent_sweeps) -> (Tensor, Tensor, Tensor, Tensor)")
+def k2_op(tri, box, attr, light, misc, ray_o, ray_d, ray_o_p, ray_d_p,
+          active, lane, seed, depth, cnt0, hide_emitters, mode,
+          coherent_sweeps):
+    """K2's launch in ``mode`` (``_K2_MODES``), the operator behind
+    :func:`_launch_k2` (which checks its inputs); ``lane`` is the int32 bit
+    pattern of the u32 lanes, ``seed`` a u32."""
+    dev = ray_o.device
+    out, ids, su, sv = _k2_outputs(ray_o, depth, mode)
+    n = ray_o.shape[0]
+    if n == 0:
+        return out, ids, su, sv
+    lib = _cuda.library()
+    with torch.cuda.device(dev):
+        err = lib.psdr_li_mega(
+            tri.data_ptr(), box.data_ptr(), attr.data_ptr(),
+            light.data_ptr(), misc.data_ptr(), tri.shape[1], light.shape[1],
+            ray_o.data_ptr(), ray_d.data_ptr(), ray_o_p.data_ptr(),
+            ray_d_p.data_ptr(), active.data_ptr(), lane.data_ptr(), seed, n,
+            depth, cnt0, int(hide_emitters), mode, coherent_sweeps,
+            out.data_ptr(), ids.data_ptr(), su.data_ptr(), sv.data_ptr(),
+            _cuda.stream_of(dev))
+    name = _K2_NAMES[mode]
+    _cuda.check(err, f"{name} launch")
+    _cuda.LAUNCHES[name] += 1
+    return out, ids, su, sv
+
+
+@k2_op.register_fake
+def _(tri, box, attr, light, misc, ray_o, ray_d, ray_o_p, ray_d_p, active,
+      lane, seed, depth, cnt0, hide_emitters, mode, coherent_sweeps):
+    return _k2_outputs(ray_o, depth, mode)
+
 
 
 def li_mega_cuda(tri, box, attr, light, misc, ray_o, ray_d, active, lane,

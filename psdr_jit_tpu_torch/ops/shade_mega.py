@@ -10,10 +10,11 @@ runs in two parts:
    the integrand is attached.
 2. :func:`li_attached` recomputes the radiance of those paths from the
    attached tables (:func:`attached_tables`): a (F, 30) face table, a
-   (12, L) light table and 8 scalars. On CUDA tensors it is an
-   ``autograd.Function`` whose forward launches K3 (``csrc/shade.cu``) and
-   whose backward launches K4, K3's adjoint written by hand; on CPU tensors
-   it runs :func:`li_attached_plain` and autograd differentiates that.
+   (12, L) light table and 8 scalars. On CUDA tensors it is the operator
+   :func:`k3_op`, which launches K3 (``csrc/shade.cu``) and whose
+   backward launches K4 (:func:`k4_op`), K3's adjoint written by hand; on
+   CPU tensors it runs :func:`li_attached_plain` and autograd
+   differentiates that.
 
 The TPU packed 30 gathered rows per hit per lane into ``(30, rows, 128)``
 blocks for its layout; here the kernels read the face table by hit id.
@@ -58,7 +59,8 @@ def attached_tables(sd):
     dev = tri.p0.device
     face_mesh = sd.face_mesh_id.long()
     bslot = sd.mesh_bsdf_slot.long()[face_mesh]
-    alb_table = torch.stack([b.reflectance for b in sd.bsdfs]).to(dev)
+    alb_table = torch.stack([b.reflectance.data.reshape(3)
+                             for b in sd.bsdfs]).to(dev)
     alb = torch.where((bslot >= 0)[:, None],
                       alb_table[torch.clamp(bslot, min=0)], 0.0)
     eslot = sd.mesh_emitter_slot.long()[face_mesh]
@@ -307,23 +309,8 @@ def shade_cuda(table, light, misc, ids, us, vs, ray_o, ray_d, active, lane,
     int32 bit pattern of the u32 lanes."""
     _check_k3(table, light, misc, ids, us, vs, ray_o, ray_d, active, lane,
               depth, cnt0)
-    dev = ray_o.device
-    n = ray_o.shape[0]
-    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    if n == 0:
-        return out
-    lib = _cuda.library()
-    with torch.cuda.device(dev):
-        err = lib.psdr_shade_fwd(
-            table.data_ptr(), light.data_ptr(), misc.data_ptr(),
-            table.shape[0], light.shape[1], ids.data_ptr(), us.data_ptr(),
-            vs.data_ptr(), ray_o.data_ptr(), ray_d.data_ptr(),
-            active.data_ptr(), lane.data_ptr(), int(seed) & 0xFFFFFFFF, n,
-            depth, cnt0, int(hide_emitters), out.data_ptr(),
-            _cuda.stream_of(dev))
-    _cuda.check(err, "K3 launch")
-    _cuda.LAUNCHES["K3"] += 1
-    return out
+    return k3_op(table, light, misc, ray_o, ray_d, ids, us, vs, active, lane,
+                 int(seed) & 0xFFFFFFFF, depth, cnt0, bool(hide_emitters))
 
 
 def shade_adjoint_cuda(table, light, misc, ids, us, vs, ray_o, ray_d, active,
@@ -335,14 +322,63 @@ def shade_adjoint_cuda(table, light, misc, ids, us, vs, ray_o, ray_d, active,
     lanes with float atomics, so their last bits vary from run to run."""
     _check_k3(table, light, misc, ids, us, vs, ray_o, ray_d, active, lane,
               depth, cnt0)
+    _cuda.require(ct, "ct", torch.float32, (ray_o.shape[0], 3), ray_o.device)
+    return k4_op(table, light, misc, ray_o, ray_d, ids, us, vs, active, lane,
+                 int(seed) & 0xFFFFFFFF, depth, cnt0, bool(hide_emitters), ct)
+
+
+_K3_ARGS = ("Tensor table, Tensor light, Tensor misc, Tensor ray_o, "
+            "Tensor ray_d, Tensor ids, Tensor us, Tensor vs, Tensor active, "
+            "Tensor lane, int seed, int depth, int cnt0, bool hide_emitters")
+
+
+@_cuda.kernel_op("k3", f"({_K3_ARGS}) -> Tensor", data_outputs=False)
+def k3_op(table, light, misc, ray_o, ray_d, ids, us, vs, active, lane, seed,
+          depth, cnt0, hide_emitters):
+    """K3's launch, the operator behind :func:`shade_cuda` (which checks
+    its inputs); differentiable in the table, light and misc tables and
+    the camera rays, with K4 (:func:`k4_op`) as its backward. The hits,
+    lanes and flags are data."""
     dev = ray_o.device
+    out = ray_o.new_empty((ray_o.shape[0], 3))
     n = ray_o.shape[0]
-    _cuda.require(ct, "ct", torch.float32, (n, 3), dev)
-    d_table = torch.zeros_like(table)
-    d_light = torch.zeros_like(light)
-    d_misc = torch.zeros_like(misc)
-    d_o = torch.empty_like(ray_o)
-    d_d = torch.empty_like(ray_d)
+    if n == 0:
+        return out
+    lib = _cuda.library()
+    with torch.cuda.device(dev):
+        err = lib.psdr_shade_fwd(
+            table.data_ptr(), light.data_ptr(), misc.data_ptr(),
+            table.shape[0], light.shape[1], ids.data_ptr(), us.data_ptr(),
+            vs.data_ptr(), ray_o.data_ptr(), ray_d.data_ptr(),
+            active.data_ptr(), lane.data_ptr(), seed, n, depth, cnt0,
+            int(hide_emitters), out.data_ptr(), _cuda.stream_of(dev))
+    _cuda.check(err, "K3 launch")
+    _cuda.LAUNCHES["K3"] += 1
+    return out
+
+
+@k3_op.register_fake
+def _(table, light, misc, ray_o, ray_d, ids, us, vs, active, lane, seed,
+      depth, cnt0, hide_emitters):
+    return ray_o.new_empty((ray_o.shape[0], 3))
+
+
+def _k4_outputs(table, light, misc, ray_o, ray_d):
+    return (torch.zeros_like(table), torch.zeros_like(light),
+            torch.zeros_like(misc), torch.empty_like(ray_o),
+            torch.empty_like(ray_d))
+
+
+@_cuda.kernel_op("k4", f"({_K3_ARGS}, Tensor ct) -> "
+                 "(Tensor, Tensor, Tensor, Tensor, Tensor)")
+def k4_op(table, light, misc, ray_o, ray_d, ids, us, vs, active, lane, seed,
+          depth, cnt0, hide_emitters, ct):
+    """K4's launch, the operator behind :func:`shade_adjoint_cuda` (which
+    checks its inputs) and K3's backward."""
+    dev = ray_o.device
+    d_table, d_light, d_misc, d_o, d_d = _k4_outputs(table, light, misc,
+                                                     ray_o, ray_d)
+    n = ray_o.shape[0]
     if n == 0:
         return d_table, d_light, d_misc, d_o, d_d
     lib = _cuda.library()
@@ -351,37 +387,35 @@ def shade_adjoint_cuda(table, light, misc, ids, us, vs, ray_o, ray_d, active,
             table.data_ptr(), light.data_ptr(), misc.data_ptr(),
             table.shape[0], light.shape[1], ids.data_ptr(), us.data_ptr(),
             vs.data_ptr(), ray_o.data_ptr(), ray_d.data_ptr(),
-            active.data_ptr(), lane.data_ptr(), int(seed) & 0xFFFFFFFF, n,
-            depth, cnt0, int(hide_emitters), ct.data_ptr(),
-            d_table.data_ptr(), d_light.data_ptr(), d_misc.data_ptr(),
-            d_o.data_ptr(), d_d.data_ptr(), _cuda.stream_of(dev))
+            active.data_ptr(), lane.data_ptr(), seed, n, depth, cnt0,
+            int(hide_emitters), ct.data_ptr(), d_table.data_ptr(),
+            d_light.data_ptr(), d_misc.data_ptr(), d_o.data_ptr(),
+            d_d.data_ptr(), _cuda.stream_of(dev))
     _cuda.check(err, "K4 launch")
     _cuda.LAUNCHES["K4"] += 1
     return d_table, d_light, d_misc, d_o, d_d
 
 
-class ShadeFunction(torch.autograd.Function):
-    """K3 forward, K4 backward. Differentiable with respect to the table,
-    light and misc tables and the camera rays; the hits, lanes and flags
-    are data."""
+@k4_op.register_fake
+def _(table, light, misc, ray_o, ray_d, ids, us, vs, active, lane, seed,
+      depth, cnt0, hide_emitters, ct):
+    return _k4_outputs(table, light, misc, ray_o, ray_d)
 
-    @staticmethod
-    def forward(ctx, table, light, misc, ray_o, ray_d, ids, us, vs, active,
-                lane, seed, depth, cnt0, hide_emitters):
-        ctx.save_for_backward(table, light, misc, ray_o, ray_d, ids, us, vs,
-                              active, lane)
-        ctx.args = (seed, depth, cnt0, hide_emitters)
-        return shade_cuda(table, light, misc, ids, us, vs, ray_o, ray_d,
-                          active, lane, seed, depth, cnt0, hide_emitters)
 
-    @staticmethod
-    def backward(ctx, ct):
-        table, light, misc, ray_o, ray_d, ids, us, vs, active, lane = (
-            ctx.saved_tensors)
-        grads = shade_adjoint_cuda(table, light, misc, ids, us, vs, ray_o,
-                                   ray_d, active, lane, *ctx.args,
-                                   ct.contiguous())
-        return (*grads,) + (None,) * 9
+def _k3_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs[:10])
+    ctx.args = inputs[10:]
+
+
+def _k3_backward(ctx, ct):
+    table, light, misc, ray_o, ray_d, ids, us, vs, active, lane = (
+        ctx.saved_tensors)
+    grads = shade_adjoint_cuda(table, light, misc, ids, us, vs, ray_o, ray_d,
+                               active, lane, *ctx.args, ct.contiguous())
+    return (*grads,) + (None,) * 9
+
+
+k3_op.register_autograd(_k3_backward, setup_context=_k3_setup)
 
 
 def li_attached(table, light, misc, ids, us, vs, ray_o, ray_d, active, lane,
@@ -394,9 +428,9 @@ def li_attached(table, light, misc, ids, us, vs, ray_o, ray_d, active, lane,
         return li_attached_plain(table, light, misc, ids, us, vs, ray_o,
                                  ray_d, active, lane, seed, depth, cnt0,
                                  hide_emitters)
-    return ShadeFunction.apply(
-        table.contiguous(), light.contiguous(), misc.contiguous(),
-        ray_o.contiguous(), ray_d.contiguous(), ids, us, vs, active,
+    return shade_cuda(
+        table.contiguous(), light.contiguous(), misc.contiguous(), ids, us,
+        vs, ray_o.contiguous(), ray_d.contiguous(), active,
         mk._lane_i32(lane), seed, depth, cnt0, hide_emitters)
 
 

@@ -14,7 +14,9 @@ differentiable: the parameters a training step sets on the scene objects
 (vertex positions, transforms, reflectances, radiances; on any device)
 are copied to the CPU inside the autograd graph, and the final ``.to``
 copy to the device is in the graph too, so gradients on the device's
-tables flow back to them.
+tables flow back to them. The BSDFs' parameters, which the compile only
+carries, go to the device directly (a texture set on the card stays
+there).
 
 Above 256 faces the global triangle stream is permuted into the Morton
 order of the faces' world centroids (:func:`morton_order`), the JAX
@@ -47,7 +49,7 @@ import torch
 
 from ..core.types import (EDGE_EPSILON, EPSILON, RenderOption, Ray, Frame,
                           Intersection)
-from ..core.math import (bilinear, detached, dot, norm, normalize,
+from ..core.math import (bilinear, cross, detached, dot, norm, normalize,
                          ray_intersect_triangle, safe_div, safe_sqrt,
                          sign_eps, squared_norm)
 from ..core.distribution import (SEARCHSORTED_DENSE_MAX,
@@ -139,6 +141,10 @@ class SceneData:
     # length-weighted distribution (sppse > 0 only)
     sec_edge: Optional[SecondaryEdgeInfo] = None
     sec_edge_distrb: Optional[DiscreteDistribution] = None
+    # each face's corner UVs (F, 3, 2), zeros on meshes without; has_uv:
+    # some mesh has UVs, so hits interpolate them and build UV frames
+    tri_uv: Optional[torch.Tensor] = None
+    has_uv: bool = False
 
     def ray_intersect(self, ray: Ray, active=None,
                       mode: str = "path") -> Intersection:
@@ -155,9 +161,14 @@ class SceneData:
 
         The rows are gathered with ``ops.gather.gather_rows``, so a hit
         point carries the gradients of the triangle tables (and, in solid
-        mode, of the ray) unless they are detached. Without texture
-        coordinates the shading frame is ``Frame.from_normal`` of the
-        shading normal."""
+        mode, of the ray) unless they are detached. Where the hit face has
+        texture coordinates whose triangle is not degenerate (``det !=
+        0``), ``uv`` interpolates them, ``dp_du``/``dp_dv`` are the surface's
+        UV tangents and the shading frame's ``s`` is ``dp_du`` made
+        orthogonal to the shading normal (scene.cpp:727-759, in the JAX
+        package's expression order); elsewhere the frame is
+        ``Frame.from_normal`` of the shading normal, and ``uv`` and the
+        tangents are 0."""
         tri = self.tri
         tree = (self.bvh if intersect.needs_tree(tri.p0.shape[0],
                                                  tri.p0.device) else None)
@@ -190,10 +201,33 @@ class SceneData:
         sh_n = torch.where(rows(self.face_normal_mask)[..., None],
                            face_normal, sh_n)
         frame = Frame.from_normal(sh_n)
+        if self.has_uv:
+            uvs = rows(self.tri_uv.reshape(-1, 6))
+            uv0, uv1, uv2 = uvs[..., 0:2], uvs[..., 2:4], uvs[..., 4:6]
+            its_uv = bilinear(uv0, uv1 - uv0, uv2 - uv0, uv)
+            duv0, duv1 = uv1 - uv0, uv2 - uv0
+            det = duv0[..., 0] * duv1[..., 1] - duv0[..., 1] * duv1[..., 0]
+            inv_det = safe_div(torch.ones_like(det), det)[..., None]
+            valid_dp = (det != 0.0)[..., None]
+            dp_du = torch.where(valid_dp, (duv1[..., 1:2] * e1
+                                           - duv0[..., 1:2] * e2) * inv_det,
+                                0.0)
+            dp_dv = torch.where(valid_dp, (-duv1[..., 0:1] * e1
+                                           + duv0[..., 0:1] * e2) * inv_det,
+                                0.0)
+            s = torch.where(valid_dp, normalize(
+                dp_du - sh_n * dot(sh_n, dp_du)[..., None]), frame.s)
+            frame = Frame(s, torch.where(valid_dp, cross(sh_n, s), frame.t),
+                          sh_n)
+        else:
+            zero = t.new_zeros(())
+            its_uv = zero.expand(t.shape + (2,))
+            dp_du = dp_dv = zero.expand(t.shape + (3,))
         return Intersection(
             valid=valid, t=t, p=p, n=face_normal, sh_frame=frame,
             wi=frame.to_local(wi_dir), J=jac, bc=uv,
-            tri_id=tri_id, mesh_id=rows(self.face_mesh_id))
+            tri_id=tri_id, mesh_id=rows(self.face_mesh_id), uv=its_uv,
+            dp_du=dp_du, dp_dv=dp_dv)
 
     # -- per-lane emitter and BSDF dispatch (scene.py:236-270) --------------
     def emitter_slot(self, its: Intersection):
@@ -469,6 +503,7 @@ class Scene:
         face_mesh_id = torch.cat([
             torch.full((m.num_faces,), i, dtype=torch.int32)
             for i, m in enumerate(mesh_list)])
+        tri_uv = torch.cat([md.tri_uv for md in mesh_datas])
         # Morton-reorder the global triangle stream (scene.py:635-651): the
         # permutation comes from the last configure() and stays as it is
         # when parameters move
@@ -480,6 +515,7 @@ class Scene:
                                  for f in dataclasses.fields(TriangleInfo)))
             face_normal_mask = face_normal_mask[full]
             face_mesh_id = face_mesh_id[full]
+            tri_uv = tri_uv[full]
         mesh_bsdf_slot = torch.tensor([m.bsdf_id for m in mesh_list],
                                       dtype=torch.int32)
         mesh_emitter_slot = torch.tensor([m.emitter_id for m in mesh_list],
@@ -505,7 +541,10 @@ class Scene:
                 self._emitter_data(em, safe_div(w, wsum).detach(),
                                    mesh_datas, lower, upper)
                 for em, w in zip(self.emitters, weights)]
-        bsdfs = [tree_map(cpu_f32, b) for b in self.bsdfs]
+        # the BSDFs' parameters take part in no computation of the compile:
+        # they go to the device as they are (a texture is megabytes)
+        bsdfs = [tree_map(lambda x: torch.as_tensor(
+            x, dtype=torch.float32).to(self.device), b) for b in self.bsdfs]
 
         # secondary edges: every mesh's table in mesh order, sampled by
         # detached length (scene.cpp:546-571); a table above
@@ -552,6 +591,8 @@ class Scene:
             upper=upper,
             sec_edge=sec_edge,
             sec_edge_distrb=sec_edge_distrb,
+            tri_uv=tri_uv,
+            has_uv=any(m.has_uv for m in mesh_list),
         )
         return tree_map(lambda x: x.to(self.device), sd)
 

@@ -170,6 +170,18 @@ def sample_primary_edge(sensor: SensorData, sample1,
                              ray_n=ray_n, pdf=pdf)
 
 
+def uv_seams(mesh) -> torch.Tensor:
+    """(E,) bool: the edges of a mesh with UVs whose two faces share fewer
+    than two UV rows (a texture seam, or a boundary edge), which stay
+    primary edges whatever the view (JAX sensor.py:211-226)."""
+    fuv = mesh.face_uv_indices.long()
+    ei = torch.as_tensor(mesh._edge_rows, dtype=torch.int64)
+    fuv1 = fuv[ei[:, 2]]
+    fuv2 = fuv[torch.clamp(ei[:, 3], min=0)]
+    shared = (fuv1[:, :, None] == fuv2[:, None, :]).any(-1).sum(-1)
+    return shared != 2
+
+
 def build_primary_edges(camera_pos, world_to_sample, mesh_list,
                         mesh_datas, camera_dir=None
                         ) -> Optional[PrimaryEdgeInfo]:
@@ -209,6 +221,8 @@ def build_primary_edges(camera_pos, world_to_sample, mesh_list,
             keep = ~skip
         else:
             keep = (~has_f1) | ((d00 > EPSILON) ^ (d11 > EPSILON))
+        if mesh.has_uv:
+            keep = keep | uv_seams(mesh).to(keep.device)
         vp = md.vertex_positions
         q0 = xf.transform_pos(world_to_sample, vp[ei[:, 0]])[..., :2]
         q1 = xf.transform_pos(world_to_sample, vp[ei[:, 1]])[..., :2]

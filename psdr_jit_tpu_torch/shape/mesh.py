@@ -8,8 +8,10 @@ world-space secondary-edge table built from it (:class:`SecondaryEdgeInfo`).
 :meth:`Mesh.configure_data` is differentiable: autograd flows from every
 world-space table back to ``vertex_positions_raw`` and the transforms.
 :func:`sample_position` samples a point on a mesh uniformly by area (the
-area lights' sampling). OBJ loading and texture coordinates are not ported
-yet.
+area lights' sampling). A mesh may carry texture coordinates
+(``load_raw(..., uvs, face_uvs)``): :class:`MeshData` then holds each
+face's three UVs (``tri_uv``), which the scene's hits interpolate. OBJ
+loading is not ported yet.
 """
 
 from __future__ import annotations
@@ -70,6 +72,7 @@ class MeshData:
     tri: TriangleInfo
     total_area: torch.Tensor        # ()
     face_distrb: DiscreteDistribution
+    tri_uv: torch.Tensor            # (F, 3, 2) the corners' UVs, 0 without
     sec_edge: Optional[SecondaryEdgeInfo] = None
 
 
@@ -136,6 +139,8 @@ class Mesh:
     def __init__(self):
         self.vertex_positions_raw = torch.zeros((0, 3), dtype=torch.float32)
         self.face_indices = torch.zeros((0, 3), dtype=torch.int32)
+        self.vertex_uv = None        # (T, 2) float32, or None
+        self.face_uv_indices = None  # (F, 3) int32 rows of vertex_uv
         self._edge_rows = np.zeros((0, 5), np.int32)
         self.to_world_raw = torch.eye(4, dtype=torch.float32)
         self.to_world_left = torch.eye(4, dtype=torch.float32)
@@ -166,13 +171,26 @@ class Mesh:
     def num_edges(self) -> int:
         return int(self._edge_rows.shape[0])
 
-    def load_raw(self, vertices, faces):
-        """Load from arrays (mesh.cpp:74-162); builds the edge list when
-        ``enable_edges`` is set."""
+    @property
+    def has_uv(self) -> bool:
+        return self.vertex_uv is not None
+
+    def load_raw(self, vertices, faces, uvs=None, face_uvs=None):
+        """Load from arrays (mesh.cpp:74-162): ``uvs`` (T, 2) texture
+        coordinates and ``face_uvs`` (F, 3) their rows for each face's
+        corners, or neither; builds the edge list when ``enable_edges`` is
+        set."""
         self.vertex_positions_raw = torch.as_tensor(
             vertices, dtype=torch.float32).reshape(-1, 3)
         self.face_indices = torch.as_tensor(
             faces, dtype=torch.int32).reshape(-1, 3)
+        if uvs is not None and len(uvs):
+            self.vertex_uv = torch.as_tensor(
+                uvs, dtype=torch.float32).reshape(-1, 2)
+            self.face_uv_indices = torch.as_tensor(
+                face_uvs, dtype=torch.int32).reshape(-1, 3)
+        else:
+            self.vertex_uv = self.face_uv_indices = None
         self._edge_rows = (build_edge_list(self.face_indices.numpy())
                            if self.enable_edges
                            else np.zeros((0, 5), np.int32))
@@ -200,11 +218,16 @@ class Mesh:
                     torch.clamp(ei[:, 3], min=0)]),
                 p2=vertex_positions[ei[:, 4]],
                 is_boundary=is_boundary)
+        if self.has_uv:
+            tri_uv = cpu_f32(self.vertex_uv)[self.face_uv_indices.long()]
+        else:
+            tri_uv = torch.zeros((self.num_faces, 3, 2))
         return MeshData(
             vertex_positions=vertex_positions,
             tri=tri,
             total_area=torch.sum(tri.face_area),
             face_distrb=DiscreteDistribution.init(tri.face_area),
+            tri_uv=tri_uv,
             sec_edge=sec_edge,
         )
 

@@ -6,6 +6,7 @@ step, goes on a CUDA card.
     python3 scripts/torch_profile_render.py --train   # loss_and_grad
     python3 scripts/torch_profile_render.py --large   # the gallery
     python3 scripts/torch_profile_render.py --renderD # renderD
+    python3 scripts/torch_profile_render.py --texture # the textured box
 
 from the repository root. Both use the Cornell box of
 ``tests/data/cbox_scene.npz`` (512x512, spp 32) with ``PathTracer(3)``;
@@ -49,6 +50,13 @@ per render of each mode with the kernels by device time; and whether
 ``torch.func.jvp`` runs the forward mode in place of
 ``torch.autograd.forward_ad``.
 
+--texture: the textured box of ``chip_smoke.textured_cbox_arrays`` (512x512,
+spp, sppe, sppse 32, ``PathTracer(3)``): its frame's and step's host time,
+device busy time and kernel table, the step's split, the device time of
+the texture lookups (``BitmapTable.eval``, under a profiler range), and
+the same frame and step with each texture replaced by its mean as a 1x1
+bitmap, through the same general Li.
+
 Imports no JAX; exits non-zero without a CUDA card.
 """
 
@@ -90,8 +98,10 @@ def busy_ms(fn, reps: int, rows: int = 15) -> float:
         torch.cuda.synchronize()
     busy = sum(e.self_device_time_total for e in prof.events()
                if e.device_type == DeviceType.CUDA) / reps / 1e3
-    print(prof.key_averages().table(sort_by="self_device_time_total",
-                                    row_limit=rows, max_name_column_width=60))
+    if rows:
+        print(prof.key_averages().table(sort_by="self_device_time_total",
+                                        row_limit=rows,
+                                        max_name_column_width=60))
     return busy
 
 
@@ -327,6 +337,89 @@ def renderd(dev) -> int:
     return 0
 
 
+def texture(dev) -> int:
+    """--texture: the textured box of ``chip_smoke.textured_cbox_arrays``
+    (BASELINE config #4 at 512x512, spp 32, sppe 32, sppse 32,
+    ``PathTracer(3)``, 1024x1024 and 512x512 textures, every pass through
+    the general Li)."""
+    from contextlib import contextmanager
+
+    from chip_smoke import (TEXTURED, TEXTURED_DEPTH, l2_loss, step_split,
+                            textured_cbox_arrays, textured_setup,
+                            textured_start)
+    from psdr_jit_tpu_torch.core import bitmap
+    from psdr_jit_tpu_torch.ops import megakernel as mk_
+
+    w_, h_, s_ = TEXTURED
+    integ = pt.PathTracer(TEXTURED_DEPTH)
+
+    def scene(constant: bool):
+        arrays = textured_cbox_arrays(w_, h_, s_, s_, s_)
+        if constant:  # each texture's mean, as a 1x1 bitmap
+            for k in [k for k in arrays if k.endswith(".data")
+                      and arrays[k].shape[0] > 1]:
+                arrays[k] = arrays[k].mean((0, 1), keepdims=True)
+        sc = pt.Scene.from_arrays(arrays, device=dev)
+        sc.configure()
+        params, apply_params = textured_setup(sc)
+        params = {k: v.to(dev) for k, v in params.items()}
+        target = torch.rand((w_ * h_, 3), device=dev,
+                            generator=torch.Generator(dev).manual_seed(0))
+        start = textured_start(params)
+        return (lambda: integ.renderC(sc, 0, seed=0),
+                lambda: integ.loss_and_grad(sc, start, apply_params,
+                                            l2_loss(target), 0, 0))
+
+    @contextmanager
+    def general_route():  # the constant box would take K2, K3 and K4
+        saved = mk_.applicable
+        mk_.applicable = lambda sd: False
+        try:
+            yield
+        finally:
+            mk_.applicable = saved
+
+    print(f"textured box {w_}x{h_} spp/sppe/sppse {s_} depth "
+          f"{TEXTURED_DEPTH}")
+    frame, step = scene(False)
+    for name, fn in (("frame", frame), ("step", step)):
+        med, lo, hi = host_ms(fn, 3)
+        busy = busy_ms(fn, 1, rows=20)
+        print(f"textured {name}: host ms median {med:.3f} min {lo:.3f} max "
+              f"{hi:.3f}; device busy {busy:.3f} ms, idle share "
+              f"{1 - busy / med:.3f}")
+    split = step_split(integ, step)
+    print("textured step split (ms): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in split.items()))
+    # the texture lookups' own device time, under a profiler range
+    lookup = bitmap.BitmapTable.eval
+
+    def ranged(self, slot, uv):
+        with torch.profiler.record_function("texture lookup"):
+            return lookup(self, slot, uv)
+
+    bitmap.BitmapTable.eval = ranged
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+    finally:
+        bitmap.BitmapTable.eval = lookup
+    ev = [e for e in prof.key_averages() if e.key == "texture lookup"]
+    print(f"texture lookups in a step (forward): {ev[0].count} calls, "
+          f"device {ev[0].device_time_total / 1e3:.3f} ms")
+    with general_route():
+        c_frame, c_step = scene(True)
+        for name, fn in (("frame", c_frame), ("step", c_step)):
+            med, lo, hi = host_ms(fn, 3)
+            busy = busy_ms(fn, 1, rows=0)
+            print(f"constant 1x1 bitmaps, general Li: {name} host ms median "
+                  f"{med:.3f} min {lo:.3f} max {hi:.3f}; device busy "
+                  f"{busy:.3f} ms")
+    return 0
+
+
 def large(dev) -> int:
     from chip_smoke import (CHECK_RAYS, LARGE, LARGE_DEPTH, WIDE, KernelCalls,
                             cuda_ms, gallery_arrays, mixed_rays)
@@ -463,6 +556,8 @@ def main() -> int:
         return large(dev)
     if "--renderD" in sys.argv[1:]:
         return renderd(dev)
+    if "--texture" in sys.argv[1:]:
+        return texture(dev)
     sc = pt.Scene.from_arrays(np.load(ROOT / "tests/data/cbox_scene.npz"),
                               device=dev)
     sd = sc.configure()

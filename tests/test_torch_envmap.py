@@ -425,14 +425,19 @@ def test_envmap_eval_direction_matches_jax(standin):
 
 
 def test_textured_bsdf_and_image_files_raise():
-    """A textured BSDF parameter needs texture coordinates, which the port's
-    hits do not carry yet; an image path needs a reader the port lacks."""
-    sc = pt.Scene(device=CPU)
-    sc.add_BSDF(pt.MicrofacetBSDF(np.ones((2, 2, 3), np.float32)), "m")
-    with pytest.raises(NotImplementedError, match="texture coordinates"):
-        from psdr_jit_tpu_torch.bsdf.bsdf import material_table
+    """A textured BSDF parameter, which raised before hits carried texture
+    coordinates, now builds its material table, whose lanes read the
+    texture as ``Bitmap.eval`` does, bit for bit; an image path needs a
+    reader the port lacks."""
+    from psdr_jit_tpu_torch.bsdf.bsdf import MICROFACET, material_table
 
-        material_table(sc.bsdfs, CPU)
+    sc = pt.Scene(device=CPU)
+    tex = np.random.default_rng(4).random((2, 3, 3)).astype(np.float32)
+    sc.add_BSDF(pt.MicrofacetBSDF(tex), "m")
+    uv = torch.rand(64, 2)
+    spec = material_table(sc.bsdfs, CPU).params[MICROFACET][0]
+    assert torch.equal(spec.eval(torch.zeros(64, dtype=torch.int64), uv),
+                       sc.bsdfs[0].specularReflectance.eval(uv))
     with pytest.raises(NotImplementedError, match="image files"):
         pt.EnvironmentMap("sky.exr")
     with pytest.raises(NotImplementedError, match="image files"):
@@ -693,7 +698,7 @@ def test_bsdf_dispatch_matches_jax():
     jbsdfs[1].twoSide = tbsdfs[1].twoSide = True
     jits = types.SimpleNamespace(wi=jnp.asarray(wi),
                                  uv=jnp.zeros((N, 2), jnp.float32))
-    tits = types.SimpleNamespace(wi=_t(wi))
+    tits = types.SimpleNamespace(wi=_t(wi), uv=torch.zeros(N, 2))
     act = np.ones(N, bool)
     mats = tb.material_table(tbsdfs, CPU)
     val = tb.eval_dispatch(mats, _t(slot), tits, _t(wo), _t(act))

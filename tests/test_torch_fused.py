@@ -238,13 +238,13 @@ def test_step_leaves_the_scene_detached():
          "rad": torch.tensor([10.0, 20.0, 30.0])}
 
     def apply(q):
-        sc.bsdfs[1].reflectance = q["alb"]
+        sc.bsdfs[1].reflectance.data = q["alb"].reshape(1, 1, 3)
         sc.emitters[0].radiance = q["rad"]
 
     loss, grads, _ = pt.PathTracer(1).loss_and_grad(
         sc, p, apply, lambda rows, pix: rows.sum(-1))
     assert set(grads) == {"alb", "rad"} and torch.isfinite(loss)
-    assert not sc.bsdfs[1].reflectance.requires_grad
+    assert not sc.bsdfs[1].reflectance.data.requires_grad
     assert torch.equal(sc.emitters[0].radiance, p["rad"])
     assert not p["rad"].requires_grad
 

@@ -15,8 +15,11 @@ sum. K1, K5 and K6, the walk of one tree, equal their plain versions and
 the unculled sweep bit for bit (K1 at 32 and 492 triangles, with dead
 lanes, and on exact ties). The
 unmarked tests check, on any machine, that the CPU path is the plain
-version and that the kernel launchers refuse what they cannot run instead
-of falling back.
+version, that the kernel launchers refuse what they cannot run instead
+of falling back, and that each kernel's PyTorch operator has a fake
+version that gives its wrapper's shapes and types; on the card,
+``torch.library.opcheck`` holds each operator and ``torch.func.jvp`` of
+renderD runs through them.
 """
 
 import os
@@ -27,8 +30,9 @@ import torch
 
 import psdr_jit_tpu_torch as pt
 from chip_smoke import (K1_GALLERY, edge_rays, envmap_arrays, envmap_setup,
-                        gallery_arrays, mixed_rays, swapped_children,
-                        tie_case, train_setup)
+                        func_jvp, gallery_arrays, mixed_rays,
+                        renderd_tangent, swapped_children, tie_case,
+                        train_setup)
 from psdr_jit_tpu_torch.integrator import base
 from psdr_jit_tpu_torch.integrator.base import interior_lane_setup
 from psdr_jit_tpu_torch.ops import _cuda
@@ -154,6 +158,93 @@ def test_large_scene_launchers_refuse_cpu_tensors():
     small = bvh.build_bvh(sd.tri.p0[:100], sd.tri.e1[:100], sd.tri.e2[:100])
     with pytest.raises(ValueError, match="513..4096 triangles"):
         bvh.walk_cuda(small, o, d, act, kernel="K5")
+
+
+OPS = ("k1_sweep", "walk", "k2", "k2_pair", "k2_stash", "k3", "k4")
+
+
+def _op_case(name, sd):
+    """``(operator, arguments, plain)`` of each kernel's operator on the
+    box's 32x32 camera rays (spp 4, depth 2) on ``sd``'s device;
+    ``plain()`` gives what its wrapper returns on these inputs, from the
+    plain versions (CPU tensors)."""
+    tri = sd.tri
+    o, d, sampler = _camera_rays(sd, 4, 3, torch.arange(
+        32 * 32, device=tri.p0.device))
+    act = torch.ones(o.shape[0], dtype=torch.bool, device=o.device)
+    act[::7] = False
+    lane = mk._lane_i32(sampler.lane)
+    if name == "k1_sweep":
+        def plain():
+            tid, _, uv, t = ix.ray_intersect_brute(tri.p0, tri.e1, tri.e2,
+                                                   o, d, act)
+            return t, tid, uv
+
+        return ix.k1_sweep_op, (*ix.pack_triangles(tri.p0, tri.e1, tri.e2),
+                                o, d, act), plain
+    if name == "walk":
+        tree = ix.routing_tree(tri.p0, tri.e1, tri.e2)
+
+        def plain():
+            tid, _, uv, t = bvh.ray_intersect_bvh_plain(tree, o, d, act)
+            return t, tid, uv, torch.zeros((o.shape[0], 2),
+                                           dtype=torch.int32)
+
+        return bvh.walk_op, (tree.tri4, tree.node, tree.root, o, d, act,
+                             "K1", True), plain
+    tables = [t.detach() for t in mk.build_tables(sd)]
+    schedule = (act, sampler.lane, 3, 2, sampler.cnt)
+    k2 = (*tables, o, d, o, d, act, lane, 3, 2, sampler.cnt, False)
+    empty = (torch.zeros(0, dtype=torch.int32), torch.zeros(0),
+             torch.zeros(0))
+    if name == "k2":
+        return mk.k2_op, (*k2, 0, 2), lambda: (
+            mk.li_mega_plain(*tables, o, d, *schedule), *empty)
+    if name == "k2_pair":
+        return mk.k2_op, (*k2, 1, 0), lambda: (
+            mk.li_mega_pair_plain(*tables, o, d, o, d, *schedule), *empty)
+    stash = mk.li_mega_stash(*tables, o, d, *schedule)
+    if name == "k2_stash":
+        return mk.k2_op, (*k2, 2, 2), lambda: (stash[0], *stash[1])
+    table, light, misc = (t.detach().contiguous()
+                          for t in sm.attached_tables(sd))
+    k3 = (table, light, misc, o, d, *stash[1], act, lane, 3, 2, sampler.cnt,
+          False)
+    if name == "k3":
+        return sm.k3_op, k3, lambda: sm.li_attached_plain(
+            table, light, misc, *stash[1], o, d, *schedule)
+    ct = torch.ones_like(o)
+
+    def plain():
+        leaves = [x.clone().requires_grad_()
+                  for x in (table, light, misc, o, d)]
+        out = sm.li_attached_plain(*leaves[:3], *stash[1], *leaves[3:],
+                                   *schedule)
+        grads = torch.autograd.grad(out, leaves, ct, allow_unused=True)
+        return tuple(torch.zeros_like(x) if g is None else g
+                     for x, g in zip(leaves, grads))
+
+    return sm.k4_op, (*k3, ct), plain
+
+
+@pytest.mark.parametrize("name", OPS)
+def test_operator_fake_matches_wrapper(name):
+    """Each kernel's operator (``torch.library.custom_op``): run on
+    ``meta`` tensors, its fake version gives the shapes and dtypes that
+    its wrapper returns (here from the plain versions), with no build and
+    no card; on CPU tensors it has no kernel and raises (the CPU path
+    calls the plain versions, never an operator)."""
+    op, args, plain = _op_case(name, _scene("cpu").data)
+    meta = [a.to("meta") if isinstance(a, torch.Tensor) else a for a in args]
+    got, want = op(*meta), plain()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.device.type == "meta"
+        assert (tuple(g.shape), g.dtype) == (tuple(w.shape), w.dtype)
+    with pytest.raises(NotImplementedError):
+        op(*args)
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
@@ -657,3 +748,38 @@ def test_gallery_render_on_card(cuda, monkeypatch):
     assert _rel(img.cpu(), ref) < 1e-4
     crop = torch.arange(20, 200, 7, device=cuda)
     assert torch.equal(integ.renderC(sc, 0, seed=0, pix_id=crop), img[crop])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", OPS)
+def test_operator_opcheck(cuda, name):
+    """``torch.library.opcheck`` of each kernel's operator at the box's
+    shapes: its schema (no input mutated), its fake version against the
+    kernel, its autograd registration and its AOT dispatch; K3 with its
+    differentiable inputs requiring grad, so K4 runs as its backward."""
+    op, args, _ = _op_case(name, _scene(cuda).data)
+    if name == "k3":
+        args = tuple(a.clone().requires_grad_() if i < 5 else a
+                     for i, a in enumerate(args))
+    torch.library.opcheck(op, args)
+
+
+@pytest.mark.gpu
+def test_func_jvp_matches_forward_ad_on_card(cuda):
+    """``torch.func.jvp`` of renderD on the card (the box at 32x32, spp 4,
+    sppe 4, sppse 4, depth 2) along the light's translation: the kernels
+    are operators, so functorch's tensors never reach a launch, and the
+    primal and tangent equal ``torch.autograd.forward_ad``'s to the order
+    of the splats' float atomics (rel L1 1e-6)."""
+    sc = _scene(cuda)
+    sc.opts = pt.RenderOption(32, 32, 4, 4, 4)
+    setup = train_setup(sc)
+    params, apply_params, _ = setup
+    integ = pt.PathTracer(2)
+    p_f, t_f = renderd_tangent(integ, sc, setup, "tx", 1.0)
+    _cuda.reset_launches()
+    p_j, t_j = func_jvp(integ, sc, lambda v: apply_params(
+        {**params, "tx": v}), params["tx"], 1.0)
+    assert _cuda.LAUNCHES["K1"] > 0 and _cuda.LAUNCHES["K2-pair"] > 0
+    assert float(t_f.abs().sum()) > 0
+    assert _rel(p_j, p_f) < 1e-6 and _rel(t_j, t_f) < 1e-6

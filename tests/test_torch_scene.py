@@ -131,8 +131,9 @@ def test_out_of_scope_scenes_raise():
     """A two-sided cbox renders through the general Li and trains
     through the attached general Li (it raised before the attached
     general Li was ported), and a 300-face extra mesh configures
-    (Morton-ordered); a textured BSDF still raises. With no card, the
-    entry points' default device raises instead of falling back."""
+    (Morton-ordered); a textured BSDF, which raised before textures were
+    ported, carries over with its texture. With no card, the entry
+    points' default device raises instead of falling back."""
     jsc = make_cbox(width=8, height=8, spp=1)
     arrays = pt.scene_to_arrays(jsc)
     sc = pt.Scene.from_arrays(arrays, device=CPU)
@@ -140,10 +141,10 @@ def test_out_of_scope_scenes_raise():
     assert not mk.applicable(sc.configure())
     img = pt.PathTracer(1).renderC(sc)
     assert img.shape == (64, 3) and bool(torch.isfinite(img).all())
-    alb = sc.bsdfs[1].reflectance.clone()
+    alb = sc.bsdfs[1].reflectance.data.clone()
 
     def apply(p):
-        sc.bsdfs[1].reflectance = p["alb"]
+        sc.bsdfs[1].reflectance.data = p["alb"]
 
     loss, grads, img1 = pt.PathTracer(1).loss_and_grad(
         sc, {"alb": alb}, apply, lambda rows, pix: rows.sum(-1))
@@ -161,10 +162,11 @@ def test_out_of_scope_scenes_raise():
             pt.Scene.from_arrays(arrays)
         with pytest.raises(RuntimeError, match="no CUDA card"):
             pt.params_to_torch({"x": np.zeros(3)})
-    with pytest.raises(NotImplementedError, match="only constant"):
-        jsc.bsdfs[0].reflectance = jsc.bsdfs[0].reflectance.from_array(
-            np.ones((2, 2, 3), np.float32))
-        pt.scene_to_arrays(jsc)
+    tex = np.random.default_rng(1).random((2, 3, 3)).astype(np.float32)
+    jsc.bsdfs[0].reflectance = jsc.bsdfs[0].reflectance.from_array(tex)
+    textured = pt.Scene.from_arrays(pt.scene_to_arrays(jsc), device=CPU)
+    assert np.array_equal(textured.bsdfs[0].reflectance.data.numpy(), tex)
+    assert not mk.applicable(textured.configure())
 
 
 def test_sensor_data(pair):

@@ -199,7 +199,7 @@ def test_li_interior_matches_jax(setup):
              (sd.tri.face_normal, sd_bar.tri.face_normal),
              (sd.tri.face_area, sd_bar.tri.face_area),
              (sd.emitters[0].radiance, sd_bar.emitters[0].radiance),
-             (sd.bsdfs[1].reflectance,
+             (sd.bsdfs[1].reflectance.data,
               sd_bar.bsdfs[1].reflectance.data.reshape(-1)[:3])]
     for k, (orig, want) in enumerate(pairs):
         got = leaves[id(orig)].grad.numpy()
