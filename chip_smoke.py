@@ -46,14 +46,24 @@ just before it and read just after:
   ``PathTracer(1)``; a training step at spp, sppe and sppse 32, guided,
   with gradients to the vertex offsets and the radiance texture; and the
   three per-term forward-mode renderDs along the mesh's translation,
-  every intersection through K6.
+  every intersection through K6;
+* BASELINE config #5, the room of ``room_arrays`` (14 meshes, 108
+  triangles, diffuse, Microfacet and rough-conductor materials): a frame,
+  a target, four Adam steps on a box's pose and the light's gain, a
+  training step with a pose, vertex and radiance gradients, and renderD
+  in both modes, at 512x512, spp, sppe and sppse 32, ``PathTracer(2)``,
+  every intersection through K1; and K1 alone on the frame's and the
+  secondary-edge pass's rays.
 
 64x64 training steps of the box (sppse 0, sppse 8, and sppse 8 guided by
 one table on both sides), a 64x64 renderD of the box (forward and reverse
 mode) and of the 1,292-triangle gallery (forward mode), a 64x64 frame
 of the 5,132-triangle gallery, and a 64x64 frame, guided step and renderD
-of the envmap stand-in run through the kernels and, on the CPU, through
-the plain versions, and the two must agree. One training step of the box
+of the envmap stand-in, 64x64 frames and steps of the Cornell box with
+each of the rough conductor, rough dielectric, per-vertex Microfacet and
+normal-map BSDFs (``bsdf_cbox_arrays``) and of the room, run through the
+kernels and, on the CPU, through the plain versions, and the two must
+agree. One training step of the box
 and of the envmap stand-in and one gallery frame run with every launch
 recorded, and each launch is held against its plain version on the
 inputs it was given; so do K1's launches in the first chunk of the box
@@ -391,15 +401,16 @@ def needed_tests(lo, hi, size: int, o, d, t, active=None,
     return total * size
 
 
-def triangle_box_tests(p0, e1, e2, o, d, t, active=None, cluster: int = 64,
-                       chunk: int = 1 << 12) -> int:
+def triangle_box_tests(p0, e1, e2, o, d, t, active=None,
+                       cluster: int = 64) -> int:
     """The (ray, triangle) tests any hierarchy of boxes over these
     triangles must make: for each ray, the triangles whose own widened box
     (``widen_boxes``) its slab test enters before its closest hit ``t``.
     Counted exactly, but only inside the ``cluster``-triangle runs of
     consecutive ids whose box (the union of theirs) the ray enters, which
     contain those triangle boxes. It depends on the rays, their hits and
-    the triangles, not on the kernel's hierarchy."""
+    the triangles, not on the kernel's hierarchy. Rays go in chunks of
+    about 2**21 ray-cluster pairs (at least 4,096 rays)."""
     import torch
     from psdr_jit_tpu_torch.ops.intersect import box_visit, widen_boxes
 
@@ -416,6 +427,7 @@ def triangle_box_tests(p0, e1, e2, o, d, t, active=None, cluster: int = 64,
     inv = 1.0 / d
     k = torch.arange(cluster, device=o.device)
     total = 0
+    chunk = max(1 << 12, (1 << 21) // nc)
     for s in range(0, o.shape[0], chunk):
         e = s + chunk
         v = box_visit(clo[None], chi[None], o[s:e, None], inv[s:e, None],
@@ -467,8 +479,8 @@ def k2_bound_terms(args, record, pair: bool, stash: bool):
               + 4 * sum(int(t.numel()) for t in args[:5]))
     p0, e1, e2 = tri[0:3].T, tri[3:6].T, tri[6:9].T
     tests = sum(triangle_box_tests(p0, e1, e2, s.o, s.d, s.t,
-                                   None if stash else s.active,
-                                   chunk=1 << 15) for s in record)
+                                   None if stash else s.active)
+                for s in record)
     shaded = 0
     for first in range(0, len(record), per_path):
         for k in range(depth):
@@ -1043,6 +1055,218 @@ def textured_cbox_arrays(width=512, height=512, spp=32, sppe=32, sppse=32,
         out[f"sensor.{s}.to_world_left"] = eye
         out[f"sensor.{s}.to_world_raw"] = m
         out[f"sensor.{s}.to_world_right"] = eye
+    return out
+
+
+# the Cornell box with each of the other four BSDFs ([bsdf-64])
+BSDF_CASES = ("conductor", "dielectric", "pv", "normalmap")
+BSDF_DEPTH = {"conductor": 2, "dielectric": 4, "pv": 2, "normalmap": 2}
+BSDF_SMALL = (64, 64, 4)  # width, height, spp (= sppe = sppse) of [bsdf-64]
+
+
+def bsdf_nmap():
+    """The 8x8 normal map of ``tests/test_bsdf_render.py``'s normal-map
+    case: x and y uniform in [0.35, 0.65] from seed 0, z 1."""
+    import numpy as np
+
+    nm = np.random.default_rng(0).uniform(0.35, 0.65, (8, 8, 3)).astype(
+        np.float32)
+    nm[..., 2] = 1.0
+    return nm
+
+
+def bsdf_cbox_arrays(case, width=64, height=64, spp=4, sppe=4, sppse=4,
+                     tex=TEXTURED_TEX) -> dict:
+    """The Cornell box of ``tests/test_bsdf_render.py _cbox_with`` with one
+    of the four BSDFs of ``BSDF_CASES``, as the dict
+    ``interop.scene_to_arrays`` makes of it: an anisotropic rough
+    conductor (alpha 0.2 and 0.08, the default gold-like index), a rough
+    dielectric (alpha 0.2, index 1.5) or a per-vertex Microfacet (diffuse
+    from 0.1 to 0.9 over the vertices) on the short block (mesh 1, 20
+    vertices, as ``bsdfs[5]``, id "test_mat"); or a normal map
+    (:func:`bsdf_nmap`) over a Microfacet (0.1, 0.4, roughness 0.3) on the
+    UV-mapped tall block of :func:`textured_cbox_arrays` (as ``bsdfs[6]``,
+    id "nmap"), so that the map is read at real texture coordinates."""
+    import numpy as np
+
+    ident = np.asarray([1.0, 0.0, 0.0, 0.0], np.float32)
+
+    def bitmap(key, value):
+        out[f"{key}.data"] = np.asarray(value, np.float32).reshape(
+            (1, 1, -1) if np.ndim(value) < 3 else np.shape(value))
+        out[f"{key}.uv"] = ident
+
+    if case == "normalmap":
+        out = textured_cbox_arrays(width, height, spp, sppe, sppse, tex)
+        j, mesh, bid = 6, 2, "nmap"
+        out[f"bsdf.{j}.type"] = np.asarray("NormalMapBSDF")
+        bitmap(f"bsdf.{j}.nmap", bsdf_nmap())
+        out[f"bsdf.{j}.nested.twoSide"] = np.asarray(False)
+        out[f"bsdf.{j}.nested.type"] = np.asarray("MicrofacetBSDF")
+        for name, value in (("specularReflectance", (0.1,) * 3),
+                            ("diffuseReflectance", (0.4,) * 3),
+                            ("roughness", 0.3)):
+            bitmap(f"bsdf.{j}.nested.{name}", value)
+    else:
+        base = np.load(SCENE_NPZ)
+        out = {k: base[k] for k in base.files}
+        out["opts"] = np.asarray([width, height, spp, sppe, sppse], np.int64)
+        j, mesh, bid = 5, 1, "test_mat"
+        if case == "conductor":
+            out[f"bsdf.{j}.type"] = np.asarray("RoughConductorBSDF")
+            for name, value in (("alpha_u", 0.2), ("alpha_v", 0.08),
+                                ("eta", (0.2004, 0.9228, 1.102)),
+                                ("k", (3.913, 2.448, 2.1765)),
+                                ("specular_reflectance", (1.0,) * 3)):
+                bitmap(f"bsdf.{j}.{name}", value)
+        elif case == "dielectric":
+            out[f"bsdf.{j}.type"] = np.asarray("RoughDielectricBSDF")
+            bitmap(f"bsdf.{j}.alpha_u", 0.2)
+            bitmap(f"bsdf.{j}.alpha_v", 0.2)
+            out[f"bsdf.{j}.eta_value"] = np.asarray(1.5, np.float32)
+        elif case == "pv":
+            nv = out[f"mesh.{mesh}.vertex_positions_raw"].shape[0]
+            out[f"bsdf.{j}.type"] = np.asarray("MicrofacetBSDFPerVertex")
+            out[f"bsdf.{j}.specularReflectance"] = np.full((nv, 3), 0.05,
+                                                           np.float32)
+            out[f"bsdf.{j}.diffuseReflectance"] = np.tile(np.linspace(
+                0.1, 0.9, nv)[:, None], (1, 3)).astype(np.float32)
+            out[f"bsdf.{j}.roughness"] = np.full((nv, 1), 0.4, np.float32)
+        else:
+            raise ValueError(f"BSDF case {case!r}: one of {BSDF_CASES}")
+    out[f"bsdf.{j}.twoSide"] = np.asarray(False)
+    counts = out["counts"].copy()
+    counts[1] = j + 1
+    out["counts"] = counts
+    out["bsdf_ids"] = np.asarray([*out["bsdf_ids"].tolist(), bid])
+    out[f"mesh.{mesh}.bsdf_id"] = np.asarray(j, np.int64)
+    return out
+
+
+# BASELINE config #5, the room (``tests/scenes.py make_room``)
+ROOM = (512, 512, 32)  # width, height, spp (= sppe = sppse) of [room]
+ROOM_DEPTH = 2  # examples/room_optimization.py:44
+ROOM_SMALL = (64, 64, 4)  # examples/room_optimization.py:43
+ROOM_STEPS = 4
+ROOM_LR = 0.01  # examples/room_optimization.py:83
+ROOM_TRUTH = {"tx": 0.12, "log_gain": -0.3}  # room_optimization.py:59
+ROOM_BSDFS = (  # (id, type, parameters) in make_room's order
+    ("light", "DiffuseBSDF", {"reflectance": (0.0, 0.0, 0.0)}),
+    ("plaster", "DiffuseBSDF", {"reflectance": (0.72, 0.70, 0.66)}),
+    ("wood_d", "DiffuseBSDF", {"reflectance": (0.45, 0.30, 0.18)}),
+    ("wood", "MicrofacetBSDF", {
+        "specularReflectance": (0.04, 0.04, 0.04),
+        "diffuseReflectance": (0.50, 0.33, 0.20), "roughness": (0.25,)}),
+    ("brass", "RoughConductorBSDF", {
+        "alpha_u": (0.15,), "alpha_v": (0.15,), "eta": (0.2, 0.92, 1.1),
+        "k": (3.9, 2.45, 2.14), "specular_reflectance": (1.0, 0.78, 0.42)}),
+    ("blue", "DiffuseBSDF", {"reflectance": (0.20, 0.35, 0.70)}),
+    ("red", "DiffuseBSDF", {"reflectance": (0.75, 0.25, 0.20)}),
+)
+# mesh indices of the room's parameters (tests/test_room.py:42-44,
+# examples/room_optimization.py:51)
+ROOM_BRASS, ROOM_RED_BOX, ROOM_PRISM = 11, 12, 13
+
+
+def box_quads(cx, cy, cz, sx, sy, sz, ry=0.0):
+    """An axis-aligned box's six outward-facing quads centred at (cx, cy,
+    cz), turned ``ry`` radians about +y; numpy copy of ``tests/scenes.py
+    _box_quads``."""
+    import numpy as np
+
+    hx, hy, hz = sx / 2.0, sy / 2.0, sz / 2.0
+    c, s = np.cos(ry), np.sin(ry)
+
+    def pt(x, y, z):
+        return (cx + (c * x + s * z), cy + y, cz + (-s * x + c * z))
+
+    return [
+        [pt(-hx, hy, -hz), pt(-hx, hy, hz), pt(hx, hy, hz), pt(hx, hy, -hz)],
+        [pt(-hx, -hy, -hz), pt(hx, -hy, -hz), pt(hx, -hy, hz),
+         pt(-hx, -hy, hz)],
+        [pt(hx, -hy, -hz), pt(hx, hy, -hz), pt(hx, hy, hz), pt(hx, -hy, hz)],
+        [pt(-hx, -hy, -hz), pt(-hx, -hy, hz), pt(-hx, hy, hz),
+         pt(-hx, hy, -hz)],
+        [pt(-hx, -hy, hz), pt(hx, -hy, hz), pt(hx, hy, hz), pt(-hx, hy, hz)],
+        [pt(-hx, -hy, -hz), pt(-hx, hy, -hz), pt(hx, hy, -hz),
+         pt(hx, -hy, -hz)],
+    ]
+
+
+def quads_mesh(quads):
+    """``(vertices (4q, 3) float32, faces (2q, 3) int32)`` of quads, each
+    split into a fan; numpy copy of ``tests/scenes.py _quads_to_mesh``."""
+    import numpy as np
+
+    verts, faces = [], []
+    for q in quads:
+        base = len(verts)
+        verts.extend(q)
+        faces += [[base, base + k, base + k + 1] for k in range(1, len(q) - 1)]
+    return np.asarray(verts, np.float32), np.asarray(faces, np.int32)
+
+
+def room_arrays(width=512, height=512, spp=32, sppe=32, sppse=32) -> dict:
+    """BASELINE config #5's room (``tests/scenes.py make_room``) as the dict
+    ``interop.scene_to_arrays`` makes of it, built with numpy: a 5 x 3 x 5
+    m room open at the front, a ceiling light panel, a Microfacet table
+    on four diffuse legs, a rough-conductor brass block, a red box and a
+    blue prism: 14 meshes, 108 triangles, every mesh with its edges on."""
+    import numpy as np
+
+    eye = np.asarray(_EYE4, np.float32)
+    out = {"opts": np.asarray([width, height, spp, sppe, sppse], np.int64),
+           "seed": np.asarray(0, np.int64),
+           "bsdf_ids": np.asarray([b[0] for b in ROOM_BSDFS])}
+    ident = np.asarray([1.0, 0.0, 0.0, 0.0], np.float32)
+    for j, (_, kind, params) in enumerate(ROOM_BSDFS):
+        out[f"bsdf.{j}.twoSide"] = np.asarray(False)
+        if kind == "DiffuseBSDF":
+            out[f"bsdf.{j}.reflectance"] = np.asarray(params["reflectance"],
+                                                      np.float32)
+            continue
+        out[f"bsdf.{j}.type"] = np.asarray(kind)
+        for name, value in params.items():
+            out[f"bsdf.{j}.{name}.data"] = np.asarray(
+                value, np.float32).reshape(1, 1, -1)
+            out[f"bsdf.{j}.{name}.uv"] = ident
+    out["emitter.0.radiance"] = np.asarray((30.0, 28.0, 24.0), np.float32)
+    out["emitter.0.mesh_index"] = np.asarray(0, np.int64)
+    ids = [b[0] for b in ROOM_BSDFS]
+    meshes = [
+        ([[(2.0, 2.98, 2.0), (3.0, 2.98, 2.0), (3.0, 2.98, 3.0),
+           (2.0, 2.98, 3.0)]], "light"),
+        ([[(0, 0, 0), (0, 0, 5), (5, 0, 5), (5, 0, 0)]], "plaster"),
+        ([[(0, 3, 0), (5, 3, 0), (5, 3, 5), (0, 3, 5)]], "plaster"),
+        ([[(0, 0, 5), (0, 3, 5), (5, 3, 5), (5, 0, 5)]], "plaster"),
+        ([[(0, 0, 0), (0, 3, 0), (0, 3, 5), (0, 0, 5)]], "red"),
+        ([[(5, 0, 0), (5, 0, 5), (5, 3, 5), (5, 3, 0)]], "blue"),
+        (box_quads(2.5, 0.78, 2.5, 1.6, 0.06, 1.0), "wood")]
+    meshes += [(box_quads(2.5 + dx, 0.375, 2.5 + dz, 0.08, 0.75, 0.08),
+                "wood_d")
+               for dx, dz in [(-0.7, -0.4), (0.7, -0.4), (-0.7, 0.4),
+                              (0.7, 0.4)]]
+    meshes += [(box_quads(2.15, 0.96, 2.45, 0.3, 0.3, 0.3, ry=0.5), "brass"),
+               (box_quads(2.95, 0.91, 2.3, 0.22, 0.2, 0.22, ry=-0.3), "red"),
+               (box_quads(2.6, 1.11, 2.75, 0.16, 0.6, 0.16, ry=0.9), "blue")]
+    for i, (quads, bsdf) in enumerate(meshes):
+        v, f = quads_mesh(quads)
+        out[f"mesh.{i}.vertex_positions_raw"] = v
+        out[f"mesh.{i}.face_indices"] = f
+        for name in ("to_world_left", "to_world_raw", "to_world_right"):
+            out[f"mesh.{i}.{name}"] = eye
+        out[f"mesh.{i}.use_face_normals"] = np.asarray(True)
+        out[f"mesh.{i}.enable_edges"] = np.asarray(True)
+        out[f"mesh.{i}.bsdf_id"] = np.asarray(ids.index(bsdf), np.int64)
+        out[f"mesh.{i}.emitter_id"] = np.asarray(0 if i == 0 else -1,
+                                                 np.int64)
+    out["counts"] = np.asarray([len(meshes), len(ids), 1, 1], np.int64)
+    out["sensor.0.fov_near_far"] = np.asarray([55.0, 1e-4, 1e5], np.float64)
+    out["sensor.0.to_world_left"] = eye
+    out["sensor.0.to_world_raw"] = np.asarray(
+        [[1.0, 0, 0, 2.5], [0, 1.0, 0, 1.5], [0, 0, 1.0, -4.2],
+         [0, 0, 0, 1.0]], np.float32)
+    out["sensor.0.to_world_right"] = eye
     return out
 
 
@@ -2537,15 +2761,17 @@ def mesh_tx_tangent(integrator, scene, seed: int = SEED):
 
 def device_busy_ms(fn) -> float:
     """The summed device time of the operations one call of ``fn``
-    issues (``torch.profiler``), after a warm-up call."""
+    issues (``torch.profiler``); ``fn`` is warm (every caller has just
+    timed it with ``wall_ms``). Only the device's activity is recorded:
+    the host's adds nothing to the sum and took 2-2.5 times as long to
+    read back (8.7 s for a 512x512 frame of the room, 19.6 s for its
+    step, on an H100)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     return sum(e.self_device_time_total for e in prof.events()
@@ -2592,60 +2818,104 @@ def step_split(integrator, step, reps: int = 3) -> dict:
             for k, v in spans.items()}
 
 
-def envmap_64_phase(dev):
-    """[envmap-64]: the 5,132-triangle stand-in of ``envmap_arrays`` at
-    64x64, spp 8, sppe 8, sppse 8, ``PathTracer(1)``, through the kernels
-    and, on the CPU, through the plain versions: a frame, a training step
-    guided by one table built on the card (the same table on both sides:
-    the card's mass table sums with float atomics) and the forward-mode
-    renderD tangent along the mesh's x translation. Loss and images within
-    1e-4 rel L1, the gradients and the tangent within 1e-3."""
+def _compare_paths(phase, arrays, run, dev):
+    """``run(scene, device, target)`` on the scene ``arrays`` through the
+    kernels on ``dev`` and through the plain versions on the CPU, with a
+    seeded target image; ``run`` returns a frame ``img``, a training
+    step's ``loss``, ``img_t`` and ``grads``, and may add a renderD
+    ``primal`` and ``tangent``. Returns their rel L1s (loss, images and
+    primal within 1e-4, gradients and tangent within 1e-3, every gradient
+    and tangent nonzero and finite) and the two sides' ms."""
+    import numpy as np
     import torch
     import psdr_jit_tpu_torch as pt
-    from psdr_jit_tpu_torch.scene.scene import tree_map
 
-    arrays = envmap_arrays(64, 64, 8, 8, 8)
-    guider = pt.PathTracer(ENVMAP_DEPTH)
+    w, h = (int(v) for v in arrays["opts"][:2])
+    target = np.random.default_rng(SEED).random((w * h, 3)).astype(
+        np.float32)
     out = {}
     for name, device in (("kernels", dev), ("plain", torch.device("cpu"))):
         sc = pt.Scene.from_arrays(arrays, device=device)
         sc.configure()
-        if name == "kernels":
-            guider.preprocess_secondary_edges(sc, 0, ENVMAP_GUIDE_64, 1)
-        table = tree_map(lambda x: x.to(device), guider.warpper[0])
-        integ = pt.PathTracer(ENVMAP_DEPTH)
         t0 = time.perf_counter()
-        img = integ.renderC(sc, 0, seed=SEED)
-        params, apply_params, pixel_loss = envmap_setup(sc)
-        loss, grads, img_t = integ.loss_and_grad(
-            sc, params, apply_params, pixel_loss, 0, SEED, warp=table)
-        primal, tangent = mesh_tx_tangent(integ, sc)
-        out[name] = dict(img=img.cpu(), loss=float(loss), img_t=img_t.cpu(),
-                         grads={k: v.cpu() for k, v in grads.items()},
-                         primal=primal.cpu(), tangent=tangent.cpu(),
-                         ms=(time.perf_counter() - t0) * 1e3)
+        r = run(sc, device, torch.from_numpy(target).to(device))
+        out[name] = {k: ({n: g.cpu() for n, g in v.items()} if k == "grads"
+                         else float(v) if k == "loss" else v.cpu())
+                     for k, v in r.items()}
+        out[name]["ms"] = (time.perf_counter() - t0) * 1e3
     k, p = out["kernels"], out["plain"]
     rels = {"frame": rel_l1(k["img"], p["img"]),
             "loss": abs(k["loss"] - p["loss"]) / abs(p["loss"]),
             "step_image": rel_l1(k["img_t"], p["img_t"]),
             **{f"grad_{n}": rel_l1(k["grads"][n], p["grads"][n])
                for n in p["grads"]},
-            "primal": rel_l1(k["primal"], p["primal"]),
-            "tangent": rel_l1(k["tangent"], p["tangent"])}
+            **{n: rel_l1(k[n], p[n]) for n in ("primal", "tangent")
+               if n in p}}
+    first = [k["img"], k["img_t"], *k["grads"].values()]
+    derivs = [*p["grads"].values(), *([p["tangent"]] if "tangent" in p
+                                      else [])]
+    require(all(bool(torch.isfinite(x).all()) for x in first),
+            f"{phase}: non-finite image or gradient")
+    require(all(rels[n] < 1e-4 for n in ("frame", "loss", "step_image",
+                                         "primal") if n in rels),
+            f"{phase}: an image or the loss differs from the plain path")
+    require(all(v < 1e-3 for n, v in rels.items()
+                if n.startswith("grad_") or n == "tangent"),
+            f"{phase}: a gradient or the tangent differs from the plain "
+            "path by >= 1e-3")
+    require(all(float(g.abs().sum()) > 0 for g in derivs),
+            f"{phase}: a gradient or the tangent is zero")
+    return rels, k["ms"], p["ms"]
+
+
+def _frame_and_step(depth, setup):
+    """The ``run`` of :func:`_compare_paths` for a frame and a training
+    step from sensor 0 with ``setup(scene)``'s parameters."""
+    import psdr_jit_tpu_torch as pt
+
+    def run(sc, device, target):
+        integ = pt.PathTracer(depth)
+        params, apply_params = setup(sc)
+        img = integ.renderC(sc, 0, seed=SEED)
+        loss, grads, img_t = integ.loss_and_grad(
+            sc, params, apply_params, l2_loss(target), 0, SEED)
+        return dict(img=img, loss=loss, img_t=img_t, grads=grads)
+
+    return run
+
+
+def envmap_64_phase(dev):
+    """[envmap-64]: the 5,132-triangle stand-in of ``envmap_arrays`` at
+    64x64, spp 8, sppe 8, sppse 8, ``PathTracer(1)``, through the kernels
+    and, on the CPU, through the plain versions (``_compare_paths``): a
+    frame, a training step guided by one table built on the card (the
+    same table on both sides: the card's mass table sums with float
+    atomics) and the forward-mode renderD tangent along the mesh's x
+    translation."""
+    import psdr_jit_tpu_torch as pt
+    from psdr_jit_tpu_torch.scene.scene import tree_map
+
+    guider = pt.PathTracer(ENVMAP_DEPTH)
+
+    def run(sc, device, _target):
+        if device.type != "cpu":
+            guider.preprocess_secondary_edges(sc, 0, ENVMAP_GUIDE_64, 1)
+        table = tree_map(lambda x: x.to(device), guider.warpper[0])
+        integ = pt.PathTracer(ENVMAP_DEPTH)
+        img = integ.renderC(sc, 0, seed=SEED)
+        params, apply_params, pixel_loss = envmap_setup(sc)
+        loss, grads, img_t = integ.loss_and_grad(
+            sc, params, apply_params, pixel_loss, 0, SEED, warp=table)
+        primal, tangent = mesh_tx_tangent(integ, sc)
+        return dict(img=img, loss=loss, img_t=img_t, grads=grads,
+                    primal=primal, tangent=tangent)
+
+    rels, ms, plain_ms = _compare_paths(
+        "envmap-64", envmap_arrays(64, 64, 8, 8, 8), run, dev)
     log("envmap-64", triangles=20 * 4 ** 4 + 12, spp=8, sppe=8, sppse=8,
         depth=ENVMAP_DEPTH, guide=",".join(map(str, ENVMAP_GUIDE_64)),
         rel_l1=",".join(f"{n}:{v:.3e}" for n, v in rels.items()),
-        ms=f"{k['ms']:.1f}", plain_cpu_ms=f"{p['ms']:.1f}")
-    require(all(rels[n] < 1e-4 for n in ("frame", "loss", "step_image",
-                                         "primal")),
-            "envmap-64: an image or the loss differs from the plain path")
-    require(all(v < 1e-3 for n, v in rels.items()
-                if n.startswith("grad_") or n == "tangent"),
-            "envmap-64: a gradient or the tangent differs from the plain "
-            "path by >= 1e-3")
-    require(all(float(x.abs().sum()) > 0 for x in
-                [p["tangent"], *p["grads"].values()]),
-            "envmap-64: a gradient or the tangent is zero")
+        ms=f"{ms:.1f}", plain_cpu_ms=f"{plain_ms:.1f}")
 
 
 def envmap_phases(dev, kernels) -> dict:
@@ -2920,61 +3190,34 @@ def albedo_weight(shape, device, seed: int = 4):
 def texture_64_phase(dev):
     """[texture-64]: the textured box (``textured_cbox_arrays`` at 64x64,
     spp 4, sppe 4, sppse 4, the full-size textures), ``PathTracer(3)``,
-    through the kernels and, on the CPU, through the plain versions: a
-    frame from sensor 1, a training step from sensor 2 at the recovery's
-    start against a seeded target, with gradients to the three textures
-    and the radiance, and the renderD tangent along a seeded direction of
-    the albedo texture. Loss and images within 1e-4 rel L1, gradients and
-    the tangent within 1e-3."""
-    import numpy as np
-    import torch
+    through the kernels and, on the CPU, through the plain versions
+    (``_compare_paths``): a frame from sensor 1, a training step from
+    sensor 2 at the recovery's start against a seeded target, with
+    gradients to the three textures and the radiance, and the renderD
+    tangent along a seeded direction of the albedo texture."""
     import psdr_jit_tpu_torch as pt
 
-    arrays = textured_cbox_arrays(64, 64, 4, 4, 4)
-    target = np.random.default_rng(SEED).random((64 * 64, 3)).astype(
-        np.float32)
-    out = {}
-    for name, device in (("kernels", dev), ("plain", torch.device("cpu"))):
-        sc = pt.Scene.from_arrays(arrays, device=device)
-        sc.configure()
+    def run(sc, device, target):
         integ = pt.PathTracer(TEXTURED_DEPTH)
         params, apply_params = textured_setup(sc)
         params = {k: v.to(device) for k, v in params.items()}
-        t0 = time.perf_counter()
         img = integ.renderC(sc, 1, seed=SEED)
         loss, grads, img_t = integ.loss_and_grad(
-            sc, textured_start(params), apply_params,
-            l2_loss(torch.from_numpy(target).to(device)), 2, SEED)
+            sc, textured_start(params), apply_params, l2_loss(target), 2,
+            SEED)
         apply_params(params)
         primal, tangent = forward_mode(
             integ, sc, lambda v: apply_params({**params, "albedo": v}),
             params["albedo"], albedo_weight(params["albedo"].shape, device))
-        out[name] = dict(img=img.cpu(), loss=float(loss), img_t=img_t.cpu(),
-                         grads={k: v.cpu() for k, v in grads.items()},
-                         primal=primal.cpu(), tangent=tangent.cpu(),
-                         ms=(time.perf_counter() - t0) * 1e3)
-    k, p = out["kernels"], out["plain"]
-    rels = {"frame": rel_l1(k["img"], p["img"]),
-            "loss": abs(k["loss"] - p["loss"]) / abs(p["loss"]),
-            "step_image": rel_l1(k["img_t"], p["img_t"]),
-            **{f"grad_{n}": rel_l1(k["grads"][n], p["grads"][n])
-               for n in p["grads"]},
-            "primal": rel_l1(k["primal"], p["primal"]),
-            "tangent": rel_l1(k["tangent"], p["tangent"])}
+        return dict(img=img, loss=loss, img_t=img_t, grads=grads,
+                    primal=primal, tangent=tangent)
+
+    rels, ms, plain_ms = _compare_paths(
+        "texture-64", textured_cbox_arrays(64, 64, 4, 4, 4), run, dev)
     log("texture-64", spp=4, sppe=4, sppse=4, depth=TEXTURED_DEPTH,
         textures=",".join(map(str, TEXTURED_TEX)),
         rel_l1=",".join(f"{n}:{v:.3e}" for n, v in rels.items()),
-        ms=f"{k['ms']:.1f}", plain_cpu_ms=f"{p['ms']:.1f}")
-    require(all(rels[n] < 1e-4 for n in ("frame", "loss", "step_image",
-                                         "primal")),
-            "texture-64: an image or the loss differs from the plain path")
-    require(all(v < 1e-3 for n, v in rels.items()
-                if n.startswith("grad_") or n == "tangent"),
-            "texture-64: a gradient or the tangent differs from the plain "
-            "path by >= 1e-3")
-    require(all(float(x.abs().sum()) > 0 for x in
-                [p["tangent"], *p["grads"].values()]),
-            "texture-64: a gradient or the tangent is zero")
+        ms=f"{ms:.1f}", plain_cpu_ms=f"{plain_ms:.1f}")
 
 
 def general_launches(n_pix: int, spp: int, sppe: int, sppse: int,
@@ -3256,6 +3499,343 @@ def gallery_step_phases(dev) -> dict:
         peak_gb=f"{peak_gb:.3f}", busy_ms=f"{busy:.2f}",
         idle_share=f"{1 - busy / step_ms:.3f}")
     return {"K6": got["K6"]}
+
+
+def bsdf_setup(scene, case):
+    """``(params, apply_params)`` of a [bsdf-64] step: the vertex offsets
+    ``dv`` of the block that wears the BSDF, the light's ``radiance`` and
+    one of the BSDF's own parameters (``spec``, the conductor's specular
+    tint; ``alpha``, the dielectric's alpha_u; ``diff``, the per-vertex
+    diffuse table; ``nmap``, the normal map)."""
+    nm = case == "normalmap"
+    mesh, b = scene.meshes[2 if nm else 1], scene.bsdfs[6 if nm else 5]
+    em = scene.emitters[0]
+    base_v = mesh.vertex_positions_raw.clone()
+    name = {"conductor": "spec", "dielectric": "alpha", "pv": "diff",
+            "normalmap": "nmap"}[case]
+    holder = {"conductor": lambda: b.specular_reflectance,
+              "dielectric": lambda: b.alpha_u,
+              "normalmap": lambda: b.nmap}.get(case)
+
+    def apply_params(p):
+        mesh.vertex_positions_raw = base_v + p["dv"]
+        em.radiance = p["radiance"]
+        if holder is None:
+            b.diffuseReflectance = p[name]
+        else:
+            holder().data = p[name]
+
+    value = b.diffuseReflectance if holder is None else holder().data
+    return {"dv": base_v.new_zeros(base_v.shape),
+            "radiance": em.radiance.clone(), name: value.clone()}, \
+        apply_params
+
+
+def room_setup(scene):
+    """``(params, apply_params)`` of ``tests/test_room.py``'s step: the
+    brass block's x translation ``tx``, the prism's vertex offsets ``dv``
+    and an offset ``dr`` of the light's radiance, all zero."""
+    import torch
+
+    brass, prism = scene.meshes[ROOM_BRASS], scene.meshes[ROOM_PRISM]
+    em = scene.emitters[0]
+    base_raw = brass.to_world_raw.clone()
+    base_v = prism.vertex_positions_raw.clone()
+    base_r = em.radiance.clone()
+    e03 = torch.zeros(4, 4)
+    e03[0, 3] = 1.0
+
+    def apply_params(p):
+        brass.to_world_raw = base_raw + p["tx"] * e03
+        prism.vertex_positions_raw = base_v + p["dv"]
+        em.radiance = base_r + p["dr"]
+
+    return {"tx": torch.tensor(0.0), "dv": torch.zeros_like(base_v),
+            "dr": torch.zeros(3)}, apply_params
+
+
+def room_adam_setup(scene):
+    """``(params, apply_params)`` of ``examples/room_optimization.py``: the
+    red box's x translation ``tx`` and the light's ``log_gain``, both
+    zero."""
+    import torch
+
+    box, em = scene.meshes[ROOM_RED_BOX], scene.emitters[0]
+    base_raw, base_r = box.to_world_raw.clone(), em.radiance.clone()
+    e03 = torch.zeros(4, 4)
+    e03[0, 3] = 1.0
+
+    def apply_params(p):
+        box.to_world_raw = base_raw + p["tx"] * e03
+        em.radiance = base_r * torch.exp(p["log_gain"])
+
+    return {"tx": torch.tensor(0.0), "log_gain": torch.tensor(0.0)}, \
+        apply_params
+
+
+def bsdf_64_phase(dev):
+    """[bsdf-64]: the Cornell box with each of the other four BSDFs
+    (``bsdf_cbox_arrays`` at 64x64, spp, sppe and sppse 4, ``BSDF_DEPTH``)
+    through the kernels and, on the CPU, through the plain versions: a
+    frame and a training step with gradients to the block's vertex
+    offsets, the radiance and one of the BSDF's parameters
+    (``bsdf_setup``)."""
+    w, h, s = BSDF_SMALL
+    for case in BSDF_CASES:
+        rels, ms, plain_ms = _compare_paths(
+            f"bsdf-64 {case}", bsdf_cbox_arrays(case, w, h, s, s, s),
+            _frame_and_step(BSDF_DEPTH[case],
+                            lambda sc: bsdf_setup(sc, case)), dev)
+        log("bsdf-64", bsdf=case, spp=s, sppe=s, sppse=s,
+            depth=BSDF_DEPTH[case],
+            rel_l1=",".join(f"{n}:{v:.3e}" for n, v in rels.items()),
+            ms=f"{ms:.1f}", plain_cpu_ms=f"{plain_ms:.1f}")
+
+
+def room_64_phase(dev):
+    """[room-64]: the room at ``examples/room_optimization.py``'s 64x64,
+    spp, sppe and sppse 4, ``PathTracer(2)``, through the kernels and, on
+    the CPU, through the plain versions: a frame and a training step with
+    ``tests/test_room.py``'s three parameters (``room_setup``)."""
+    w, h, s = ROOM_SMALL
+    rels, ms, plain_ms = _compare_paths(
+        "room-64", room_arrays(w, h, s, s, s),
+        _frame_and_step(ROOM_DEPTH, room_setup), dev)
+    log("room-64", spp=s, sppe=s, sppse=s, depth=ROOM_DEPTH,
+        rel_l1=",".join(f"{n}:{v:.3e}" for n, v in rels.items()),
+        ms=f"{ms:.1f}", plain_cpu_ms=f"{plain_ms:.1f}")
+
+
+def room_phases(dev, kernels) -> dict:
+    """[main-path-room], [room], [room-K1]: BASELINE config #5's room at
+    full size (``ROOM``: 512x512, spp, sppe and sppse 32, ``PathTracer(2)``,
+    108 triangles: K1 only). With the launch counts set to 0 before each
+    part and read after it: a frame; the target of
+    ``examples/room_optimization.py`` (its truth, red box ``tx`` 0.12 and
+    ``log_gain`` -0.3, seed 1); ``ROOM_STEPS`` Adam steps on ``tx`` and
+    ``log_gain`` at ``ROOM_LR`` from 0 against it, seed 1; one training step
+    with ``tests/test_room.py``'s three parameters against the target; and
+    renderD along the brass block's ``tx``, forward and reverse: the
+    launches each predicted by ``general_launches``, no other kernel, no
+    plain version. Then their times (median of 3 after a warm-up), rays,
+    peak memory, device busy share and the step's split, the error to the
+    truth before and after the Adam steps, and K1 alone on every launch of
+    the frame and of the step's secondary-edge pass, each held bitwise
+    against its plain version and timed, with its bound. Returns the main
+    path's launches."""
+    import torch
+    import psdr_jit_tpu_torch as pt
+    from psdr_jit_tpu_torch.integrator import base
+    from psdr_jit_tpu_torch.ops import _cuda
+    from psdr_jit_tpu_torch.ops import intersect as ix
+
+    W, H, S = ROOM
+    n_pix, d = W * H, ROOM_DEPTH
+    sc = pt.Scene.from_arrays(room_arrays(W, H, S, S, S), device=dev)
+    sd = sc.configure()
+    integ = pt.PathTracer(d)
+    # the parameters live on the CPU beside the scene objects; the scene
+    # compile moves what they touch to the card
+    adam0, apply_adam = room_adam_setup(sc)
+    truth = {k: torch.tensor(v) for k, v in ROOM_TRUTH.items()}
+    p3, apply3 = room_setup(sc)
+    pix_w = renderd_weight(n_pix, dev)
+    state = {}
+
+    def frame():
+        return integ.renderC(sc, 0, seed=SEED)
+
+    def target():
+        apply_adam(truth)
+        sc.configure()
+        img = integ.renderC(sc, 0, seed=1)
+        apply_adam(adam0)
+        sc.configure()
+        return img
+
+    def adam():
+        p = {k: v.clone().requires_grad_() for k, v in adam0.items()}
+        opt = torch.optim.Adam(list(p.values()), lr=ROOM_LR)
+        losses, step_ms = [], []
+        for _ in range(ROOM_STEPS):
+            t0 = time.perf_counter()
+            loss, grads, _ = integ.loss_and_grad(
+                sc, {k: v.detach() for k, v in p.items()}, apply_adam,
+                l2_loss(state["target"]), 0, 1)
+            for k, v in p.items():
+                v.grad = grads[k]
+            opt.step()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+        apply_adam(adam0)
+        return p, losses, step_ms
+
+    def step():
+        return integ.loss_and_grad(sc, p3, apply3, l2_loss(state["target"]),
+                                   0, SEED)
+
+    def set_tx(v):
+        apply3({**p3, "tx": v})
+
+    def forward():
+        return forward_mode(integ, sc, set_tx, p3["tx"], torch.ones(()))
+
+    def reverse():
+        tx = p3["tx"].clone().requires_grad_()
+        set_tx(tx)
+        try:
+            img = integ.renderD(sc, 0, seed=SEED)
+            return torch.autograd.grad((img * pix_w).sum(), tx)[0]
+        finally:
+            set_tx(p3["tx"])
+
+    frame_k1 = general_launches(n_pix, S, 0, 0, d, base.GENERAL_CHUNK_LANES)
+    step_k1 = general_launches(n_pix, S, S, S, d, base.TRAIN_CHUNK_LANES)
+    fwd_k1 = general_launches(n_pix, S, S, S, d, base.DIFF_CHUNK_LANES)
+    # reverse mode runs every chunk again in the backward sweep
+    want = {"frame": frame_k1, "target": frame_k1,
+            "adam": ROOM_STEPS * step_k1, "step": step_k1,
+            "renderD_forward": fwd_k1, "renderD_reverse": 2 * fwd_k1}
+    runs = {"frame": frame, "target": target, "adam": adam, "step": step,
+            "renderD_forward": forward, "renderD_reverse": reverse}
+    got, outs = {}, {}
+    t_main = time.perf_counter()
+    torch.cuda.synchronize()
+    with PlainCalls() as plain:
+        for name, fn in runs.items():
+            _cuda.reset_launches()
+            outs[name] = fn()
+            torch.cuda.synchronize()
+            got[name] = dict(_cuda.LAUNCHES)
+            if name == "target":
+                state["target"] = outs[name]
+        plain_count = plain.count
+    spans = {"main_path": time.perf_counter() - t_main}
+    k1 = {n: g["K1"] for n, g in got.items()}
+    others = sum(v for g in got.values() for k, v in g.items() if k != "K1")
+    log("main-path-room", triangles=sd.tri.p0.shape[0],
+        K1_LAUNCHES=sum(k1.values()), **{f"K1_{n}": v for n, v in k1.items()},
+        K1_expected=",".join(f"{n}:{v}" for n, v in want.items()),
+        other_launches=others, plain_calls=plain_count)
+    require(all(k1[n] == v for n, v in want.items()),
+            "room main path: K1 launches != the routing's")
+    require(others == 0, "room main path: another kernel ran (K2 to K6)")
+    require(plain_count == 0, "room main path: a plain version ran")
+
+    img = outs["frame"]
+    require(tuple(img.shape) == (n_pix, 3) and bool(
+        torch.isfinite(img).all()) and float(img.mean()) > 0.05,
+        "room frame: non-finite, misshapen or black")
+    require(bool(torch.isfinite(state["target"]).all()),
+            "room target: non-finite")
+    p, losses, adam_ms = outs["adam"]
+    loss, grads, img_t = outs["step"]
+    require(bool(torch.isfinite(loss)) and all(
+        bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0
+        for g in grads.values()),
+        "room step: non-finite or zero loss or gradient")
+    require(all(torch.isfinite(torch.tensor(losses))),
+            "room Adam steps: non-finite loss")
+    primal, tangent = outs["renderD_forward"]
+    g_rev = outs["renderD_reverse"]
+    require(bool(torch.isfinite(tangent).all()) and float(
+        tangent.abs().sum()) > 0 and bool(torch.isfinite(g_rev)),
+        "room renderD: a non-finite or zero tangent or gradient")
+    adjoint = abs(float((tangent * pix_w).sum()) - float(g_rev)) / abs(
+        float(g_rev))
+    err0 = {k: abs(float(adam0[k] - truth[k])) for k in truth}
+    err = {k: abs(float(p[k].detach() - truth[k])) for k in truth}
+
+    def measured(fn, n_rays):
+        """Median ms of 3 after a warm-up, Mrays/s, peak GB, busy ms and
+        idle share of ``fn``."""
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = wall_ms(fn, 3)
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        busy = device_busy_ms(fn)
+        return {"ms": f"{ms:.2f}", "mrays_per_s": f"{n_rays / ms / 1e3:.1f}",
+                "peak_gb": f"{peak:.3f}", "busy_ms": f"{busy:.2f}",
+                "idle_share": f"{1 - busy / ms:.3f}"}
+
+    t_timing = time.perf_counter()
+    # bench.py:46-49: spp (1 + 2d) a frame; + sppe 2 (1 + 2d) + sppse 3 a
+    # step or a renderD (576 rays a pixel)
+    frame_rays = n_pix * S * (1 + 2 * d)
+    rays = n_pix * (S * (1 + 2 * d) + S * 2 * (1 + 2 * d) + S * 3)
+    parts = {"frame": measured(frame, frame_rays),
+             "step": measured(step, rays),
+             "renderD_forward": measured(forward, rays),
+             "renderD_reverse": measured(reverse, rays)}
+    split = step_split(integ, step)
+    spans["timing"] = time.perf_counter() - t_timing
+    log("room", size=f"{W}x{H}", spp=S, sppe=S, sppse=S, depth=d,
+        triangles=sd.tri.p0.shape[0], frame_rays=frame_rays, rays=rays,
+        **{f"{n}_{k}": v for n, m in parts.items() for k, v in m.items()},
+        split_ms=",".join(f"{k}:{v:.2f}" for k, v in split.items()),
+        loss=f"{float(loss):.6e}",
+        grad_l1=",".join(f"{k}:{float(g.abs().sum()):.4e}"
+                         for k, g in grads.items()),
+        adjoint_rel=f"{adjoint:.3e}")
+    log("room-adam", steps=ROOM_STEPS, lr=ROOM_LR, seed=1,
+        loss=",".join(f"{x:.6e}" for x in losses),
+        step_ms=",".join(f"{x:.1f}" for x in adam_ms),
+        mrays_per_s=",".join(f"{rays / x / 1e3:.1f}" for x in adam_ms),
+        abs_err_start=",".join(f"{k}:{v:.4f}" for k, v in err0.items()),
+        abs_err_end=",".join(f"{k}:{v:.4f}" for k, v in err.items()))
+    require(adjoint < 1e-3, "room renderD: forward and reverse mode "
+            "disagree (adjoint identity)")
+
+    # K1 alone on the frame's launches and the step's secondary-edge ones
+    t_k1 = time.perf_counter()
+    tri = tuple(getattr(sd.tri, k).detach() for k in ("p0", "e1", "e2"))
+
+    def plain_k1(tab, box, o, dirs, act):
+        ids, _, uv, t = ix.ray_intersect_brute(*tri, o, dirs, act)
+        return t, ids, uv
+
+    sites = {"K1": (ix, "sweep_cuda")}
+    with KernelCalls(sites) as rec:
+        frame()
+        torch.cuda.synchronize()
+    frame_calls = rec.calls["K1"]
+    with KernelCalls(sites) as rec:
+        integ.render_secondary_edges(
+            sc.configure_data(), sc.opts, 0, SEED,
+            torch.zeros((n_pix, 3), device=dev))
+        torch.cuda.synchronize()
+    se_calls = rec.calls["K1"]
+    recs = {}
+    for part, calls in (("frame", frame_calls), ("se", se_calls)):
+        r, a, tests, launch_ms = intersect_record(
+            f"K1 closest hit (sweep), room {part}",
+            "psdr_jit_tpu_torch/csrc/intersect.cu",
+            "psdr_jit_tpu/ops/intersect_pallas.py:267", calls, plain_k1, tri)
+        n_rays = sum(c[1][2].shape[0] for c in calls)
+        live = sum(int(c[1][4].sum()) for c in calls)
+        recs[part] = r
+        log("room-K1", part=part, launches=len(calls), rays=n_rays,
+            live_rays=live, bitwise_equal_to_plain=a["bitwise"],
+            ms=f"{r['ms']:.4f}", plain_ms=f"{r['plain_ms']:.1f}",
+            bound_ms=f"{r['bound_ms']:.4f}", bound_by=r["bound_by"],
+            needed_tests_per_live_ray=f"{tests / max(live, 1):.2f}",
+            ns_per_ray=f"{r['ms'] * 1e6 / n_rays:.4f}",
+            launch_ms=",".join(f"{x:.4f}" for x in launch_ms))
+        require(a["bitwise"], f"room-K1: K1 not bitwise equal to its plain "
+                f"version on the room's {part} rays")
+    require(len(frame_calls) == frame_k1 and len(se_calls) == se_k1_launches(
+        n_pix, S), "room-K1: launches != the routing's")
+    spans["K1_checks"] = time.perf_counter() - t_k1
+    log("room-seconds", **{k: f"{v:.1f}" for k, v in spans.items()})
+    kernels["K1"].update(
+        room_frame_ms=recs["frame"]["ms"],
+        room_frame_plain_ms=recs["frame"]["plain_ms"],
+        room_frame_bound_ms=recs["frame"]["bound_ms"],
+        room_se_ms=recs["se"]["ms"], room_se_bound_ms=recs["se"]["bound_ms"],
+        max_abs_err=max(kernels["K1"]["max_abs_err"],
+                        recs["frame"]["max_abs_err"],
+                        recs["se"]["max_abs_err"]))
+    return {"K1": sum(k1.values())}
 
 
 def main() -> int:
@@ -3583,15 +4163,23 @@ def main() -> int:
     launches_g = gallery_step_phases(dev)
     gal_s = time.perf_counter() - t_gal
 
+    # ---- 13. the other BSDFs and the room (BASELINE config #5) ---------------
+    t_room = time.perf_counter()
+    bsdf_64_phase(dev)
+    room_64_phase(dev)
+    launches_r = room_phases(dev, kernels)
+    room_s = time.perf_counter() - t_room
+
     kernels["K1"]["launches_step"] = launches_t["K1"]
     kernels["K1"]["launches_renderD"] = launches_d["K1"]
     kernels["K1"]["launches_texture"] = launches_x["K1"]
+    kernels["K1"]["launches_room"] = launches_r["K1"]
     kernels["K6"]["launches_gallery_step"] = launches_g["K6"]
     kernels["K2-pair"]["launches_renderD"] = launches_d["K2-pair"]
     kernels["K5"]["launches_renderD"] = launches_dk5["K5"]
     record = {"kernels": (
         [{**kernels["K1"], "launches": launches["K1"] + launches_t["K1"]
-          + launches_d["K1"] + launches_x["K1"]},
+          + launches_d["K1"] + launches_x["K1"] + launches_r["K1"]},
          {**kernels["K2"], "launches": launches["K2"]},
          {**kernels["K2-pair"], "launches": launches_t["K2-pair"]
           + launches_d["K2-pair"]}]
@@ -3603,7 +4191,7 @@ def main() -> int:
             + launches_e["K6"] + launches_g["K6"]}])}
     log("total", seconds=f"{time.perf_counter() - t_start:.1f}",
         envmap_seconds=f"{env_s:.1f}", texture_seconds=f"{tex_s:.1f}",
-        gallery_step_seconds=f"{gal_s:.1f}")
+        gallery_step_seconds=f"{gal_s:.1f}", room_seconds=f"{room_s:.1f}")
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

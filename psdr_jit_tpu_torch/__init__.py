@@ -5,9 +5,12 @@ its layout and names. It renders (``PathTracer(max_depth).renderC``),
 differentiates renders (``renderD``, forward and reverse mode) and trains
 (``loss_and_grad`` with the interior, primary-edge and secondary-edge
 terms, the last guided by ``PathTracer.preprocess_secondary_edges``) on
-triangle scenes of up to 10^5 triangles with constant ``DiffuseBSDF``s
-and ``MicrofacetBSDF``s, lit by ``AreaLight``s and an
-``EnvironmentMap``. Hand-written Hopper kernels (``csrc/``) carry them:
+triangle scenes of up to 10^5 triangles, with or without texture
+coordinates, with ``DiffuseBSDF``s, ``MicrofacetBSDF``s,
+``RoughConductorBSDF``s and ``RoughDielectricBSDF``s (constant or
+textured parameters), ``MicrofacetBSDFPerVertex`` and ``NormalMapBSDF``s,
+lit by ``AreaLight``s and an ``EnvironmentMap``. Hand-written Hopper
+kernels (``csrc/``) carry them:
 K1, K5 and K6, the closest-hit sweeps of small, mid-size and large
 scenes; and for the megakernels' scene class (constant one-sided diffuse
 materials lit by one area light, at most 192 triangles) K2, the detached
@@ -27,6 +30,10 @@ from .shape.mesh import Mesh
 from .core.bitmap import Bitmap, Bitmap1f, Bitmap3f
 from .bsdf.diffuse import DiffuseBSDF
 from .bsdf.microfacet import MicrofacetBSDF
+from .bsdf.microfacet_pv import MicrofacetBSDFPerVertex
+from .bsdf.normalmap import NormalMapBSDF
+from .bsdf.roughconductor import RoughConductorBSDF
+from .bsdf.roughdielectric import RoughDielectricBSDF
 from .emitter.area import AreaLight
 from .emitter.envmap import EnvironmentMap
 from .sensor.perspective import PerspectiveCamera
@@ -38,7 +45,8 @@ from .interop import scene_to_arrays, params_to_torch
 
 __all__ = [
     "RenderOption", "Ray", "Intersection", "Sampler", "Mesh", "DiffuseBSDF",
-    "MicrofacetBSDF", "Bitmap", "Bitmap1f", "Bitmap3f", "AreaLight",
+    "MicrofacetBSDF", "RoughConductorBSDF", "RoughDielectricBSDF",
+    "MicrofacetBSDFPerVertex", "NormalMapBSDF", "Bitmap", "Bitmap1f", "Bitmap3f", "AreaLight",
     "EnvironmentMap", "PerspectiveCamera", "OrthographicCamera", "Scene",
     "SceneData", "Integrator", "PathTracer", "scene_to_arrays",
     "params_to_torch",

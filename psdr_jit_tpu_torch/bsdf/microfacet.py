@@ -51,13 +51,15 @@ def microfacet_eval(specular, diffuse, roughness, two_side, wi, wo, active):
     return torch.where(active[..., None], value, 0.0)
 
 
-def microfacet_sample(roughness, two_side, wi, rnd3, active) -> BSDFSample:
-    """A visible-normal sample reflected about its normal, from
-    ``rnd3[..., :2]``; detached."""
+def ggx_reflection_sample(alpha_u, alpha_v, two_side, wi, rnd3,
+                          active) -> BSDFSample:
+    """A visible normal of the GGX distribution ``(alpha_u, alpha_v)``
+    from ``rnd3[..., :2]``, ``wi`` reflected about it; detached. The
+    Microfacet BSDFs' and the rough conductor's sample."""
     wi = wi.detach()
     wi = torch.cat([wi[..., :2], torch.where(
         two_side, torch.abs(wi[..., 2]), wi[..., 2])[..., None]], -1)
-    distr = GGXDistribution((roughness * roughness).detach())
+    distr = GGXDistribution(alpha_u.detach(), alpha_v.detach())
     m, m_pdf = distr.sample(wi, rnd3)
     wo = 2.0 * dot(wi, m)[..., None] * m - wi
     pdf = safe_div(m_pdf, 4.0 * dot(wo, m))
@@ -67,16 +69,30 @@ def microfacet_sample(roughness, two_side, wi, rnd3, active) -> BSDFSample:
         & (wo[..., 2] > 0.0))
 
 
-def microfacet_pdf(roughness, two_side, wi, wo, active):
-    """Solid-angle density of ``wo``; detached."""
+def ggx_reflection_pdf(alpha_u, alpha_v, two_side, wi, wo, active):
+    """Solid-angle density of ``wo`` under :func:`ggx_reflection_sample`;
+    detached."""
     wi, wo = _orient(wi.detach(), wo.detach(), two_side)
     cos_i, cos_o = wi[..., 2], wo[..., 2]
     m = normalize(wo + wi)
     ok = (active & (cos_i > 0.0) & (cos_o > 0.0) & (dot(wi, m) > 0.0)
           & (dot(wo, m) > 0.0))
-    distr = GGXDistribution((roughness * roughness).detach())
+    distr = GGXDistribution(alpha_u.detach(), alpha_v.detach())
     result = safe_div(distr.eval(m) * distr.smith_g1(wi, m), 4.0 * cos_i)
     return torch.where(ok, result, 0.0).detach()
+
+
+def microfacet_sample(roughness, two_side, wi, rnd3, active) -> BSDFSample:
+    """A visible-normal sample at alpha = ``roughness``^2 reflected about
+    its normal, from ``rnd3[..., :2]``; detached."""
+    alpha = roughness * roughness
+    return ggx_reflection_sample(alpha, alpha, two_side, wi, rnd3, active)
+
+
+def microfacet_pdf(roughness, two_side, wi, wo, active):
+    """Solid-angle density of ``wo``; detached."""
+    alpha = roughness * roughness
+    return ggx_reflection_pdf(alpha, alpha, two_side, wi, wo, active)
 
 
 def _bitmap(value, channels: int) -> Bitmap:

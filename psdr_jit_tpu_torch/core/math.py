@@ -149,3 +149,53 @@ def mis_weight(pdf1, pdf2):
 def scrub_nonfinite(x):
     """Replace non-finite entries by 0 (reference integrator.cpp:126)."""
     return torch.where(torch.isfinite(x), x, 0.0)
+
+
+def fresnel_conductor(eta_r, eta_i, cos_theta_i):
+    """Fresnel reflectance of a conductor with the complex index of
+    refraction ``eta_r + i eta_i`` (..., C), at the cosines (...,)
+    (reference utils.h:168-184): ``(..., C)``."""
+    cos_theta_i_2 = cos_theta_i * cos_theta_i
+    sin_theta_i_2 = 1.0 - cos_theta_i_2
+    sin_theta_i_4 = sin_theta_i_2 * sin_theta_i_2
+    if eta_r.dim() > cos_theta_i.dim():
+        cos_theta_i = cos_theta_i[..., None]
+        cos_theta_i_2 = cos_theta_i_2[..., None]
+        sin_theta_i_2 = sin_theta_i_2[..., None]
+        sin_theta_i_4 = sin_theta_i_4[..., None]
+    temp_1 = eta_r * eta_r - eta_i * eta_i - sin_theta_i_2
+    a_2_pb_2 = safe_sqrt(temp_1 * temp_1 + 4.0 * ((eta_i * eta_r)
+                                                  * (eta_i * eta_r)))
+    a = safe_sqrt(0.5 * (a_2_pb_2 + temp_1))
+    term_1 = a_2_pb_2 + cos_theta_i_2
+    term_2 = 2.0 * cos_theta_i * a
+    r_s = safe_div(term_1 - term_2, term_1 + term_2)
+    term_3 = a_2_pb_2 * cos_theta_i_2 + sin_theta_i_4
+    term_4 = term_2 * sin_theta_i_2
+    r_p = r_s * safe_div(term_3 - term_4, term_3 + term_4)
+    return 0.5 * (r_s + r_p)
+
+
+def fresnel_dielectric(eta, cos_theta_i):
+    """Fresnel reflectance of a dielectric of relative index ``eta`` at
+    the cosines ``cos_theta_i`` (reference utils.h:186-215): ``(r,
+    cos_theta_t, eta_it, eta_ti)``. ``cos_theta_t`` takes the opposite
+    sign of ``cos_theta_i``, with sign(0) = +1."""
+    outside = cos_theta_i >= 0.0
+    rcp_eta = 1.0 / eta
+    eta_it = torch.where(outside, eta, rcp_eta)
+    eta_ti = torch.where(outside, rcp_eta, eta)
+    cos_theta_t_sqr = 1.0 - (1.0 - cos_theta_i * cos_theta_i) * (
+        eta_ti * eta_ti)
+    cos_theta_i_abs = torch.abs(cos_theta_i)
+    cos_theta_t_abs = safe_sqrt(cos_theta_t_sqr)
+    index_matched = eta == 1.0
+    special_case = index_matched | (cos_theta_i_abs == 0.0)
+    a_s = safe_div(cos_theta_i_abs - eta_it * cos_theta_t_abs,
+                   cos_theta_i_abs + eta_it * cos_theta_t_abs)
+    a_p = safe_div(cos_theta_t_abs - eta_it * cos_theta_i_abs,
+                   cos_theta_t_abs + eta_it * cos_theta_i_abs)
+    r = 0.5 * (a_s * a_s + a_p * a_p)
+    r = torch.where(special_case, torch.where(index_matched, 0.0, 1.0), r)
+    cos_theta_t = -torch.where(outside, 1.0, -1.0) * cos_theta_t_abs
+    return r, cos_theta_t, eta_it, eta_ti

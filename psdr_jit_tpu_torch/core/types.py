@@ -134,3 +134,5 @@ class Intersection:
     uv: torch.Tensor       # (..., 2) texture coordinates (0 without)
     dp_du: torch.Tensor    # (..., 3) dp/du (0 without a UV frame)
     dp_dv: torch.Tensor    # (..., 3) dp/dv
+    face_indices: torch.Tensor  # (..., 3) int32 the hit face's vertex ids,
+    #                             local to its mesh

@@ -12,12 +12,16 @@ both packages can take the same step.
 
 Scope: meshes with or without texture coordinates, ``DiffuseBSDF``s
 (a constant reflectance as ``bsdf.{j}.reflectance``, a texture as a
-bitmap with its UV transform), ``MicrofacetBSDF``s (their three bitmaps),
-``AreaLight``s, an ``EnvironmentMap``, field-of-view
-``PerspectiveCamera``s and ``OrthographicCamera``s; anything else raises.
-A key ``bsdf.{j}.type`` or ``emitter.{k}.type`` is written only for a
-type other than ``DiffuseBSDF`` or ``AreaLight``, and a mesh's
-``vertex_uv`` and ``face_uv_indices`` only where it has them.
+bitmap with its UV transform), ``MicrofacetBSDF``s and
+``RoughConductorBSDF``s (their bitmaps), ``RoughDielectricBSDF``s (two
+bitmaps and ``eta_value``), ``MicrofacetBSDFPerVertex`` (its three
+per-vertex tables as plain arrays), ``NormalMapBSDF``s (the map, and the
+nested BSDF under ``bsdf.{j}.nested``), ``AreaLight``s, an
+``EnvironmentMap``, field-of-view ``PerspectiveCamera``s and
+``OrthographicCamera``s; anything else raises. A key ``bsdf.{j}.type``
+or ``emitter.{k}.type`` is written only for a type other than
+``DiffuseBSDF`` or ``AreaLight``, and a mesh's ``vertex_uv`` and
+``face_uv_indices`` only where it has them.
 """
 
 from __future__ import annotations
@@ -27,6 +31,15 @@ import torch
 
 _TRANSFORMS = ("to_world_left", "to_world_raw", "to_world_right")
 _MICROFACET = ("specularReflectance", "diffuseReflectance", "roughness")
+# each BSDF type's bitmap parameters, in its constructor's order; the
+# per-vertex Microfacet's three tables are plain arrays of the same names
+_BITMAPS = {
+    "MicrofacetBSDF": _MICROFACET,
+    "RoughConductorBSDF": ("alpha_u", "alpha_v", "eta", "k",
+                           "specular_reflectance"),
+    "RoughDielectricBSDF": ("alpha_u", "alpha_v"),
+    "NormalMapBSDF": ("nmap",),
+}
 _CAMERAS = ("PerspectiveCamera", "OrthographicCamera")
 
 
@@ -51,6 +64,63 @@ def _get_bitmap(a, key):
     return Bitmap(_tensor(a[f"{key}.data"]), scale, rot, (tx, ty))
 
 
+def _put_bsdf(out, key, b):
+    """Write BSDF ``b`` under ``key``."""
+    kind = type(b).__name__
+    out[f"{key}.twoSide"] = np.asarray(bool(b.twoSide))
+    if kind == "DiffuseBSDF":
+        refl = b.reflectance
+        if np.asarray(refl.data).size == 3:
+            out[f"{key}.reflectance"] = _f32(refl.data).reshape(3)
+        else:
+            _put_bitmap(out, f"{key}.reflectance", refl)
+        return
+    if kind == "MicrofacetBSDFPerVertex":
+        out[f"{key}.type"] = np.asarray(kind)
+        for name in _MICROFACET:
+            out[f"{key}.{name}"] = _f32(getattr(b, name))
+        return
+    if kind not in _BITMAPS:
+        raise NotImplementedError(f"{key} ({kind}): not a BSDF of the port")
+    out[f"{key}.type"] = np.asarray(kind)
+    for name in _BITMAPS[kind]:
+        _put_bitmap(out, f"{key}.{name}", getattr(b, name))
+    if kind == "RoughDielectricBSDF":
+        out[f"{key}.eta_value"] = _f32(b.eta_value).reshape(())
+    elif kind == "NormalMapBSDF":
+        _put_bsdf(out, f"{key}.nested", b.bsdf)
+
+
+def _get_bsdf(a, key):
+    """The BSDF written under ``key`` (its ``twoSide`` set)."""
+    from . import (DiffuseBSDF, MicrofacetBSDF, MicrofacetBSDFPerVertex,
+                   NormalMapBSDF, RoughConductorBSDF, RoughDielectricBSDF)
+
+    kind = str(a.get(f"{key}.type", "DiffuseBSDF"))
+    two = bool(a[f"{key}.twoSide"])
+    if kind == "DiffuseBSDF":
+        refl = (_get_bitmap(a, f"{key}.reflectance")
+                if f"{key}.reflectance.data" in a
+                else _tensor(a[f"{key}.reflectance"]))
+        return DiffuseBSDF(refl, twoSide=two)
+    if kind == "MicrofacetBSDFPerVertex":
+        return MicrofacetBSDFPerVertex(
+            *(_tensor(a[f"{key}.{name}"]) for name in _MICROFACET),
+            twoSide=two)
+    if kind not in _BITMAPS:
+        raise NotImplementedError(f"{key}: {kind}")
+    maps = [_get_bitmap(a, f"{key}.{name}") for name in _BITMAPS[kind]]
+    if kind == "RoughDielectricBSDF":
+        return RoughDielectricBSDF(*maps, int_ior=float(
+            a[f"{key}.eta_value"]), twoSide=two)
+    if kind == "NormalMapBSDF":
+        return NormalMapBSDF(*maps, _get_bsdf(a, f"{key}.nested"),
+                             twoSide=two)
+    cls = {"MicrofacetBSDF": MicrofacetBSDF,
+           "RoughConductorBSDF": RoughConductorBSDF}[kind]
+    return cls(*maps, twoSide=two)
+
+
 def scene_to_arrays(scene, cell_table: bool = False) -> dict:
     """``psdr_jit_tpu.Scene`` -> ``{name: np.ndarray}``. ``cell_table``:
     also carry the masses of an environment map's importance table as the
@@ -67,22 +137,7 @@ def scene_to_arrays(scene, cell_table: bool = False) -> dict:
         "bsdf_ids": np.asarray([str(b) for b in scene.bsdf_ids] or [""]),
     }
     for j, b in enumerate(scene.bsdfs):
-        kind = type(b).__name__
-        out[f"bsdf.{j}.twoSide"] = np.asarray(bool(b.twoSide))
-        if kind == "MicrofacetBSDF":
-            out[f"bsdf.{j}.type"] = np.asarray(kind)
-            for name in _MICROFACET:
-                _put_bitmap(out, f"bsdf.{j}.{name}", getattr(b, name))
-            continue
-        if kind != "DiffuseBSDF":
-            raise NotImplementedError(
-                f"BSDF {j} ({kind}): only DiffuseBSDFs and MicrofacetBSDFs "
-                "carry over")
-        refl = b.reflectance
-        if np.asarray(refl.data).size == 3:
-            out[f"bsdf.{j}.reflectance"] = _f32(refl.data).reshape(3)
-        else:
-            _put_bitmap(out, f"bsdf.{j}.reflectance", refl)
+        _put_bsdf(out, f"bsdf.{j}", b)
     for k, em in enumerate(scene.emitters):
         kind = type(em).__name__
         if kind == "EnvironmentMap":
@@ -137,9 +192,8 @@ def scene_to_arrays(scene, cell_table: bool = False) -> dict:
 def scene_from_arrays(arrays, device="cuda"):
     """``{name: array}`` (or a loaded ``.npz``) -> this package's Scene on
     ``device`` (the card unless the caller asks for the CPU)."""
-    from . import (AreaLight, DiffuseBSDF, EnvironmentMap, MicrofacetBSDF,
-                   Mesh, OrthographicCamera, PerspectiveCamera, RenderOption,
-                   Scene)
+    from . import (AreaLight, EnvironmentMap, Mesh, OrthographicCamera,
+                   PerspectiveCamera, RenderOption, Scene)
     from .core.distribution import HyperCubeDistribution
     from .scene.scene import tree_map
 
@@ -159,17 +213,7 @@ def scene_from_arrays(arrays, device="cuda"):
             setattr(cam, name, _tensor(a[f"sensor.{s}.{name}"]))
         sc.add_Sensor(cam)
     for j in range(n_bsdfs):
-        kind = str(a.get(f"bsdf.{j}.type", "DiffuseBSDF"))
-        if kind == "MicrofacetBSDF":
-            bsdf = MicrofacetBSDF(*(_get_bitmap(a, f"bsdf.{j}.{name}")
-                                    for name in _MICROFACET))
-        elif f"bsdf.{j}.reflectance.data" in a:
-            bsdf = DiffuseBSDF(_get_bitmap(a, f"bsdf.{j}.reflectance"))
-        elif kind == "DiffuseBSDF":
-            bsdf = DiffuseBSDF(_tensor(a[f"bsdf.{j}.reflectance"]))
-        else:
-            raise NotImplementedError(f"BSDF {j}: {kind}")
-        sc.add_BSDF(bsdf, str(a["bsdf_ids"][j]),
+        sc.add_BSDF(_get_bsdf(a, f"bsdf.{j}"), str(a["bsdf_ids"][j]),
                     twoSide=bool(a[f"bsdf.{j}.twoSide"]))
 
     def add_envmaps():

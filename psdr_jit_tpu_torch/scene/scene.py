@@ -59,6 +59,7 @@ from ..shape.mesh import Mesh, SecondaryEdgeInfo, TriangleInfo, cpu_f32
 from ..sensor.sensor import floored_edge_distrb
 from ..bsdf.bsdf import (BSDF, eval_dispatch, material_table, pdf_dispatch,
                          sample_dispatch)
+from ..bsdf.microfacet_pv import MicrofacetBSDFPerVertex
 from ..emitter.area import AreaLight, AreaLightData, area_light_weight
 from ..emitter.envmap import (EnvironmentMap, EnvironmentMapData,
                               build_envmap_distribution)
@@ -145,6 +146,9 @@ class SceneData:
     # some mesh has UVs, so hits interpolate them and build UV frames
     tri_uv: Optional[torch.Tensor] = None
     has_uv: bool = False
+    # some BSDF (or a normal map's nested BSDF) is per-vertex, so hits
+    # gather their face's vertex ids
+    has_pv: bool = False
 
     def ray_intersect(self, ray: Ray, active=None,
                       mode: str = "path") -> Intersection:
@@ -168,7 +172,8 @@ class SceneData:
         orthogonal to the shading normal (scene.cpp:727-759, in the JAX
         package's expression order); elsewhere the frame is
         ``Frame.from_normal`` of the shading normal, and ``uv`` and the
-        tangents are 0."""
+        tangents are 0. ``face_indices`` are the hit face's vertex ids in
+        its mesh (the per-vertex BSDFs' rows) where ``has_pv``, else 0."""
         tri = self.tri
         tree = (self.bvh if intersect.needs_tree(tri.p0.shape[0],
                                                  tri.p0.device) else None)
@@ -227,7 +232,10 @@ class SceneData:
             valid=valid, t=t, p=p, n=face_normal, sh_frame=frame,
             wi=frame.to_local(wi_dir), J=jac, bc=uv,
             tri_id=tri_id, mesh_id=rows(self.face_mesh_id), uv=its_uv,
-            dp_du=dp_du, dp_dv=dp_dv)
+            dp_du=dp_du, dp_dv=dp_dv,
+            face_indices=(rows(tri.face_indices) if self.has_pv else
+                          tri.face_indices.new_zeros(()).expand(
+                              t.shape + (3,))))
 
     # -- per-lane emitter and BSDF dispatch (scene.py:236-270) --------------
     def emitter_slot(self, its: Intersection):
@@ -259,8 +267,8 @@ class SceneData:
 
     @functools.cached_property
     def materials(self):
-        """The BSDFs' ``(reflectance (n, 3), two_side (n,))`` on the
-        scene's device, built at first use (``bsdf.material_table``)."""
+        """The BSDFs' per-type parameter tables on the scene's device,
+        built at first use (``bsdf.material_table``)."""
         return material_table(self.bsdfs, self.tri.p0.device)
 
     def bsdf_slot(self, its: Intersection):
@@ -593,6 +601,9 @@ class Scene:
             sec_edge_distrb=sec_edge_distrb,
             tri_uv=tri_uv,
             has_uv=any(m.has_uv for m in mesh_list),
+            has_pv=any(isinstance(getattr(b, "bsdf", b),
+                                  MicrofacetBSDFPerVertex)
+                       for b in self.bsdfs),
         )
         return tree_map(lambda x: x.to(self.device), sd)
 

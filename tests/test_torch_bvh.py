@@ -33,6 +33,7 @@ from psdr_jit_tpu.ops.intersect_pallas import ray_intersect_pallas
 from psdr_jit_tpu_torch.ops import bvh
 from psdr_jit_tpu_torch.ops import intersect as ix
 from tests.test_intersect import _random_scene
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 # the two routes past K1, by triangle count
 ROUTES = {"K5": 1200, "K6": 5000}

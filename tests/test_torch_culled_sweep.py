@@ -29,6 +29,7 @@ from psdr_jit_tpu.ops.intersect import ray_intersect_brute as j_brute
 from psdr_jit_tpu_torch.integrator.base import interior_lane_setup
 from psdr_jit_tpu_torch.ops import intersect as ix
 from psdr_jit_tpu_torch.ops import megakernel as mk
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")  # the entry points default to the card
 NPZ = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",

@@ -29,6 +29,7 @@ from psdr_jit_tpu_torch.integrator.base import STREAM_PRIMARY
 from psdr_jit_tpu_torch.sensor.sensor import sample_primary_edge
 from psdr_jit_tpu_torch.shape.mesh import build_edge_list
 from scenes import make_cbox
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")  # the entry points default to the card
 

@@ -48,6 +48,7 @@ from psdr_jit_tpu_torch.core.math import ray_intersect_scene_aabb
 from psdr_jit_tpu_torch.core.sampler import Sampler
 from psdr_jit_tpu_torch.core.types import Ray
 from psdr_jit_tpu_torch.integrator.path import bsdf_bounce, nee_contribution
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")  # the entry points default to the card
 
@@ -56,17 +57,6 @@ N = 4096
 TARGET = np.random.default_rng(0).random((W * W, 3)).astype(np.float32)
 MESH_TO_WORLD = np.asarray([[1.0, 0, 0, 0], [0, 1.0, 0, 0],
                             [0, 0, 1.0, -100.0], [0, 0, 0, 1.0]], np.float32)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this module's renders: the tier-1 run shares
-    the CPU among several pytest workers, where torch's oversubscribed
-    parallel regions slow renders of more than ~32k lanes many times."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(x):

@@ -46,6 +46,7 @@ from psdr_jit_tpu_torch.core.types import Ray
 from psdr_jit_tpu_torch.integrator import base as tbase
 from psdr_jit_tpu_torch.sensor.sensor import SensorData
 from scenes import make_cbox
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")  # the entry points default to the card
 

@@ -57,6 +57,7 @@ from psdr_jit_tpu_torch.ops import megakernel as mk
 from psdr_jit_tpu_torch.scene.scene import morton_order
 from psdr_jit_tpu_torch.shape.mesh import sample_position
 from scenes import make_cbox, make_gallery
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")  # the entry points default to the card
 RTOL = 5e-3  # relative L1 between a general Li and a megakernel (JAX's)

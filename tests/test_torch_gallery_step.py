@@ -26,22 +26,12 @@ from chip_smoke import gallery_arrays, gallery_step_setup
 from psdr_jit_tpu.ops import image as jimage
 from psdr_jit_tpu.ops import megakernel as jmk
 from scenes import make_gallery
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")  # the entry points default to the card
 
 # bench.py _time_bvh_grad at PSDR_BENCH_SMOKE=1
 RES, SPP, DEPTH, N_SPHERES, SUBDIV, EDGE_SPHERES, SEED = 64, 1, 1, 4, 2, 1, 0
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this module's renders: the tier-1 run shares
-    the CPU among several pytest workers, where torch's oversubscribed
-    parallel regions slow renders many times."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rel(a, b):

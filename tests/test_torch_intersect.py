@@ -27,6 +27,7 @@ from psdr_jit_tpu.ops.intersect import ray_intersect_brute as j_brute
 from psdr_jit_tpu.ops.intersect_pallas import ray_intersect_pallas
 from psdr_jit_tpu_torch.ops import intersect as ix
 from scenes import make_cbox
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")  # the entry points default to the card
 

@@ -46,6 +46,7 @@ from psdr_jit_tpu.ops.intersect import ray_intersect_detached as j_detached
 from psdr_jit_tpu.ops.intersect_pallas import ray_intersect_pallas
 from psdr_jit_tpu_torch.ops import bvh
 from psdr_jit_tpu_torch.ops import intersect as ix
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")  # the entry points default to the card
 

@@ -25,6 +25,7 @@ from psdr_jit_tpu_torch.integrator.base import interior_lane_setup
 from psdr_jit_tpu_torch.core import warp
 from psdr_jit_tpu_torch.ops import megakernel as mk
 from scenes import make_cbox
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")  # the entry points default to the card
 

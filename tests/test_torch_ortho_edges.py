@@ -24,19 +24,9 @@ from psdr_jit_tpu.core import transform as jxf
 from psdr_jit_tpu.sensor.sensor import sample_primary_edge as j_sample_pe
 from psdr_jit_tpu_torch.core import transform as xf
 from psdr_jit_tpu_torch.sensor.sensor import sample_primary_edge
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")  # the entry points default to the card
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this module's renders: the tier-1 run shares
-    the CPU among several pytest workers, and there torch's oversubscribed
-    parallel regions made these renders 30-80x slower than alone."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _quad_mesh(v0, v1, v2, v3, flip=False, edges=True):

@@ -21,6 +21,7 @@ import psdr_jit_tpu as jpsdr
 import psdr_jit_tpu_torch as pt
 from psdr_jit_tpu_torch.integrator import base
 from scenes import make_cbox
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")  # the entry points default to the card
 

@@ -75,19 +75,10 @@ from psdr_jit_tpu_torch.ops.gather import gather_rows
 from psdr_jit_tpu_torch.ops.image import splat_add_derivative_only
 from psdr_jit_tpu_torch.shape import mesh as tmesh
 from scenes import LIGHT, _quads_to_mesh, make_cbox
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")  # the entry points default to the card
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this module's renders: the tier-1 run shares
-    the CPU among several pytest workers, and there torch's oversubscribed
-    parallel regions made these renders 30-80x slower than alone."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 W, SPP, SPPE, SPPSE, DEPTH, SEED = 16, 4, 4, 4, 2, 3
 PARAMS = ("tx", "dv", "alb", "rad")

@@ -22,6 +22,7 @@ from psdr_jit_tpu.ops import megakernel as jmk
 from psdr_jit_tpu_torch.integrator.base import interior_lane_setup
 from psdr_jit_tpu_torch.ops import megakernel as mk
 from scenes import make_cbox
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 NPZ = os.path.join(os.path.dirname(__file__), "data", "cbox_scene.npz")
 RTOL, ATOL = 1e-5, 1e-3

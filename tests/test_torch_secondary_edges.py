@@ -48,6 +48,7 @@ from psdr_jit_tpu_torch.core.sampler import Sampler
 from psdr_jit_tpu_torch.integrator import base as tbase
 from psdr_jit_tpu_torch.integrator import edge as te
 from scenes import make_cbox
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")  # the entry points default to the card
 

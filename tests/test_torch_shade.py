@@ -33,6 +33,7 @@ from psdr_jit_tpu_torch.ops import megakernel as mk
 from psdr_jit_tpu_torch.ops import shade_mega as sm
 from psdr_jit_tpu_torch.scene.scene import tree_map
 from scenes import make_cbox
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")  # the entry points default to the card
 

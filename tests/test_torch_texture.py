@@ -50,6 +50,7 @@ from psdr_jit_tpu_torch.ops import shade_mega as sm
 from psdr_jit_tpu_torch.scene import scene as tscene
 from psdr_jit_tpu_torch.sensor.sensor import SensorData
 from scenes import make_cbox
+from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")  # the entry points default to the card
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -58,17 +59,6 @@ ROOT = os.path.dirname(HERE)
 W, SPP, DEPTH, SEED = 16, 4, 2, 3
 TEX = (16, 8)
 TARGET = np.random.default_rng(0).random((W * W, 3)).astype(np.float32)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this module's renders: the tier-1 run shares
-    the CPU among several pytest workers, where torch's oversubscribed
-    parallel regions slow renders many times."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _t(x):
