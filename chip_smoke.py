@@ -53,7 +53,13 @@ just before it and read just after:
   training step with a pose, vertex and radiance gradients, and renderD
   in both modes, at 512x512, spp, sppe and sppse 32, ``PathTracer(2)``,
   every intersection through K1; and K1 alone on the frame's and the
-  secondary-edge pass's rays.
+  secondary-edge pass's rays;
+* scenes loaded from files: the port's host library built and its EXR
+  (ZIP, PIZ) and OBJ readers held bitwise; BASELINE config #2 written as
+  ``cbox.xml`` and eight OBJ files and loaded with ``pt.load_file``, and
+  config #3's stand-in as XML, OBJ and a PIZ EXR: their frames, steps
+  (and the box's renderD) with the in-memory scenes' launches, frames and
+  losses bitwise; and the box seen by an intrinsic camera.
 
 64x64 training steps of the box (sppse 0, sppse 8, and sppse 8 guided by
 one table on both sides), a 64x64 renderD of the box (forward and reverse
@@ -3108,7 +3114,7 @@ def envmap_phases(dev, kernels) -> dict:
         envmap_step_bound_ms=rec6["bound_ms"],
         envmap_step_launches=len(calls),
         max_abs_err=max(kernels["K6"]["max_abs_err"], rec6["max_abs_err"]))
-    return {"K6": sum(k6.values())}
+    return {"K6": sum(k6.values()), "runs": got}
 
 
 def func_jvp_phase(arrays, dev):
@@ -3838,6 +3844,463 @@ def room_phases(dev, kernels) -> dict:
     return {"K1": sum(k1.values())}
 
 
+# ---- scene files: the host library, the XML loader, the intrinsic camera ----
+
+INTRINSIC_SMALL = (64, 64, 8)  # width, height, spp (= sppe = sppse)
+
+
+def obj_text(vertices, faces) -> str:
+    """OBJ text of a mesh: ``v`` lines at ``%.9g``, which round-trips
+    float32 exactly, and 1-based ``f`` lines."""
+    import numpy as np
+
+    v = np.asarray(vertices, np.float32).astype(np.float64)
+    f = np.asarray(faces, np.int64) + 1
+    return "".join([*(f"v {x:.9g} {y:.9g} {z:.9g}\n" for x, y, z in v),
+                    *(f"f {a} {b} {c}\n" for a, b, c in f)])
+
+
+def _matrix_xml(m) -> str:
+    import numpy as np
+
+    vals = " ".join(f"{x:.9g}" for x in np.asarray(m, np.float32).ravel())
+    return f'<transform name="toWorld"><matrix value="{vals}"/></transform>'
+
+
+def _rgb(v) -> str:
+    import numpy as np
+
+    return ", ".join(f"{x:.9g}" for x in np.asarray(v, np.float32).ravel())
+
+
+def _sensor_xml(fov, near, far, to_world, width, height, spp) -> str:
+    return (f'<sensor type="perspective"><float name="fov" value="{fov}"/>'
+            f'<float name="nearClip" value="{near!r}"/>'
+            f'<float name="farClip" value="{far!r}"/>{_matrix_xml(to_world)}'
+            f'<film type="hdrfilm"><integer name="width" value="{width}"/>'
+            f'<integer name="height" value="{height}"/></film>'
+            f'<sampler type="independent"><integer name="sampleCount" '
+            f'value="{spp}"/></sampler></sensor>')
+
+
+def cbox_files(arrays, directory: Path) -> Path:
+    """Write the scene of ``arrays`` (``tests/data/cbox_scene.npz``: one
+    camera, one-sided constant diffuse BSDFs, area lights on meshes) as
+    ``cbox.xml`` and one OBJ file a mesh in ``directory``, the reference's
+    README workflow: each transform a ``<matrix>``, ``face_normals`` as the
+    mesh has them. Returns the XML's path."""
+    import numpy as np
+
+    a = {k: np.asarray(arrays[k]) for k in arrays.keys()}
+    n_meshes, n_bsdfs, _, n_sensors = (int(v) for v in a["counts"])
+    eye = np.eye(4, dtype=np.float32)
+    require(n_sensors == 1 and all(
+        np.array_equal(a[f"{o}.{n}"], eye)
+        for o in [f"mesh.{i}" for i in range(n_meshes)] + ["sensor.0"]
+        for n in ("to_world_left", "to_world_right")),
+        "cbox files: one camera, and transforms in to_world_raw only")
+    w, h, spp = (int(v) for v in a["opts"][:3])
+    fov, near, far = (float(v) for v in a["sensor.0.fov_near_far"])
+    parts = ['<scene version="0.5.0">',
+             _sensor_xml(f"{fov:g}", near, far, a["sensor.0.to_world_raw"],
+                         w, h, spp)]
+    for j in range(n_bsdfs):
+        require(not bool(a[f"bsdf.{j}.twoSide"])
+                and f"bsdf.{j}.type" not in a,
+                "cbox files: one-sided constant diffuse BSDFs only")
+        parts.append(f'<bsdf type="diffuse" id="{a["bsdf_ids"][j]}"><rgb '
+                     f'name="reflectance" value="{_rgb(a[f"bsdf.{j}.reflectance"])}"'
+                     '/></bsdf>')
+    for i in range(n_meshes):
+        name = f"mesh_{i}.obj"
+        (directory / name).write_text(obj_text(
+            a[f"mesh.{i}.vertex_positions_raw"], a[f"mesh.{i}.face_indices"]))
+        fn = str(bool(a[f"mesh.{i}.use_face_normals"])).lower()
+        em = int(a[f"mesh.{i}.emitter_id"])
+        light = ("" if em < 0 else
+                 f'<emitter type="area"><rgb name="radiance" value='
+                 f'"{_rgb(a[f"emitter.{em}.radiance"])}"/></emitter>')
+        parts.append(
+            f'<shape type="obj"><string name="filename" value="{name}"/>'
+            f'<boolean name="face_normals" value="{fn}"/>'
+            f'<ref id="{a["bsdf_ids"][int(a[f"mesh.{i}.bsdf_id"])]}"/>'
+            f'{_matrix_xml(a[f"mesh.{i}.to_world_raw"])}{light}</shape>')
+    path = directory / "cbox.xml"
+    path.write_text("\n".join(parts + ["</scene>"]) + "\n")
+    return path
+
+
+def envmap_files(directory: Path, width=128, height=128, spp=32) -> Path:
+    """Write BASELINE config #3's scene on the stand-in assets as files in
+    ``directory``, exactly ``envmap_arrays``' scene: the mesh of
+    ``envmap_standin`` as ``mesh.obj`` (at z = -100 by a ``<translate>``),
+    its 512x1024 map as a PIZ EXR (the compression of the reference's
+    ballroom map) and ``scene.xml``: a ``microfacet`` BSDF of specular
+    (0.2, 0.9, 0.9), diffuse 0.01 and roughness 0.3, the fov-80 camera
+    mirrored by a ``<matrix>``. Returns the XML's path."""
+    import numpy as np
+    from psdr_jit_tpu_torch import native
+
+    verts, faces, tex = envmap_standin()
+    (directory / "mesh.obj").write_text(obj_text(verts, faces))
+    native.write_exr(str(directory / "map.exr"), tex, "piz")
+    mirror = np.diag([-1.0, 1.0, -1.0, 1.0])
+    (directory / "scene.xml").write_text(
+        '<scene version="0.5.0">'
+        + _sensor_xml(80, 1e-6, 1e7, mirror, width, height, spp)
+        + '<bsdf type="microfacet" id="bunny">'
+        '<rgb name="specularReflectance" value="0.2, 0.9, 0.9"/>'
+        '<rgb name="diffuseReflectance" value="0.01"/>'
+        '<float name="roughness" value="0.3"/></bsdf>'
+        '<emitter type="envmap"><string name="filename" value="map.exr"/>'
+        '<float name="scale" value="1"/></emitter>'
+        '<shape type="obj"><string name="filename" value="mesh.obj"/>'
+        '<ref id="bunny"/><transform name="toWorld">'
+        '<translate x="0" y="0" z="-100"/></transform></shape></scene>\n')
+    return directory / "scene.xml"
+
+
+def files_phase():
+    """[files]: the port's host library builds here (its seconds); EXR
+    write and read are bitwise under ZIP and PIZ on the stand-in's
+    512x1024x3 map; the library's OBJ parser is bitwise the plain Python
+    parser on the stand-in's 5,120-triangle mesh and on the
+    102,412-triangle gallery as one OBJ, with their parse times."""
+    import tempfile
+    import numpy as np
+    from psdr_jit_tpu_torch import native
+    from psdr_jit_tpu_torch.utils.obj import parse_obj_text
+
+    t0 = time.perf_counter()
+    lib = native.build()
+    native.library()
+    build_s = time.perf_counter() - t0
+    verts, faces, tex = envmap_standin()
+    exr = {}
+    with tempfile.TemporaryDirectory() as d:
+        for comp in ("zip", "piz"):
+            path = str(Path(d) / f"{comp}.exr")
+            t0 = time.perf_counter()
+            native.write_exr(path, tex, comp)
+            t1 = time.perf_counter()
+            back = native.read_exr(path)
+            t2 = time.perf_counter()
+            exr[comp] = dict(bitwise=bool(np.array_equal(back, tex)),
+                             mb=Path(path).stat().st_size / 1e6,
+                             write_ms=(t1 - t0) * 1e3,
+                             read_ms=(t2 - t1) * 1e3)
+    g = gallery_arrays()
+    gv, gf, off = [], [], 0
+    for i in range(int(g["counts"][0])):
+        gv.append(g[f"mesh.{i}.vertex_positions_raw"])
+        gf.append(g[f"mesh.{i}.face_indices"] + off)
+        off += gv[-1].shape[0]
+    obj = {}
+    for name, (v, f) in (("standin", (verts, faces)),
+                         ("gallery", (np.concatenate(gv),
+                                      np.concatenate(gf)))):
+        text = obj_text(v, f)
+        t0 = time.perf_counter()
+        got = native.parse_obj(text.encode())
+        t1 = time.perf_counter()
+        want = parse_obj_text(text)
+        t2 = time.perf_counter()
+        obj[name] = dict(
+            faces=int(f.shape[0]),
+            bitwise=all(np.array_equal(got[k], want[k]) and got[k].dtype
+                        == want[k].dtype for k in ("vertices", "faces"))
+            and got["uvs"] is None and want["uvs"] is None
+            and np.array_equal(want["vertices"], v),
+            ms=(t1 - t0) * 1e3, python_ms=(t2 - t1) * 1e3)
+    log("files", build_s=f"{build_s:.2f}", lib=lib.relative_to(ROOT),
+        **{f"exr_{c}": ",".join(f"{k}:{v:.3f}" if isinstance(v, float)
+                                else f"{k}:{v}" for k, v in r.items())
+           for c, r in exr.items()},
+        **{f"obj_{n}": ",".join(f"{k}:{v:.2f}" if isinstance(v, float)
+                                else f"{k}:{v}" for k, v in r.items())
+           for n, r in obj.items()})
+    require(all(r["bitwise"] for r in exr.values()),
+            "files: an EXR round trip is not bitwise")
+    require(all(r["bitwise"] for r in obj.values()),
+            "files: the OBJ parser differs from the plain Python parser")
+
+
+def _loaded_runs(phase, scenes, runs_of, expected):
+    """Run ``runs_of(scene)``'s parts (name -> call) on each of
+    ``scenes`` (side -> scene), the launch counts set to 0 just before
+    each part and read just after; each part's launches must equal
+    ``expected[name]`` on every side, with no plain version called.
+    Returns ``(outputs, launches)`` keyed by ``(side, name)``."""
+    import torch
+    from psdr_jit_tpu_torch.ops import _cuda
+
+    outs, got = {}, {}
+    torch.cuda.synchronize()
+    with PlainCalls() as plain:
+        for side, scene in scenes.items():
+            for name, fn in runs_of(scene).items():
+                _cuda.reset_launches()
+                outs[side, name] = fn()
+                torch.cuda.synchronize()
+                got[side, name] = dict(_cuda.LAUNCHES)
+        plain_count = plain.count
+    log(f"main-path-{phase}", **{
+        f"{side}_{name}": ",".join(f"{k}:{v}" for k, v in g.items() if v)
+        for (side, name), g in got.items()},
+        expected=";".join(f"{n}:" + ",".join(f"{k}:{v}" for k, v in
+                                             e.items() if v)
+                          for n, e in expected.items()),
+        plain_calls=plain_count)
+    for (side, name), g in got.items():
+        require(g == expected[name], f"{phase}: the {side} scene's {name} "
+                "launched other kernels than the in-memory main path")
+    require(plain_count == 0, f"{phase}: a plain version ran")
+    return outs, got
+
+
+def _box_runs(integ):
+    """``runs_of(scene)`` for :func:`_loaded_runs`: the box's main-path
+    parts, a frame, a training step (``train_setup``) and a forward-mode
+    renderD along the light's translation."""
+    def runs_of(scene):
+        setup = train_setup(scene)
+        params, apply_params, pixel_loss = setup
+        return {"frame": lambda: integ.renderC(scene, 0, seed=SEED),
+                "step": lambda: integ.loss_and_grad(
+                    scene, params, apply_params, pixel_loss, 0, SEED),
+                "renderD": lambda: renderd_tangent(integ, scene, setup, "tx",
+                                                   1.0)}
+    return runs_of
+
+
+def _same(phase, what, a, b):
+    """``a`` and ``b`` bitwise equal."""
+    import torch
+
+    require(bool(torch.equal(a, b)), f"{phase}: the loaded scene's {what} "
+            "is not bitwise the in-memory scene's")
+
+
+def _grads_close(phase, grads, ref, rtol=1e-5) -> dict:
+    rels = {k: rel_l1(grads[k], ref[k]) for k in ref}
+    require(all(bool(g.isfinite().all()) and float(g.abs().sum()) > 0
+                for g in grads.values()),
+            f"{phase}: a gradient is non-finite or zero")
+    require(all(v < rtol for v in rels.values()),
+            f"{phase}: a gradient differs from the in-memory scene's "
+            f"by >= {rtol}")
+    return rels
+
+
+def loaded_cbox_phase(dev, expected, frame) -> dict:
+    """[main-path-loaded] and [loaded-cbox]: BASELINE config #2 by the
+    reference's README workflow. ``cbox_files`` writes
+    ``tests/data/cbox_scene.npz`` as ``cbox.xml`` and eight OBJ files;
+    ``pt.load_file`` builds the scene on the card; at sppe and sppse 32,
+    ``PathTracer(3)``'s frame, one ``loss_and_grad`` step and one
+    forward-mode renderD along the light's translation run on it and on
+    the in-memory scene, with the launches of ``[main-path]`` (less the
+    pick), ``[main-path-train]`` and ``[main-path-renderD]``
+    (``expected``). The frame (also ``frame``, the main path's) and the
+    loss are bitwise the in-memory scene's; the step's image, renderD's
+    primal, the gradients and the tangent within 1e-5 (K4's and
+    ``index_add_``'s float atomics). Returns the loaded scene's launches."""
+    import tempfile
+    import numpy as np
+    import torch
+    import psdr_jit_tpu_torch as pt
+
+    arrays = np.load(SCENE_NPZ)
+    with tempfile.TemporaryDirectory() as d:
+        path = cbox_files(arrays, Path(d))
+        n_files = len(list(Path(d).iterdir()))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sc = pt.load_file(path)
+        load_ms = (time.perf_counter() - t0) * 1e3
+    sc.opts.sppe, sc.opts.sppse = SPPE, SPPSE
+    _, configure_ms = _synced_ms(sc.configure)
+    require(sc.device.type == "cuda" and sc.data.tri.p0.is_cuda,
+            "loaded-cbox: load_file did not build the scene on the card")
+    held = pt.scene_to_arrays(sc)
+    require(sorted(held) == sorted(arrays.files) and all(
+        np.array_equal(held[k], arrays[k]) for k in arrays.files
+        if k != "opts"), "loaded-cbox: the loaded scene's arrays differ "
+            "from cbox_scene.npz")
+    mem = pt.Scene.from_arrays(arrays, device=dev)
+    mem.opts.sppe, mem.opts.sppse = SPPE, SPPSE
+    mem.configure()
+    runs_of = _box_runs(pt.PathTracer(DEPTH))
+    outs, got = _loaded_runs("loaded", {"memory": mem, "loaded": sc},
+                             runs_of, expected)
+    img, mem_img = outs["loaded", "frame"], outs["memory", "frame"]
+    (loss, grads, img_t), (loss_m, grads_m, img_tm) = (
+        outs["loaded", "step"], outs["memory", "step"])
+    (primal, tangent), (primal_m, tangent_m) = (outs["loaded", "renderD"],
+                                                outs["memory", "renderD"])
+    _same("loaded-cbox", "frame", img, mem_img)
+    _same("loaded-cbox", "frame", img, frame)
+    _same("loaded-cbox", "loss", loss, loss_m)
+    rels = _grads_close("loaded-cbox", grads, grads_m)
+    rels.update(step_image=rel_l1(img_t, img_tm),
+                renderD_primal=rel_l1(primal, primal_m),
+                renderD_tangent=rel_l1(tangent, tangent_m))
+    require(all(v < 1e-5 for v in rels.values()),
+            "loaded-cbox: the step's image, renderD or a gradient differs "
+            "from the in-memory scene's by >= 1e-5")
+    run = runs_of(sc)
+    ms = {n: wall_ms(f, 3) for n, f in run.items()}
+    log("loaded-cbox", files=n_files, load_file_ms=f"{load_ms:.1f}",
+        configure_ms=f"{configure_ms:.1f}",
+        frame_bitwise=True, loss_bitwise=True,
+        step_image_bitwise=bool(torch.equal(img_t, img_tm)),
+        rel_l1=",".join(f"{k}:{v:.3e}" for k, v in rels.items()),
+        **{f"{n}_ms": f"{v:.2f}" for n, v in ms.items()})
+    return {k: sum(got["loaded", n][k] for n in run) for k in
+            got["loaded", "frame"]}
+
+
+def loaded_envmap_phase(dev, expected) -> dict:
+    """[loaded-envmap]: BASELINE config #3's workflow on files
+    (``envmap_files``: the stand-in's mesh as OBJ, its map as a PIZ EXR)
+    at sppe and sppse 32, ``PathTracer(1)``: a frame and a step guided by
+    one table that ``preprocess_secondary_edges`` builds (the same table
+    on both sides), on the loaded scene and on ``envmap_arrays``' in
+    memory, with ``[main-path-envmap]``'s K6 launches (``expected``). The
+    frame and the loss are bitwise, the step's image and gradients within
+    1e-5. Prints the map's EXR read and the importance table's build.
+    Returns the loaded scene's launches."""
+    import tempfile
+    import torch
+    import psdr_jit_tpu_torch as pt
+    from psdr_jit_tpu_torch import native
+
+    W, H, S = ENVMAP
+    with tempfile.TemporaryDirectory() as d:
+        path = envmap_files(Path(d), W, H, S)
+        _, exr_ms = _synced_ms(lambda: native.read_exr(str(Path(d)
+                                                           / "map.exr")))
+        t0 = time.perf_counter()
+        sc = pt.load_file(path)
+        load_ms = (time.perf_counter() - t0) * 1e3
+    sc.opts.sppe = sc.opts.sppse = S
+    _, configure_ms = _synced_ms(sc.configure)  # the importance table
+    mem = pt.Scene.from_arrays(envmap_arrays(W, H, S, S, S), device=dev)
+    mem.configure()
+    guider = pt.PathTracer(ENVMAP_DEPTH)
+    guider.preprocess_secondary_edges(mem, 0, ENVMAP_GUIDE, 1)
+    table = guider.warpper[0]
+    integ = pt.PathTracer(ENVMAP_DEPTH)
+
+    def runs_of(scene):
+        params, apply_params, pixel_loss = envmap_setup(scene)
+        return {"frame": lambda: integ.renderC(scene, 0, seed=SEED),
+                "step": lambda: integ.loss_and_grad(
+                    scene, params, apply_params, pixel_loss, 0, SEED,
+                    warp=table)}
+
+    outs, got = _loaded_runs("loaded-envmap", {"memory": mem, "loaded": sc},
+                             runs_of, expected)
+    loss, grads, img_t = outs["loaded", "step"]
+    loss_m, grads_m, img_tm = outs["memory", "step"]
+    _same("loaded-envmap", "frame", outs["loaded", "frame"],
+          outs["memory", "frame"])
+    _same("loaded-envmap", "loss", loss, loss_m)
+    rels = _grads_close("loaded-envmap", grads, grads_m)
+    rels["step_image"] = rel_l1(img_t, img_tm)
+    require(rels["step_image"] < 1e-5,
+            "loaded-envmap: the step's image differs by >= 1e-5")
+    run = runs_of(sc)
+    ms = {n: wall_ms(f, 3) for n, f in run.items()}
+    log("loaded-envmap", triangles=int(sc.data.tri.p0.shape[0]),
+        exr_read_ms=f"{exr_ms:.1f}", load_file_ms=f"{load_ms:.1f}",
+        configure_ms_with_table=f"{configure_ms:.1f}",
+        frame_bitwise=True, loss_bitwise=True,
+        rel_l1=",".join(f"{k}:{v:.3e}" for k, v in rels.items()),
+        **{f"{n}_ms": f"{v:.2f}" for n, v in ms.items()})
+    return {k: sum(got["loaded", n][k] for n in run) for k in
+            got["loaded", "frame"]}
+
+
+def intrinsic_arrays(arrays, opts=None) -> dict:
+    """The scene of ``arrays`` with its camera replaced by the intrinsic
+    one that sees what its field-of-view camera sees on a square film:
+    ``fx = fy = cot(fov / 2) / 2`` (the float32 cotangent of the
+    projection), ``cx = cy = 1/2``; ``opts`` replaces the render
+    options."""
+    import numpy as np
+    from psdr_jit_tpu_torch.core import transform as xf
+
+    a = {k: np.asarray(arrays[k]) for k in arrays.keys()}
+    fov, near, far = (float(v) for v in a["sensor.0.fov_near_far"])
+    f = 0.5 * float(xf.perspective(fov, near, far)[0, 0])
+    a["sensor.0.intrinsic"] = np.asarray([f, f, 0.5, 0.5], np.float64)
+    if opts is not None:
+        a["opts"] = np.asarray(opts, np.int64)
+    return a
+
+
+def intrinsic_phases(dev, frame, expected) -> dict:
+    """[intrinsic-64] and [intrinsic]: the box of ``cbox_scene.npz`` seen
+    by ``PerspectiveCamera.from_intrinsic`` (``intrinsic_arrays``). At
+    64x64, spp, sppe and sppse 8, a frame, a step and a forward-mode
+    renderD through the kernels against the CPU plain path
+    (``_compare_paths``: loss and images within 1e-4, gradients and
+    tangent within 1e-3). At 512x512, spp 32, sppe and sppse 32, the
+    frame (through K2, the megakernels taking the intrinsic camera's
+    rays), a step and a forward renderD with the launches of the
+    field-of-view camera's main paths (``expected``), the frame within
+    1e-4 rel L1 of the field-of-view frame ``frame``. Returns the
+    launches."""
+    import numpy as np
+    import torch
+    import psdr_jit_tpu_torch as pt
+
+    arrays = np.load(SCENE_NPZ)
+    w, h, s = INTRINSIC_SMALL
+
+    def run(sc, device, target):
+        r = _frame_and_step(DEPTH, lambda x: train_setup(x)[:2])(
+            sc, device, target)
+        r["primal"], r["tangent"] = renderd_tangent(
+            pt.PathTracer(DEPTH), sc, train_setup(sc), "tx", 1.0)
+        return r
+
+    rels, ms, plain_ms = _compare_paths(
+        "intrinsic-64", intrinsic_arrays(arrays, (w, h, s, s, s)), run, dev)
+    log("intrinsic-64", spp=s, sppe=s, sppse=s, depth=DEPTH,
+        rel_l1=",".join(f"{n}:{v:.3e}" for n, v in rels.items()),
+        ms=f"{ms:.1f}", plain_cpu_ms=f"{plain_ms:.1f}")
+
+    W, H, S = FRAME
+    sc = pt.Scene.from_arrays(intrinsic_arrays(arrays, (W, H, S, SPPE,
+                                                        SPPSE)), device=dev)
+    cam = sc.sensors[0]
+    require(cam.use_intrinsic, "intrinsic: the camera is not intrinsic")
+    runs_of = _box_runs(pt.PathTracer(DEPTH))
+    outs, got = _loaded_runs("intrinsic", {"intrinsic": sc}, runs_of,
+                             expected)
+    img = outs["intrinsic", "frame"]
+    loss, grads, _ = outs["intrinsic", "step"]
+    primal, tangent = outs["intrinsic", "renderD"]
+    f_rel = rel_l1(img, frame)
+    require(all(bool(x.isfinite().all()) for x in (img, loss, primal,
+                                                   tangent, *grads.values()))
+            and all(float(g.abs().sum()) > 0 for g in grads.values()),
+            "intrinsic: a non-finite output or a zero gradient")
+    require(f_rel < 1e-4, "intrinsic: the frame differs from the "
+            "field-of-view camera's by >= 1e-4")
+    run = runs_of(sc)
+    ms = {n: wall_ms(f, 3) for n, f in run.items()}
+    log("intrinsic", fx=f"{cam.fx:.9g}", fy=f"{cam.fy:.9g}", cx=cam.cx,
+        cy=cam.cy, frame_rel_l1_vs_fov=f"{f_rel:.3e}",
+        frame_bitwise_vs_fov=bool(torch.equal(img, frame)),
+        loss=f"{float(loss):.6e}",
+        **{f"{n}_ms": f"{v:.2f}" for n, v in ms.items()})
+    return {k: sum(got["intrinsic", n][k] for n in run) for k in
+            got["intrinsic", "frame"]}
+
+
 def main() -> int:
     try:
         import torch
@@ -4170,6 +4633,17 @@ def main() -> int:
     launches_r = room_phases(dev, kernels)
     room_s = time.perf_counter() - t_room
 
+    # ---- 14. scene files: the host library, the loader, intrinsics ---------
+    t_files = time.perf_counter()
+    files_phase()
+    box_want = {"frame": {**launches, "K1": launches["K1"] - 1},
+                "step": launches_t, "renderD": launches_d}
+    launches_lc = loaded_cbox_phase(dev, box_want, img)
+    launches_le = loaded_envmap_phase(
+        dev, {k: launches_e["runs"][k] for k in ("frame", "step")})
+    launches_i = intrinsic_phases(dev, img, box_want)
+    files_s = time.perf_counter() - t_files
+
     kernels["K1"]["launches_step"] = launches_t["K1"]
     kernels["K1"]["launches_renderD"] = launches_d["K1"]
     kernels["K1"]["launches_texture"] = launches_x["K1"]
@@ -4177,21 +4651,29 @@ def main() -> int:
     kernels["K6"]["launches_gallery_step"] = launches_g["K6"]
     kernels["K2-pair"]["launches_renderD"] = launches_d["K2-pair"]
     kernels["K5"]["launches_renderD"] = launches_dk5["K5"]
+    for k in ("K1", "K2", "K2-pair", "K2-stash", "K3", "K4"):
+        kernels[k]["launches_loaded"] = launches_lc[k]
+        kernels[k]["launches_intrinsic"] = launches_i[k]
+    kernels["K6"]["launches_loaded"] = launches_le["K6"]
+    files = {k: launches_lc[k] + launches_le[k] + launches_i[k]
+             for k in launches_lc}
     record = {"kernels": (
         [{**kernels["K1"], "launches": launches["K1"] + launches_t["K1"]
-          + launches_d["K1"] + launches_x["K1"] + launches_r["K1"]},
-         {**kernels["K2"], "launches": launches["K2"]},
+          + launches_d["K1"] + launches_x["K1"] + launches_r["K1"]
+          + files["K1"]},
+         {**kernels["K2"], "launches": launches["K2"] + files["K2"]},
          {**kernels["K2-pair"], "launches": launches_t["K2-pair"]
-          + launches_d["K2-pair"]}]
-        + [{**kernels[k], "launches": launches_t[k]}
+          + launches_d["K2-pair"] + files["K2-pair"]}]
+        + [{**kernels[k], "launches": launches_t[k] + files[k]}
            for k in ("K2-stash", "K3", "K4")]
         + [{**kernels["K5"], "launches": launches_l["K5"]
-            + launches_dk5["K5"]},
+            + launches_dk5["K5"] + files["K5"]},
            {**kernels["K6"], "launches": launches_l["K6"]
-            + launches_e["K6"] + launches_g["K6"]}])}
+            + launches_e["K6"] + launches_g["K6"] + files["K6"]}])}
     log("total", seconds=f"{time.perf_counter() - t_start:.1f}",
         envmap_seconds=f"{env_s:.1f}", texture_seconds=f"{tex_s:.1f}",
-        gallery_step_seconds=f"{gal_s:.1f}", room_seconds=f"{room_s:.1f}")
+        gallery_step_seconds=f"{gal_s:.1f}", room_seconds=f"{room_s:.1f}",
+        files_seconds=f"{files_s:.1f}")
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -18,7 +18,9 @@ path-traced Li in its single, pair and stash modes, K3, the attached
 interior shade, and K4, K3's adjoint. On CPU tensors every kernel entry
 runs its plain PyTorch version instead; on CUDA tensors it launches the
 kernel or raises. The entry points build scenes on the card unless the
-caller asks for the CPU (``device="cpu"``).
+caller asks for the CPU (``device="cpu"``), scenes loaded from files
+(``load_file``, Mitsuba-style XML with OBJ meshes and EXR, PFM or NPY
+images, read by the host library ``native/``) among them.
 
 Importing the package needs neither CUDA nor ``nvcc``: the kernels are
 built at their first launch (``ops/_cuda.py``).
@@ -42,6 +44,7 @@ from .scene.scene import Scene, SceneData
 from .integrator.base import Integrator
 from .integrator.path import PathTracer
 from .interop import scene_to_arrays, params_to_torch
+from .scene.loader import load_file, load_string
 
 __all__ = [
     "RenderOption", "Ray", "Intersection", "Sampler", "Mesh", "DiffuseBSDF",
@@ -49,5 +52,5 @@ __all__ = [
     "MicrofacetBSDFPerVertex", "NormalMapBSDF", "Bitmap", "Bitmap1f", "Bitmap3f", "AreaLight",
     "EnvironmentMap", "PerspectiveCamera", "OrthographicCamera", "Scene",
     "SceneData", "Integrator", "PathTracer", "scene_to_arrays",
-    "params_to_torch",
+    "params_to_torch", "load_file", "load_string",
 ]

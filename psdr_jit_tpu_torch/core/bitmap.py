@@ -16,7 +16,9 @@ backward serialises the many lanes that share a texel on the card.
 :class:`BitmapTable` evaluates a stack of bitmaps lane by lane, each lane
 at its own slot and UV: the BSDF dispatch's per-type parameters.
 
-Image files are not read yet: a path raises ``NotImplementedError``.
+:meth:`Bitmap.load_openexr`, ``Bitmap1f(path)`` and ``Bitmap3f(path)``
+read an image file (``utils.image.read_image``: ``.exr``, ``.pfm``,
+``.npy``).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..ops.gather import gather_rows
@@ -132,6 +135,25 @@ class Bitmap:
         arr = _f32(array)
         return Bitmap(arr[..., None] if arr.dim() == 2 else arr)
 
+    def load_openexr(self, path: str) -> "Bitmap":
+        """Set ``data`` from an image file, keeping the bitmap's channel
+        count: the first channel of many for one, the first three of four
+        for three, and one channel repeated for three (the reference's
+        Bitmap::load_openexr)."""
+        from ..utils.image import read_image
+
+        arr = read_image(path)
+        if arr.ndim == 2:
+            arr = arr[..., None]
+        if self.channels == 1 and arr.shape[-1] > 1:
+            arr = arr[..., :1]
+        elif self.channels == 3 and arr.shape[-1] == 4:
+            arr = arr[..., :3]
+        elif self.channels == 3 and arr.shape[-1] == 1:
+            arr = np.repeat(arr, 3, axis=-1)
+        self.data = torch.from_numpy(np.ascontiguousarray(arr))
+        return self
+
     @property
     def resolution(self):
         return (int(self.data.shape[1]), int(self.data.shape[0]))  # (W, H)
@@ -217,8 +239,7 @@ class BitmapTable:
 
 def _from(value, channels: int) -> Bitmap:
     if isinstance(value, str):
-        raise NotImplementedError(
-            f"{value}: image files are not read by the port yet")
+        return Bitmap.from_value(0.5, channels).load_openexr(value)
     nd = torch.as_tensor(value).dim()
     if nd >= 3 or (nd == 2 and channels == 1):
         return Bitmap.from_array(value)
@@ -226,12 +247,12 @@ def _from(value, channels: int) -> Bitmap:
 
 
 def Bitmap1f(value=0.0) -> Bitmap:
-    """A one-channel bitmap from a scalar or an (H, W[, 1]) array (an image
-    path raises)."""
+    """A one-channel bitmap from a scalar, an (H, W[, 1]) array or an
+    image file's path (its first channel)."""
     return _from(value, 1)
 
 
 def Bitmap3f(value=(0.5, 0.5, 0.5)) -> Bitmap:
-    """A three-channel bitmap from an RGB triple or an (H, W, 3) array (an
-    image path raises)."""
+    """A three-channel bitmap from an RGB triple, an (H, W, 3) array or an
+    image file's path."""
     return _from(value, 3)

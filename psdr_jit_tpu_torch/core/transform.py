@@ -23,6 +23,21 @@ def scale(v):
     return torch.diag(torch.cat([v, torch.ones(1, dtype=torch.float32)]))
 
 
+def rotate(axis, angle_deg):
+    """Rotation about ``axis`` by ``angle_deg`` degrees (Rodrigues)."""
+    axis = normalize(torch.as_tensor(axis, dtype=torch.float32))
+    theta = torch.deg2rad(torch.as_tensor(angle_deg, dtype=torch.float32))
+    s, c = torch.sin(theta), torch.cos(theta)
+    x, y, z = axis.unbind()
+    zero = torch.zeros((), dtype=torch.float32)
+    k = torch.stack([torch.stack([zero, -z, y]), torch.stack([z, zero, -x]),
+                     torch.stack([-y, x, zero])])
+    m = torch.eye(4, dtype=torch.float32)
+    m[:3, :3] = torch.eye(3, dtype=torch.float32) + s * k + (1.0 - c) * (
+        k @ k)
+    return m
+
+
 def perspective(fov_deg, near, far):
     """Projection to [-1,1]^2 x [0,1] depth (reference transform.h:48-61).
 
@@ -39,6 +54,20 @@ def perspective(fov_deg, near, far):
     m[2, 3] = -near * far * recip
     m[3, 2] = 1.0
     return m
+
+
+def perspective_intrinsic(fx, fy, cx, cy, near, far):
+    """Projection of the intrinsic form: focal lengths and principal point
+    in units of the film (reference transform.h:63-71)."""
+    recip = 1.0 / (far - near)
+    m = torch.zeros((4, 4), dtype=torch.float32)
+    m[0, 0] = 1.0
+    m[1, 1] = 1.0
+    m[2, 2] = far * recip
+    m[2, 3] = -near * far * recip
+    m[3, 2] = 1.0
+    return (translate([1.0 - 2.0 * cx, 1.0 - 2.0 * cy, 0.0])
+            @ scale([2.0 * fx, 2.0 * fy, 1.0]) @ m)
 
 
 def orthographic(near, far):

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ..core import transform as xf
@@ -30,16 +31,18 @@ from .emitter import Emitter
 
 class EnvironmentMap(Emitter):
     """``EnvironmentMap(radiance, scale)``: an (H, W, 3) lat-long radiance
-    array or a :class:`Bitmap` (a constant 1x1 white map by default). A
-    tensor set on it keeps its autograd graph."""
+    array, a :class:`Bitmap` or an image file's path (its first three
+    channels); a constant 1x1 white map by default. A tensor set on it
+    keeps its autograd graph."""
 
     def __init__(self, radiance=None, scale=1.0):
         if radiance is None:
             radiance = Bitmap.from_value((1.0, 1.0, 1.0), 3)
         elif isinstance(radiance, str):
-            raise NotImplementedError(
-                f"{radiance}: image files are not read by the port yet; "
-                "pass an (H, W, 3) array")
+            from ..utils.image import read_image
+
+            radiance = Bitmap.from_array(
+                np.ascontiguousarray(read_image(radiance)[..., :3]))
         elif not isinstance(radiance, Bitmap):
             radiance = Bitmap.from_array(radiance)
         self.radiance = radiance

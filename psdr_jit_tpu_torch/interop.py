@@ -17,11 +17,13 @@ bitmap with its UV transform), ``MicrofacetBSDF``s and
 bitmaps and ``eta_value``), ``MicrofacetBSDFPerVertex`` (its three
 per-vertex tables as plain arrays), ``NormalMapBSDF``s (the map, and the
 nested BSDF under ``bsdf.{j}.nested``), ``AreaLight``s, an
-``EnvironmentMap``, field-of-view ``PerspectiveCamera``s and
+``EnvironmentMap``, ``PerspectiveCamera``s (field of view or
+intrinsics) and
 ``OrthographicCamera``s; anything else raises. A key ``bsdf.{j}.type``
 or ``emitter.{k}.type`` is written only for a type other than
-``DiffuseBSDF`` or ``AreaLight``, and a mesh's ``vertex_uv`` and
-``face_uv_indices`` only where it has them.
+``DiffuseBSDF`` or ``AreaLight``, a mesh's ``vertex_uv`` and
+``face_uv_indices`` only where it has them, and a camera's
+``sensor.{s}.intrinsic`` (fx, fy, cx, cy) only for the intrinsic form.
 """
 
 from __future__ import annotations
@@ -174,16 +176,18 @@ def scene_to_arrays(scene, cell_table: bool = False) -> dict:
         out[f"mesh.{i}.emitter_id"] = np.asarray(int(m.emitter_id), np.int64)
     for s, cam in enumerate(scene.sensors):
         kind = type(cam).__name__
-        if (kind not in _CAMERAS
-                or getattr(cam, "use_intrinsic", False)):
+        if kind not in _CAMERAS:
             raise NotImplementedError(
-                f"sensor {s} ({kind}): only field-of-view "
-                "PerspectiveCameras and OrthographicCameras carry over")
+                f"sensor {s} ({kind}): only PerspectiveCameras and "
+                "OrthographicCameras carry over")
         if kind != "PerspectiveCamera":  # no key: a perspective camera
             out[f"sensor.{s}.kind"] = np.asarray(kind)
         out[f"sensor.{s}.fov_near_far"] = np.asarray(
             [getattr(cam, "fov", 0.0), cam.near_clip, cam.far_clip],
             np.float64)
+        if getattr(cam, "use_intrinsic", False):
+            out[f"sensor.{s}.intrinsic"] = np.asarray(
+                [cam.fx, cam.fy, cam.cx, cam.cy], np.float64)
         for name in _TRANSFORMS:
             out[f"sensor.{s}.{name}"] = _f32(getattr(cam, name))
     return out
@@ -207,8 +211,13 @@ def scene_from_arrays(arrays, device="cuda"):
         kind = str(a.get(f"sensor.{s}.kind", "PerspectiveCamera"))
         if kind not in _CAMERAS:
             raise NotImplementedError(f"sensor {s}: {kind}")
-        cam = (OrthographicCamera(near, far) if kind == "OrthographicCamera"
-               else PerspectiveCamera(fov, near, far))
+        if kind == "OrthographicCamera":
+            cam = OrthographicCamera(near, far)
+        elif f"sensor.{s}.intrinsic" in a:
+            cam = PerspectiveCamera.from_intrinsic(
+                *(float(v) for v in a[f"sensor.{s}.intrinsic"]), near, far)
+        else:
+            cam = PerspectiveCamera(fov, near, far)
         for name in _TRANSFORMS:
             setattr(cam, name, _tensor(a[f"sensor.{s}.{name}"]))
         sc.add_Sensor(cam)

@@ -452,8 +452,12 @@ class Scene:
         self.emitters.append(env)
         self._rebuild_param_map()
 
-    def add_Mesh(self, mesh: Mesh, transform=None, bsdf_id: str = "",
+    def add_Mesh(self, mesh_or_file, transform=None, bsdf_id: str = "",
                  emitter: Optional[AreaLight] = None):
+        """Add a :class:`Mesh`, or the OBJ file at a path, with its
+        transform, the id of its BSDF and its area light."""
+        mesh = (mesh_or_file if isinstance(mesh_or_file, Mesh)
+                else Mesh().load(str(mesh_or_file)))
         if transform is not None:
             mesh.to_world_raw = torch.as_tensor(transform, dtype=torch.float32)
         if bsdf_id != "":
@@ -467,6 +471,32 @@ class Scene:
         self.meshes.append(mesh)
         self._rebuild_param_map()
         return mesh
+
+    # -- loading (reference Scene.load_file/load_string, psdr.cpp:407-408)
+    def load_file(self, file_name: str, auto_configure: bool = True):
+        """Take the scene of an XML file (``scene.loader``), built on this
+        scene's device; ``configure()`` it unless ``auto_configure`` is
+        off."""
+        from .loader import load_file
+
+        self._adopt(load_file(file_name, self.device), auto_configure)
+
+    def load_string(self, scene_xml: str, auto_configure: bool = True):
+        """As :meth:`load_file`, from XML text (files resolve against the
+        working directory)."""
+        from .loader import load_string
+
+        self._adopt(load_string(scene_xml, device=self.device),
+                    auto_configure)
+
+    def _adopt(self, other: "Scene", auto_configure: bool):
+        for name in ("opts", "meshes", "bsdfs", "bsdf_ids", "emitters",
+                     "sensors", "emitter_env", "param_map"):
+            setattr(self, name, getattr(other, name))
+        self._data = self._tri_perm = self._sec_edge_distrb_cache = None
+        self._pe_distrb_caches = {}
+        if auto_configure:
+            self.configure()
 
     def _rebuild_param_map(self):
         pm = {}

@@ -1,5 +1,7 @@
 """Perspective camera (counterpart of
-``psdr_jit_tpu/sensor/perspective.py``; field-of-view form only)."""
+``psdr_jit_tpu/sensor/perspective.py``), in its field-of-view form or its
+intrinsic form (focal lengths and principal point in units of the film,
+the reference's six-float constructor)."""
 
 from __future__ import annotations
 
@@ -12,7 +14,22 @@ from .sensor import Sensor, SensorData, build_primary_edges
 
 
 class PerspectiveCamera(Sensor):
-    def __init__(self, fov=60.0, near=1e-6, far=1e7):
+    """``PerspectiveCamera(fov, near, far)``, the horizontal field of view
+    in degrees, or ``PerspectiveCamera(fx, fy, cx, cy, near, far)``, the
+    intrinsic form (also :meth:`from_intrinsic`), whose projection applies
+    no aspect term (perspective.cpp:13-26)."""
+
+    def __init__(self, fov=60.0, near=1e-6, far=1e7, *intrinsic_rest):
+        self.use_intrinsic = bool(intrinsic_rest)
+        if self.use_intrinsic:
+            if len(intrinsic_rest) != 3:
+                raise TypeError("PerspectiveCamera takes (fov, near, far) "
+                                "or (fx, fy, cx, cy, near, far)")
+            self.fx, self.fy, self.cx = float(fov), float(near), float(far)
+            self.cy, near, far = (float(v) for v in intrinsic_rest)
+            fov = 60.0
+        else:
+            self.fx = self.fy = self.cx = self.cy = 0.0
         self.fov = float(fov)
         self.near_clip = float(near)
         self.far_clip = float(far)
@@ -20,6 +37,12 @@ class PerspectiveCamera(Sensor):
         self.to_world_left = torch.eye(4, dtype=torch.float32)
         self.to_world_right = torch.eye(4, dtype=torch.float32)
         self.id = ""
+
+    @staticmethod
+    def from_intrinsic(fx, fy, cx, cy, near=1e-6, far=1e7):
+        """The intrinsic form: focal lengths ``fx``, ``fy`` and principal
+        point ``cx``, ``cy``, in units of the film's width and height."""
+        return PerspectiveCamera(fx, fy, cx, cy, near, far)
 
     @property
     def to_world(self):
@@ -31,6 +54,12 @@ class PerspectiveCamera(Sensor):
 
     def _camera_to_sample(self, aspect: float):
         """perspective.cpp:13-26."""
+        if self.use_intrinsic:
+            return (xf.scale([-0.5, -0.5, 1.0])
+                    @ xf.translate([-1.0, -1.0, 0.0])
+                    @ xf.perspective_intrinsic(
+                        self.fx, self.fy, self.cx, self.cy, self.near_clip,
+                        self.far_clip))
         return (xf.scale([-0.5, -0.5 * aspect, 1.0])
                 @ xf.translate([-1.0, -1.0 / aspect, 0.0])
                 @ xf.perspective(self.fov, self.near_clip, self.far_clip))

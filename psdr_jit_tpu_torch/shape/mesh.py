@@ -10,8 +10,8 @@ world-space table back to ``vertex_positions_raw`` and the transforms.
 :func:`sample_position` samples a point on a mesh uniformly by area (the
 area lights' sampling). A mesh may carry texture coordinates
 (``load_raw(..., uvs, face_uvs)``): :class:`MeshData` then holds each
-face's three UVs (``tri_uv``), which the scene's hits interpolate. OBJ
-loading is not ported yet.
+face's three UVs (``tri_uv``), which the scene's hits interpolate.
+:meth:`Mesh.load` reads an OBJ file and :meth:`Mesh.dump` writes one.
 """
 
 from __future__ import annotations
@@ -174,6 +174,37 @@ class Mesh:
     @property
     def has_uv(self) -> bool:
         return self.vertex_uv is not None
+
+    def load(self, fname: str):
+        """Load an OBJ file (``utils.obj.load_obj``): its vertices, faces
+        and texture coordinates."""
+        from ..utils.obj import load_obj
+
+        data = load_obj(fname)
+        return self.load_raw(data["vertices"], data["faces"], data["uvs"],
+                             data["face_uvs"])
+
+    def dump(self, fname: str, raw: bool = False):
+        """Write the mesh as OBJ in the reference's format (mesh.cpp:
+        469-541): the raw vertex positions, or with ``raw`` the world-space
+        ones under the transform stack; with ``vn`` vertex normals unless
+        the mesh uses face normals."""
+        from ..utils.obj import save_obj
+
+        def f32(x):
+            return cpu_f32(x).detach()
+
+        verts = f32(self.vertex_positions_raw)
+        if raw:
+            verts = xf.transform_pos(f32(self.to_world_left)
+                                     @ f32(self.to_world_raw)
+                                     @ f32(self.to_world_right), verts)
+        normals = (None if self.use_face_normals else
+                   process_mesh(verts, self.face_indices)[1].numpy())
+        uv = (None, None) if self.vertex_uv is None else (
+            f32(self.vertex_uv).numpy(), self.face_uv_indices.numpy())
+        save_obj(fname, verts.numpy(), self.face_indices.numpy(), *uv,
+                 normals=normals, use_face_normals=self.use_face_normals)
 
     def load_raw(self, vertices, faces, uvs=None, face_uvs=None):
         """Load from arrays (mesh.cpp:74-162): ``uvs`` (T, 2) texture

@@ -34,6 +34,7 @@ from psdr_jit_tpu.ops import image as jimage
 from psdr_jit_tpu.ops import megakernel as jmk
 from psdr_jit_tpu_torch.bsdf import bsdf as tdispatch
 from psdr_jit_tpu_torch.core import math as tmath
+from psdr_jit_tpu_torch.utils.image import write_image
 from scenes import make_cbox
 from torch_threads import _one_thread  # noqa: F401 (autouse)
 
@@ -493,10 +494,11 @@ def test_bsdf_scene_step_matches_jax(case):
         assert rels[k] < 1e-3, k
 
 
-def test_unported_types_still_raise():
-    """With every BSDF of the JAX package ported, what the port still lacks
-    raises: a material of a type it does not know, an intrinsic camera
-    through ``interop``, an image path for a bitmap."""
+def test_unported_types_still_raise(tmp_path):
+    """With every BSDF of the JAX package ported, a material of a type the
+    port does not know still raises. An intrinsic camera now carries over
+    through ``interop``, and a bitmap reads its image file (a missing one
+    raises ``FileNotFoundError``)."""
     class Velvet(tdispatch.BSDF):
         pass
 
@@ -507,7 +509,12 @@ def test_unported_types_still_raise():
         500.0, 500.0, 4.0, 4.0, 1e-6, 1e7)
     cam.to_world = jsc.sensors[0].to_world
     jsc.add_Sensor(cam)
-    with pytest.raises(NotImplementedError, match="sensor 1"):
-        pt.scene_to_arrays(jsc)
-    with pytest.raises(NotImplementedError, match="image files"):
-        pt.Bitmap3f("albedo.exr")
+    sc = pt.Scene.from_arrays(pt.scene_to_arrays(jsc), device=CPU)
+    assert sc.sensors[1].use_intrinsic and not sc.sensors[0].use_intrinsic
+    assert (sc.sensors[1].fx, sc.sensors[1].cy) == (500.0, 4.0)
+    with pytest.raises(FileNotFoundError):
+        pt.Bitmap3f(str(tmp_path / "albedo.exr"))
+    img = np.random.default_rng(2).random((3, 5, 3)).astype(np.float32)
+    write_image(str(tmp_path / "albedo.exr"), img)
+    np.testing.assert_array_equal(
+        pt.Bitmap3f(str(tmp_path / "albedo.exr")).data.numpy(), img)

@@ -48,6 +48,7 @@ from psdr_jit_tpu_torch.core.math import ray_intersect_scene_aabb
 from psdr_jit_tpu_torch.core.sampler import Sampler
 from psdr_jit_tpu_torch.core.types import Ray
 from psdr_jit_tpu_torch.integrator.path import bsdf_bounce, nee_contribution
+from psdr_jit_tpu_torch.utils.image import write_image
 from torch_threads import _one_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")  # the entry points default to the card
@@ -414,11 +415,12 @@ def test_envmap_eval_direction_matches_jax(standin):
         torch.isfinite(gt).all())
 
 
-def test_textured_bsdf_and_image_files_raise():
+def test_textured_bsdf_and_image_files_raise(tmp_path):
     """A textured BSDF parameter, which raised before hits carried texture
     coordinates, now builds its material table, whose lanes read the
-    texture as ``Bitmap.eval`` does, bit for bit; an image path needs a
-    reader the port lacks."""
+    texture as ``Bitmap.eval`` does, bit for bit; an image path, which
+    raised before the port read image files, now loads the file, and a
+    missing file raises ``FileNotFoundError``."""
     from psdr_jit_tpu_torch.bsdf.bsdf import MICROFACET, material_table
 
     sc = pt.Scene(device=CPU)
@@ -428,10 +430,15 @@ def test_textured_bsdf_and_image_files_raise():
     spec = material_table(sc.bsdfs, CPU).params[MICROFACET][0]
     assert torch.equal(spec.eval(torch.zeros(64, dtype=torch.int64), uv),
                        sc.bsdfs[0].specularReflectance.eval(uv))
-    with pytest.raises(NotImplementedError, match="image files"):
-        pt.EnvironmentMap("sky.exr")
-    with pytest.raises(NotImplementedError, match="image files"):
-        pt.Bitmap3f("albedo.exr")
+    for make in (pt.EnvironmentMap, pt.Bitmap3f):
+        with pytest.raises(FileNotFoundError):
+            make(str(tmp_path / "missing.exr"))
+    sky = np.random.default_rng(5).random((4, 8, 4)).astype(np.float32)
+    write_image(str(tmp_path / "sky.exr"), sky)
+    assert torch.equal(pt.EnvironmentMap(str(tmp_path / "sky.exr")).radiance
+                       .data, torch.from_numpy(sky[..., :3].copy()))
+    assert torch.equal(pt.Bitmap3f(str(tmp_path / "sky.exr")).data,
+                       torch.from_numpy(sky[..., :3].copy()))
     assert pt.Bitmap1f(0.3).data.shape == (1, 1, 1)
     assert pt.Bitmap3f(np.ones((4, 5, 3))).resolution == (5, 4)
     with pytest.raises(ValueError, match="one envmap"):
