@@ -12,7 +12,7 @@ gallery and on exact ties through both of its sweeps; K3, the attached
 shade; K4, its adjoint; K5, the same walk at 513 to 4,096 triangles, also
 at the top of its range and on exact ties; K6, the same walk on a tree
 split at the middle), checks a
-32x32 render against ``tests/golden_cbox32.npy``, then drives five main
+32x32 render against ``tests/golden_cbox32.npy``, then drives the main
 paths at full size as a user would, each with the launch counts set to 0
 just before it and read just after:
 
@@ -59,7 +59,17 @@ just before it and read just after:
   ``cbox.xml`` and eight OBJ files and loaded with ``pt.load_file``, and
   config #3's stand-in as XML, OBJ and a PIZ EXR: their frames, steps
   (and the box's renderD) with the in-memory scenes' launches, frames and
-  losses bitwise; and the box seen by an intrinsic camera.
+  losses bitwise; and the box seen by an intrinsic camera;
+* the other integrators: ``Direct(2)`` on the box training cell (a frame,
+  a step, a forward renderD), the collocated light (a frame, a reverse
+  renderD) and the eight fields of ``FieldExtractionIntegrator`` on the
+  two galleries and the room, through K1, K5 and K6; reverse renderD of
+  the box and the room without the checkpoint policy, with it and under
+  path replay (``PSDR_REMAT=prb``), no hit kernel in the backward sweep
+  of the last two; and the room's guided training step sharded over two
+  gloo ranks spawned on the one card and over one NCCL rank
+  (``parallel.make_fused_train_step``, ``render_sharded``), against the
+  unsharded step.
 
 64x64 training steps of the box (sppse 0, sppse 8, and sppse 8 guided by
 one table on both sides), a 64x64 renderD of the box (forward and reverse
@@ -67,7 +77,9 @@ mode) and of the 1,292-triangle gallery (forward mode), a 64x64 frame
 of the 5,132-triangle gallery, and a 64x64 frame, guided step and renderD
 of the envmap stand-in, 64x64 frames and steps of the Cornell box with
 each of the rough conductor, rough dielectric, per-vertex Microfacet and
-normal-map BSDFs (``bsdf_cbox_arrays``) and of the room, run through the
+normal-map BSDFs (``bsdf_cbox_arrays``) and of the room, and 64x64
+frames of every new integrator (with a step and a reverse renderD of
+``Direct(2)`` and the collocated light), run through the
 kernels and, on the CPU, through the plain versions, and the two must
 agree. One training step of the box
 and of the envmap stand-in and one gallery frame run with every launch
@@ -724,20 +736,26 @@ def renderd_tangent(integrator, scene, setup, name, direction,
                         params[name], direction, seed, **kwargs)
 
 
-def renderd_grads(integrator, scene, setup, weight, seed: int = SEED):
-    """``{name: gradient}`` of ``sum(weight * renderD)`` with respect to
-    the ``train_setup`` parameters, in reverse mode."""
+def reverse_grads(integ, scene, params, apply_params, weight,
+                  seed: int = SEED):
+    """``(renderD, {name: gradient})`` of ``sum(weight * renderD)`` with
+    respect to ``params``, which ``apply_params`` sets, in reverse mode."""
     import torch
 
-    params, apply_params, _ = setup
     p = {k: v.clone().requires_grad_() for k, v in params.items()}
     apply_params(p)
     try:
-        img = integrator.renderD(scene, 0, seed=seed)
+        img = integ.renderD(scene, 0, seed=seed)
         grads = torch.autograd.grad((img * weight).sum(), list(p.values()))
     finally:
         apply_params(params)
-    return dict(zip(p, grads))
+    return img.detach(), dict(zip(p, grads))
+
+
+def renderd_grads(integrator, scene, setup, weight, seed: int = SEED):
+    """``{name: gradient}`` of ``sum(weight * renderD)`` with respect to
+    the ``train_setup`` parameters (``setup``), in reverse mode."""
+    return reverse_grads(integrator, scene, *setup[:2], weight, seed)[1]
 
 
 _EYE4 = [[1.0, 0.0, 0.0, 0.0], [0.0, 1.0, 0.0, 0.0], [0.0, 0.0, 1.0, 0.0],
@@ -2784,6 +2802,22 @@ def device_busy_ms(fn) -> float:
                if e.device_type == DeviceType.CUDA) / 1e3
 
 
+def measured(fn, n_rays, dev) -> dict:
+    """Median ms of 3 after a warm-up, Mrays/s (where ``n_rays``), peak GB,
+    busy ms and idle share of ``fn``."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms = wall_ms(fn, 3)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    busy = device_busy_ms(fn)
+    out = {"ms": f"{ms:.2f}", "peak_gb": f"{peak:.3f}",
+           "busy_ms": f"{busy:.2f}", "idle_share": f"{1 - busy / ms:.3f}"}
+    if n_rays:
+        out["mrays_per_s"] = f"{n_rays / ms / 1e3:.1f}"
+    return out
+
+
 def step_split(integrator, step, reps: int = 3) -> dict:
     """Median spans (CUDA events on the card's stream) of the training
     step's parts over ``reps`` steps: the scene compile, the interior
@@ -2827,8 +2861,8 @@ def step_split(integrator, step, reps: int = 3) -> dict:
 def _compare_paths(phase, arrays, run, dev):
     """``run(scene, device, target)`` on the scene ``arrays`` through the
     kernels on ``dev`` and through the plain versions on the CPU, with a
-    seeded target image; ``run`` returns a frame ``img``, a training
-    step's ``loss``, ``img_t`` and ``grads``, and may add a renderD
+    seeded target image; ``run`` returns a frame ``img`` and may add a
+    training step's ``loss``, ``img_t`` and ``grads`` and a renderD
     ``primal`` and ``tangent``. Returns their rel L1s (loss, images and
     primal within 1e-4, gradients and tangent within 1e-3, every gradient
     and tangent nonzero and finite) and the two sides' ms."""
@@ -2850,16 +2884,19 @@ def _compare_paths(phase, arrays, run, dev):
                      for k, v in r.items()}
         out[name]["ms"] = (time.perf_counter() - t0) * 1e3
     k, p = out["kernels"], out["plain"]
+    grads = p.get("grads", {})
     rels = {"frame": rel_l1(k["img"], p["img"]),
-            "loss": abs(k["loss"] - p["loss"]) / abs(p["loss"]),
-            "step_image": rel_l1(k["img_t"], p["img_t"]),
-            **{f"grad_{n}": rel_l1(k["grads"][n], p["grads"][n])
-               for n in p["grads"]},
+            **({"loss": abs(k["loss"] - p["loss"]) / abs(p["loss"]),
+                "step_image": rel_l1(k["img_t"], p["img_t"])}
+               if "loss" in p else {}),
+            **{f"grad_{n}": rel_l1(k["grads"][n], g)
+               for n, g in grads.items()},
             **{n: rel_l1(k[n], p[n]) for n in ("primal", "tangent")
                if n in p}}
-    first = [k["img"], k["img_t"], *k["grads"].values()]
-    derivs = [*p["grads"].values(), *([p["tangent"]] if "tangent" in p
-                                      else [])]
+    first = [k[n] for n in ("img", "img_t") if n in k] + [
+        *k.get("grads", {}).values()]
+    derivs = [*grads.values(), *([p["tangent"]] if "tangent" in p
+                                 else [])]
     require(all(bool(torch.isfinite(x).all()) for x in first),
             f"{phase}: non-finite image or gradient")
     require(all(rels[n] < 1e-4 for n in ("frame", "loss", "step_image",
@@ -3699,10 +3736,11 @@ def room_phases(dev, kernels) -> dict:
     frame_k1 = general_launches(n_pix, S, 0, 0, d, base.GENERAL_CHUNK_LANES)
     step_k1 = general_launches(n_pix, S, S, S, d, base.TRAIN_CHUNK_LANES)
     fwd_k1 = general_launches(n_pix, S, S, S, d, base.DIFF_CHUNK_LANES)
-    # reverse mode runs every chunk again in the backward sweep
+    # reverse mode rebuilds every chunk in the backward sweep from its
+    # taped hits (the checkpoint policy): no launch there
     want = {"frame": frame_k1, "target": frame_k1,
             "adam": ROOM_STEPS * step_k1, "step": step_k1,
-            "renderD_forward": fwd_k1, "renderD_reverse": 2 * fwd_k1}
+            "renderD_forward": fwd_k1, "renderD_reverse": fwd_k1}
     runs = {"frame": frame, "target": target, "adam": adam, "step": step,
             "renderD_forward": forward, "renderD_reverse": reverse}
     got, outs = {}, {}
@@ -3753,26 +3791,15 @@ def room_phases(dev, kernels) -> dict:
     err0 = {k: abs(float(adam0[k] - truth[k])) for k in truth}
     err = {k: abs(float(p[k].detach() - truth[k])) for k in truth}
 
-    def measured(fn, n_rays):
-        """Median ms of 3 after a warm-up, Mrays/s, peak GB, busy ms and
-        idle share of ``fn``."""
-        torch.cuda.reset_peak_memory_stats(dev)
-        ms = wall_ms(fn, 3)
-        peak = torch.cuda.max_memory_allocated(dev) / 1e9
-        busy = device_busy_ms(fn)
-        return {"ms": f"{ms:.2f}", "mrays_per_s": f"{n_rays / ms / 1e3:.1f}",
-                "peak_gb": f"{peak:.3f}", "busy_ms": f"{busy:.2f}",
-                "idle_share": f"{1 - busy / ms:.3f}"}
-
     t_timing = time.perf_counter()
     # bench.py:46-49: spp (1 + 2d) a frame; + sppe 2 (1 + 2d) + sppse 3 a
     # step or a renderD (576 rays a pixel)
     frame_rays = n_pix * S * (1 + 2 * d)
     rays = n_pix * (S * (1 + 2 * d) + S * 2 * (1 + 2 * d) + S * 3)
-    parts = {"frame": measured(frame, frame_rays),
-             "step": measured(step, rays),
-             "renderD_forward": measured(forward, rays),
-             "renderD_reverse": measured(reverse, rays)}
+    parts = {"frame": measured(frame, frame_rays, dev),
+             "step": measured(step, rays, dev),
+             "renderD_forward": measured(forward, rays, dev),
+             "renderD_reverse": measured(reverse, rays, dev)}
     split = step_split(integ, step)
     spans["timing"] = time.perf_counter() - t_timing
     log("room", size=f"{W}x{H}", spp=S, sppe=S, sppse=S, depth=d,
@@ -4301,6 +4328,565 @@ def intrinsic_phases(dev, frame, expected) -> dict:
             got["intrinsic", "frame"]}
 
 
+# ---- the other integrators, path replay, the sharded step --------------------
+
+INTEGRATORS_SMALL = (64, 64, 8)  # width, height, spp (= sppe = sppse)
+COLLOCATED_INTENSITY = 2.0e5
+FIELDS = ("bsdf", "segmentation", "silhouette", "position", "depth",
+          "geoNormal", "shNormal", "uv")
+ROOM_FILTER = f"segmentation obj:{ROOM_BRASS}"  # the brass block's hits
+HIT_KERNELS = ("K1", "K2", "K2-pair", "K2-stash", "K5", "K6")
+SHARD_TIMEOUT = 600  # seconds a sharded rank may take before it is killed
+
+
+def box_arrays(width, height, spp, sppe, sppse) -> dict:
+    """The Cornell box of ``SCENE_NPZ`` at another size and sample counts."""
+    import numpy as np
+
+    a = dict(np.load(SCENE_NPZ))
+    a["opts"] = np.asarray([width, height, spp, sppe, sppse], np.int64)
+    return a
+
+
+def colloc_setup(scene):
+    """``(params, apply_params)`` of a collocated step: ``train_setup``'s
+    vertex offsets and reflectance (the collocated light ignores the
+    area light, so its translation and radiance move nothing)."""
+    params, apply, _ = train_setup(scene)
+
+    def apply_params(p):
+        apply({**params, **p})
+
+    return {k: params[k] for k in ("dv", "alb")}, apply_params
+
+
+def _integrator_run(make, setup=None):
+    """The ``run`` of :func:`_compare_paths` for ``make()``'s frame and,
+    with ``setup(scene) -> (params, apply_params)``, its training step and
+    its reverse renderD (the gradients as ``renderD_<name>``, its image as
+    ``primal``)."""
+
+    def run(sc, device, target):
+        integ = make()
+        out = {"img": integ.renderC(sc, 0, seed=SEED)}
+        if setup is None:
+            return out
+        params, apply_params = setup(sc)
+        loss, grads, img_t = integ.loss_and_grad(
+            sc, params, apply_params, l2_loss(target), 0, SEED)
+        primal, g_rev = reverse_grads(integ, sc, params, apply_params,
+                                      renderd_weight(sc.opts.num_pixels,
+                                                     device))
+        return dict(out, loss=loss, img_t=img_t, primal=primal,
+                    grads={**grads, **{f"renderD_{k}": g
+                                       for k, g in g_rev.items()}})
+
+    return run
+
+
+def integrators_64_phase(dev):
+    """[integrators-64]: ``Direct(0|1|2)``, ``CollocatedIntegrator`` and
+    every field of ``FieldExtractionIntegrator`` (and one filtered by
+    mesh) on the 64x64 box at spp, sppe and sppse 8, the uv field on the
+    UV-mapped box, through the kernels and, on the CPU, through the plain
+    versions: a frame each; for ``Direct(2)`` and the collocated light a
+    training step and a reverse renderD too."""
+    import psdr_jit_tpu_torch as pt
+
+    w, h, s = INTEGRATORS_SMALL
+    box = box_arrays(w, h, s, s, s)
+    uv_box = textured_cbox_arrays(w, h, s, 0, 0)
+    cases = [("Direct(0)", box, lambda: pt.Direct(0), None),
+             ("Direct(1)", box, lambda: pt.Direct(1), None),
+             ("Direct(2)", box, lambda: pt.Direct(2),
+              lambda sc: train_setup(sc)[:2]),
+             ("Collocated", box,
+              lambda: pt.CollocatedIntegrator(COLLOCATED_INTENSITY),
+              colloc_setup)]
+    cases += [(f, uv_box if f == "uv" else box,
+               (lambda f: lambda: pt.FieldExtractionIntegrator(f))(f), None)
+              for f in FIELDS + ("silhouette obj:2",)]
+    for name, arrays, make, setup in cases:
+        rels, ms, plain_ms = _compare_paths(f"integrators-64 {name}", arrays,
+                                            _integrator_run(make, setup),
+                                            dev)
+        log("integrators-64", integrator=name, spp=s, sppe=s, sppse=s,
+            rel_l1=",".join(f"{n}:{v:.3e}" for n, v in rels.items()),
+            ms=f"{ms:.1f}", plain_cpu_ms=f"{plain_ms:.1f}")
+
+
+def integrator_phases(dev) -> dict:
+    """[main-path-integrators], [direct], [collocated], [field]: the other
+    integrators at full size. ``Direct(2)`` on the box training cell
+    (512x512, spp, sppe, sppse 32, ``train_setup``'s four parameters): a
+    frame, a training step and a forward renderD along the light's
+    translation; the collocated light on the 512x512 spp-32 box: a frame
+    and a reverse renderD of the reflectance; the eight fields on the
+    102,412-triangle gallery (K6) and the 1,292-triangle one (K5) at
+    256x256, spp 4, and the room's segmentation filtered to the brass
+    block (K1). With the launch counts set to 0 before each run and read
+    after it, each against its routing's count (``Direct``: three hits a
+    lane and Li, ``general_launches`` at depth 1; the others one), no
+    other kernel, no plain version. Then their times. Returns the
+    launches by kernel."""
+    import torch
+    import psdr_jit_tpu_torch as pt
+    from psdr_jit_tpu_torch.integrator import base
+    from psdr_jit_tpu_torch.ops import _cuda
+
+    W, H, S = FRAME
+    n_pix = W * H
+    box = pt.Scene.from_arrays(box_arrays(W, H, S, SPPE, SPPSE), device=dev)
+    box_sd = box.configure()
+    cbox = pt.Scene.from_arrays(box_arrays(W, H, S, 0, 0), device=dev)
+    cbox.configure()
+    direct = pt.Direct(2)
+    colloc = pt.CollocatedIntegrator(COLLOCATED_INTENSITY)
+    setup = train_setup(box)
+    params, apply_params, loss_fn = setup
+    c_params, c_apply = colloc_setup(cbox)
+    c_params = {"alb": c_params["alb"]}
+    w = renderd_weight(n_pix, dev)
+    lw, lh, ls = LARGE
+    galleries = {"K6": pt.Scene.from_arrays(gallery_arrays(lw, lh, ls),
+                                            device=dev),
+                 "K5": pt.Scene.from_arrays(gallery_arrays(lw, lh, ls, 4, 2),
+                                            device=dev)}
+    for g in galleries.values():
+        g.configure()
+    room = pt.Scene.from_arrays(room_arrays(*ROOM, 0, 0), device=dev)
+    room.configure()
+    fields = {f: pt.FieldExtractionIntegrator(f) for f in FIELDS}
+    room_field = pt.FieldExtractionIntegrator(ROOM_FILTER)
+
+    def chunks(lanes, size):
+        return -(-lanes // size)
+
+    frame_chunks = chunks(n_pix * S, base.interior_chunk_lanes(box_sd))
+    runs = {
+        "direct_frame": (lambda: direct.renderC(box, 0, seed=SEED),
+                         {"K1": 3 * frame_chunks}),
+        "direct_step": (lambda: direct.loss_and_grad(
+            box, params, apply_params, loss_fn, 0, SEED),
+            {"K1": general_launches(n_pix, S, SPPE, SPPSE, 1,
+                                    base.TRAIN_CHUNK_LANES)}),
+        "direct_renderD": (lambda: renderd_tangent(direct, box, setup, "tx",
+                                                   1.0),
+                           {"K1": general_launches(n_pix, S, SPPE, SPPSE, 1,
+                                                   base.DIFF_CHUNK_LANES)}),
+        "collocated_frame": (lambda: colloc.renderC(cbox, 0, seed=SEED),
+                             {"K1": frame_chunks}),
+        # the backward sweep replays the chunks' taped hits
+        "collocated_renderD": (lambda: reverse_grads(
+            colloc, cbox, c_params, c_apply, w),
+            {"K1": chunks(n_pix * S, base.DIFF_CHUNK_LANES)}),
+        **{f"fields_{k}": ((lambda g: lambda: [
+            f.renderC(g, 0, seed=SEED) for f in fields.values()])(g),
+            {k: len(FIELDS) * chunks(lw * lh * ls,
+                                     base.GENERAL_CHUNK_LANES)})
+           for k, g in galleries.items()},
+        "field_room": (lambda: room_field.renderC(room, 0, seed=SEED),
+                       {"K1": chunks(n_pix * S, base.GENERAL_CHUNK_LANES)}),
+    }
+    got, outs = {}, {}
+    torch.cuda.synchronize()
+    with PlainCalls() as plain:
+        for name, (fn, _) in runs.items():
+            _cuda.reset_launches()
+            outs[name] = fn()
+            torch.cuda.synchronize()
+            got[name] = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+        plain_count = plain.count
+    want = {n: e for n, (_, e) in runs.items()}
+    log("main-path-integrators",
+        **{f"{n}": ",".join(f"{k}:{v}" for k, v in g.items()) or "none"
+           for n, g in got.items()},
+        expected=";".join(f"{n}:" + ",".join(f"{k}:{v}" for k, v in e.items())
+                          for n, e in want.items()),
+        plain_calls=plain_count)
+    require(all(got[n] == e for n, e in want.items()),
+            "integrators main path: launches != the routing's")
+    require(plain_count == 0, "integrators main path: a plain version ran")
+
+    img = outs["direct_frame"]
+    loss, grads, img_t = outs["direct_step"]
+    primal, tangent = outs["direct_renderD"]
+    require(tuple(img.shape) == (n_pix, 3) and bool(torch.isfinite(img).all())
+            and float(img.mean()) > 0, "direct frame: non-finite or black")
+    require(bool(torch.isfinite(loss)) and all(
+        bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0
+        for g in grads.values()), "direct step: non-finite or zero gradient")
+    require(bool(torch.isfinite(tangent).all())
+            and float(tangent.abs().sum()) > 0,
+            "direct renderD: non-finite or zero tangent")
+    require(rel_l1(img_t, img) < 1e-2 and rel_l1(primal, img) < 1e-2,
+            "direct: the step's image or renderD's primal is not the frame")
+    c_img = outs["collocated_frame"]
+    c_primal, c_grads = outs["collocated_renderD"]
+    require(float(c_img.mean()) > 0 and torch.equal(c_primal, c_primal)
+            and rel_l1(c_primal, c_img) < 1e-2
+            and float(c_grads["alb"].abs().sum()) > 0,
+            "collocated: a black frame, a primal off the frame or a zero "
+            "gradient")
+    for k in galleries:
+        imgs = outs[f"fields_{k}"]
+        require(all(bool(torch.isfinite(x).all()) for x in imgs)
+                and float(imgs[FIELDS.index("silhouette")].mean()) > 0.05,
+                f"fields on the {k} gallery: non-finite or empty")
+    # a pixel's mean over its samples: 0 off the block, up to its index
+    seg = outs["field_room"][:, 0]
+    require(bool(((seg >= 0) & (seg <= ROOM_BRASS)).all())
+            and float((seg == ROOM_BRASS).float().mean()) > 0.001,
+            "room field: the filter let another mesh through or none")
+
+    # bench.py:46-49 at depth 1: three rays a lane and Li
+    frame_rays = n_pix * S * 3
+    rays = n_pix * (S * 3 + SPPE * 2 * 3 + SPPSE * 3)
+    parts = {n: measured(runs[n][0], r, dev) for n, r in (
+        ("direct_frame", frame_rays), ("direct_step", rays),
+        ("direct_renderD", rays))}
+    log("direct", size=f"{W}x{H}", spp=S, sppe=SPPE, sppse=SPPSE, mis=2,
+        frame_rays=frame_rays, rays=rays, loss=f"{float(loss):.6e}",
+        grad_l1=",".join(f"{k}:{float(g.abs().sum()):.4e}"
+                         for k, g in grads.items()),
+        **{f"{n[7:]}_{k}": v for n, m in parts.items() for k, v in m.items()})
+    cparts = {n: measured(runs[n][0], n_pix * S, dev)
+              for n in ("collocated_frame", "collocated_renderD")}
+    log("collocated", size=f"{W}x{H}", spp=S, intensity=COLLOCATED_INTENSITY,
+        mean=f"{float(c_img.mean()):.6e}",
+        grad_alb=",".join(f"{x:.4e}" for x in c_grads["alb"].tolist()),
+        **{f"{n[11:]}_{k}": v for n, m in cparts.items()
+           for k, v in m.items()})
+    for k, g in galleries.items():
+        log("field", scene=f"gallery-{k}", triangles=g.data.tri.p0.shape[0],
+            size=f"{lw}x{lh}", spp=ls,
+            **{f"{f}_ms": f"{wall_ms(lambda: i.renderC(g, 0, seed=SEED)):.2f}"
+               for f, i in fields.items()})
+    log("field", scene="room", field=ROOM_FILTER, size=f"{W}x{H}", spp=S,
+        brass_share=f"{float((seg == ROOM_BRASS).float().mean()):.4f}",
+        ms=f"{wall_ms(runs['field_room'][0]):.2f}")
+    total = {}
+    for g in got.values():
+        for k, v in g.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _reverse_counted(integ, scene, params, apply_params, weight):
+    """A reverse renderD with its render and its backward sweep apart:
+    ``(image, grads, forward launches, backward launches, forward ms,
+    backward ms, taped GB)`` (host clock, each closed by a synchronize;
+    the bytes of the payloads and radiances the tapes hold)."""
+    import torch
+    from psdr_jit_tpu_torch.integrator import prb
+    from psdr_jit_tpu_torch.ops import _cuda
+
+    taped = [0]
+    append = prb.IntersectTape.append
+
+    def counted(tape, payload):
+        taped[0] += sum(t.numel() * t.element_size() for t in payload
+                        if isinstance(t, torch.Tensor))
+        append(tape, payload)
+
+    p = {k: v.clone().requires_grad_() for k, v in params.items()}
+    apply_params(p)
+    prb.IntersectTape.append = counted
+    try:
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        img = integ.renderD(scene, 0, seed=SEED)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fwd = dict(_cuda.LAUNCHES)
+        _cuda.reset_launches()
+        grads = torch.autograd.grad((img * weight).sum(), list(p.values()))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        bwd = dict(_cuda.LAUNCHES)
+    finally:
+        prb.IntersectTape.append = append
+        apply_params(params)
+    return (img.detach(), dict(zip(p, grads)), fwd, bwd, (t1 - t0) * 1e3,
+            (t2 - t1) * 1e3, taped[0] / 1e9)
+
+
+def prb_phase(dev) -> dict:
+    """[prb]: reverse renderD of the 512x512 box (``PathTracer(3)``, spp,
+    sppe, sppse 32, ``train_setup``'s four parameters) and of the room
+    (``PathTracer(2)``, ``room_setup``'s three) under ``REMAT_MODE``
+    "chunk" without the checkpoint policy (``base._policy_tape`` patched to
+    None: the backward sweep traces every chunk again), "chunk" with it,
+    and "prb": the primal bit for bit, the gradients within 1e-5 rel L1 of
+    the first, no hit kernel launched in the backward sweep of the last
+    two; their ms and peak GB. Returns the launches of the policy's and
+    path replay's renders."""
+    import torch
+    import psdr_jit_tpu_torch as pt
+    from psdr_jit_tpu_torch.integrator import base
+
+    W, H, S = FRAME
+    cases = {"box": (box_arrays(W, H, S, SPPE, SPPSE), DEPTH,
+                     lambda sc: train_setup(sc)[:2]),
+             "room": (room_arrays(*ROOM, ROOM[2], ROOM[2]), ROOM_DEPTH,
+                      room_setup)}
+    modes = ("chunk_without_policy", "chunk", "prb")
+    total = {}
+    for name, (arrays, depth, setup) in cases.items():
+        sc = pt.Scene.from_arrays(arrays, device=dev)
+        sc.configure()
+        integ = pt.PathTracer(depth)
+        params, apply_params = setup(sc)
+        w = renderd_weight(sc.opts.num_pixels, dev)
+        res, timing = {}, {}
+        for mode in modes:
+            old = base.REMAT_MODE, base._policy_tape
+            base.REMAT_MODE = "prb" if mode == "prb" else "chunk"
+            if mode == "chunk_without_policy":
+                base._policy_tape = lambda: None
+            try:
+                res[mode] = _reverse_counted(integ, sc, params, apply_params,
+                                             w)  # also the warm-up
+                torch.cuda.reset_peak_memory_stats(dev)
+                runs = [_reverse_counted(integ, sc, params, apply_params, w)
+                        for _ in range(3)]
+                timing[mode] = (
+                    statistics.median(r[4] + r[5] for r in runs),
+                    statistics.median(r[5] for r in runs),
+                    torch.cuda.max_memory_allocated(dev) / 1e9)
+            finally:
+                base.REMAT_MODE, base._policy_tape = old
+        img0, g0, fwd0, bwd0 = res[modes[0]][:4]
+        rels = {m: max(rel_l1(res[m][1][k], g0[k]) for k in g0)
+                for m in modes[1:]}
+        log("prb", scene=name, depth=depth, size=f"{W}x{H}", spp=S,
+            **{f"{m}_{k}": v for m in modes for k, v in (
+                ("ms", f"{timing[m][0]:.2f}"),
+                ("backward_ms", f"{timing[m][1]:.2f}"),
+                ("peak_gb", f"{timing[m][2]:.3f}"),
+                ("taped_gb", f"{res[m][6]:.4f}"),
+                ("forward_launches", ",".join(
+                    f"{k}:{v}" for k, v in res[m][2].items() if v)),
+                ("backward_launches", ",".join(
+                    f"{k}:{v}" for k, v in res[m][3].items() if v)
+                 or "none"))},
+            primal_bitwise=",".join(
+                f"{m}:{torch.equal(res[m][0], img0)}" for m in modes[1:]),
+            grad_rel_l1=",".join(f"{m}:{v:.3e}" for m, v in rels.items()))
+        require(all(torch.equal(res[m][0], img0) for m in modes[1:]),
+                f"prb {name}: a mode's primal differs")
+        require(all(v < 1e-5 for v in rels.values()),
+                f"prb {name}: a mode's gradients differ by >= 1e-5")
+        require(all(float(g.abs().sum()) > 0 and bool(torch.isfinite(g).all())
+                    for g in g0.values()), f"prb {name}: a zero gradient")
+        require(sum(bwd0[k] for k in HIT_KERNELS) > 0,
+                f"prb {name}: the checkpoints without the policy traced "
+                "nothing again")
+        require(all(res[m][3][k] == 0 for m in modes[1:]
+                    for k in HIT_KERNELS),
+                f"prb {name}: a hit kernel ran in the backward sweep")
+        for m in modes[1:]:
+            for k, v in res[m][2].items():
+                total[k] = total.get(k, 0) + v
+    return total
+
+
+def _sharded_runs(mesh, dev, reps: int) -> dict:
+    """This rank's part of [sharded]: the room's guided training step
+    (``make_fused_train_step``) and frame (``render_sharded``), timed;
+    everything returned on the CPU. (``dev`` is the card; a CPU device
+    rehearses the phase without one.)"""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import psdr_jit_tpu_torch as pt
+    from psdr_jit_tpu_torch import parallel
+    from psdr_jit_tpu_torch.scene.scene import tree_map
+
+    W, H, S = ROOM
+    sc = pt.Scene.from_arrays(room_arrays(W, H, S, S, S), device=dev)
+    sc.configure()
+    integ = pt.PathTracer(ROOM_DEPTH)
+    integ.preprocess_secondary_edges(sc, 0, GUIDE_RESO, 1)
+    own = tree_map(lambda t: t.cpu(), integ.warpper[0])
+    p3, apply3 = room_setup(sc)
+    target = torch.from_numpy(np.random.default_rng(SEED).random(
+        (W * H, 3)).astype(np.float32)).to(dev)
+    step = parallel.make_fused_train_step(sc, integ, mesh, apply3,
+                                          l2_loss(target))
+    loss, grads, img = step(p3, SEED)
+    frame = parallel.render_sharded(integ, sc, mesh, 0, SEED, "C")
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    times = []
+    for _ in range(reps):
+        dist.barrier(group=mesh.group)
+        sync()
+        t0 = time.perf_counter()
+        step(p3, SEED)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"loss": loss.cpu(), "grads": {k: g.cpu() for k, g in
+                                          grads.items()},
+            "image": img.cpu(), "frame": frame.cpu(), "own_table": own,
+            "table": tree_map(lambda t: t.cpu(), integ.warpper[0]),
+            "step_ms": times,
+            "peak_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
+                        if dev.type == "cuda" else 0.0)}
+
+
+def _sharded_rank(rank: int, world: int, port: int, out: str, reps: int,
+                  device: str):
+    """A spawned rank of [sharded]: gloo on ``device``."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from psdr_jit_tpu_torch import parallel
+
+    dev = torch.device(device)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=SHARD_TIMEOUT))
+    try:
+        res = _sharded_runs(parallel.make_device_mesh(dev), dev, reps)
+        torch.save(res, out)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def sharded_phase(dev):
+    """[sharded]: BASELINE config #5's room (512x512, spp, sppe, sppse 32,
+    ``PathTracer(2)``, guided by ``GUIDE_RESO``) through
+    ``make_fused_train_step`` and ``render_sharded`` on two gloo ranks
+    spawned on the one card, and on one NCCL rank in this process, each
+    held against the unsharded step on the card with rank 0's guiding
+    table: the step's image (interior rows) and the frame bit for bit, the
+    loss within 1e-6 rel, the gradients within 1e-5 rel L1, the two ranks'
+    tables bit for bit. The two ranks share one card: their ms a step is
+    no scaling figure."""
+    import datetime
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    import psdr_jit_tpu_torch as pt
+    from psdr_jit_tpu_torch import parallel
+    from psdr_jit_tpu_torch.scene.scene import tree_map
+
+    reps = 3
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        port = _free_port()
+        outs = [str(Path(tmp) / f"rank{r}.pt") for r in range(2)]
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=_sharded_rank,
+                             args=(r, 2, port, outs[r], reps, str(dev)))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        deadline = time.time() + SHARD_TIMEOUT
+        for p in procs:
+            p.join(max(deadline - time.time(), 1))
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.terminate()
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        require(not hung and all(p.exitcode == 0 for p in procs),
+                f"sharded: a gloo rank failed (exit codes "
+                f"{[p.exitcode for p in procs]})")
+        ranks = [torch.load(o, weights_only=False) for o in outs]
+        gloo_s = time.perf_counter() - t0
+
+    cuda = dev.type == "cuda"
+    dist.init_process_group("nccl" if cuda else "gloo",
+                            init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=SHARD_TIMEOUT),
+                            **({"device_id": dev} if cuda else {}))
+    try:
+        nccl = _sharded_runs(parallel.make_device_mesh(dev), dev, reps)
+    finally:
+        dist.destroy_process_group()
+
+    W, H, S = ROOM
+    sc = pt.Scene.from_arrays(room_arrays(W, H, S, S, S), device=dev)
+    sc.configure()
+    integ = pt.PathTracer(ROOM_DEPTH)
+    p3, apply3 = room_setup(sc)
+    target = torch.from_numpy(np.random.default_rng(SEED).random(
+        (W * H, 3)).astype(np.float32)).to(dev)
+
+    def unsharded(table):
+        warp = tree_map(lambda t: t.to(dev), table)
+        return integ.loss_and_grad(sc, p3, apply3, l2_loss(target), 0, SEED,
+                                   warp=warp)
+
+    frame = integ.renderC(sc, 0, seed=SEED).cpu()
+    checks = {}
+    for name, res in (("gloo2_rank0", ranks[0]), ("gloo2_rank1", ranks[1]),
+                      ("nccl1", nccl)):
+        loss, grads, img = unsharded(res["table"])
+        checks[name] = {
+            "image_bitwise": torch.equal(res["image"], img.cpu()),
+            "frame_bitwise": torch.equal(res["frame"], frame),
+            "loss_rel": abs(float(res["loss"]) - float(loss))
+            / abs(float(loss)),
+            "grad_rel_l1": max(rel_l1(res["grads"][k], g.cpu())
+                               for k, g in grads.items())}
+    unsharded_ms = wall_ms(lambda: unsharded(ranks[0]["table"]), reps)
+
+    def table_equal(a, b):
+        return all(torch.equal(x, y) for x, y in (
+            (a.distrb.pmf, b.distrb.pmf), (a.distrb.cdf, b.distrb.cdf))) and (
+            (a.distrb.alias_rows is None and b.distrb.alias_rows is None)
+            or torch.equal(a.distrb.alias_rows, b.distrb.alias_rows))
+
+    tables_equal = table_equal(ranks[0]["table"], ranks[1]["table"])
+    own_equal = table_equal(ranks[1]["own_table"], ranks[0]["own_table"])
+    # each rank pulls the summed leaf gradients back through its own scene
+    # compile: the ranks' gradients are logged against each other
+    ranks_rel = max(rel_l1(g, ranks[0]["grads"][k])
+                    for k, g in ranks[1]["grads"].items())
+    log("sharded", scene="room", size=f"{W}x{H}", spp=S, sppe=S, sppse=S,
+        depth=ROOM_DEPTH, guide=",".join(map(str, GUIDE_RESO)),
+        **{f"{n}_{k}": (f"{v:.3e}" if isinstance(v, float) else v)
+           for n, c in checks.items() for k, v in c.items()},
+        gloo2_step_ms=",".join(
+            f"{max(a, b):.1f}" for a, b in zip(ranks[0]["step_ms"],
+                                               ranks[1]["step_ms"])),
+        gloo2_peak_gb=",".join(f"{r['peak_gb']:.3f}" for r in ranks),
+        nccl1_step_ms=",".join(f"{x:.1f}" for x in nccl["step_ms"]),
+        nccl1_peak_gb=f"{nccl['peak_gb']:.3f}",
+        unsharded_step_ms=f"{unsharded_ms:.1f}",
+        tables_bitwise=tables_equal, own_tables_bitwise=own_equal,
+        ranks_loss_bitwise=torch.equal(ranks[0]["loss"], ranks[1]["loss"]),
+        ranks_grad_rel_l1=f"{ranks_rel:.3e}", gloo_seconds=f"{gloo_s:.1f}")
+    require(tables_equal, "sharded: the two ranks' guiding tables differ")
+    for name, c in checks.items():
+        require(c["image_bitwise"] and c["frame_bitwise"],
+                f"sharded {name}: interior rows differ from the unsharded")
+        require(c["loss_rel"] < 1e-6, f"sharded {name}: loss off by >= 1e-6")
+        require(c["grad_rel_l1"] < 1e-5,
+                f"sharded {name}: gradients off by >= 1e-5 rel L1")
+
+
 def main() -> int:
     try:
         import torch
@@ -4644,6 +5230,14 @@ def main() -> int:
     launches_i = intrinsic_phases(dev, img, box_want)
     files_s = time.perf_counter() - t_files
 
+    # ---- 15. the other integrators, path replay, the sharded room ----------
+    t_int = time.perf_counter()
+    integrators_64_phase(dev)
+    launches_n = integrator_phases(dev)
+    launches_p = prb_phase(dev)
+    sharded_phase(dev)
+    int_s = time.perf_counter() - t_int
+
     kernels["K1"]["launches_step"] = launches_t["K1"]
     kernels["K1"]["launches_renderD"] = launches_d["K1"]
     kernels["K1"]["launches_texture"] = launches_x["K1"]
@@ -4655,25 +5249,31 @@ def main() -> int:
         kernels[k]["launches_loaded"] = launches_lc[k]
         kernels[k]["launches_intrinsic"] = launches_i[k]
     kernels["K6"]["launches_loaded"] = launches_le["K6"]
-    files = {k: launches_lc[k] + launches_le[k] + launches_i[k]
+    kernels["K1"]["launches_integrators"] = launches_n.get("K1", 0)
+    kernels["K1"]["launches_prb"] = launches_p.get("K1", 0)
+    kernels["K2-pair"]["launches_prb"] = launches_p.get("K2-pair", 0)
+    kernels["K5"]["launches_fields"] = launches_n.get("K5", 0)
+    kernels["K6"]["launches_fields"] = launches_n.get("K6", 0)
+    later = {k: launches_lc[k] + launches_le[k] + launches_i[k]
+             + launches_n.get(k, 0) + launches_p.get(k, 0)
              for k in launches_lc}
     record = {"kernels": (
         [{**kernels["K1"], "launches": launches["K1"] + launches_t["K1"]
           + launches_d["K1"] + launches_x["K1"] + launches_r["K1"]
-          + files["K1"]},
-         {**kernels["K2"], "launches": launches["K2"] + files["K2"]},
+          + later["K1"]},
+         {**kernels["K2"], "launches": launches["K2"] + later["K2"]},
          {**kernels["K2-pair"], "launches": launches_t["K2-pair"]
-          + launches_d["K2-pair"] + files["K2-pair"]}]
-        + [{**kernels[k], "launches": launches_t[k] + files[k]}
+          + launches_d["K2-pair"] + later["K2-pair"]}]
+        + [{**kernels[k], "launches": launches_t[k] + later[k]}
            for k in ("K2-stash", "K3", "K4")]
         + [{**kernels["K5"], "launches": launches_l["K5"]
-            + launches_dk5["K5"] + files["K5"]},
+            + launches_dk5["K5"] + later["K5"]},
            {**kernels["K6"], "launches": launches_l["K6"]
-            + launches_e["K6"] + launches_g["K6"] + files["K6"]}])}
+            + launches_e["K6"] + launches_g["K6"] + later["K6"]}])}
     log("total", seconds=f"{time.perf_counter() - t_start:.1f}",
         envmap_seconds=f"{env_s:.1f}", texture_seconds=f"{tex_s:.1f}",
         gallery_step_seconds=f"{gal_s:.1f}", room_seconds=f"{room_s:.1f}",
-        files_seconds=f"{files_s:.1f}")
+        files_seconds=f"{files_s:.1f}", integrators_seconds=f"{int_s:.1f}")
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,14 @@
 """psdr_jit_tpu_torch: the PyTorch and CUDA port of psdr_jit_tpu.
 
 The JAX package ``psdr_jit_tpu`` is the reference; this package mirrors
-its layout and names. It renders (``PathTracer(max_depth).renderC``),
-differentiates renders (``renderD``, forward and reverse mode) and trains
-(``loss_and_grad`` with the interior, primary-edge and secondary-edge
-terms, the last guided by ``PathTracer.preprocess_secondary_edges``) on
+its layout and names. It renders (``PathTracer(max_depth).renderC``;
+also ``Direct``, ``CollocatedIntegrator`` and the AOVs of
+``FieldExtractionIntegrator``), differentiates renders (``renderD``,
+forward and reverse mode, ``PSDR_REMAT`` choosing how reverse mode bounds
+its memory) and trains (``loss_and_grad`` with the interior, primary-edge
+and secondary-edge terms, the last guided by
+``preprocess_secondary_edges``; sharded over the pixels of several ranks
+with ``parallel.make_fused_train_step``) on
 triangle scenes of up to 10^5 triangles, with or without texture
 coordinates, with ``DiffuseBSDF``s, ``MicrofacetBSDF``s,
 ``RoughConductorBSDF``s and ``RoughDielectricBSDF``s (constant or
@@ -41,8 +45,8 @@ from .emitter.envmap import EnvironmentMap
 from .sensor.perspective import PerspectiveCamera
 from .sensor.orthographic import OrthographicCamera
 from .scene.scene import Scene, SceneData
-from .integrator.base import Integrator
-from .integrator.path import PathTracer
+from .integrator import (Integrator, PathTracer, Direct,
+                         CollocatedIntegrator, FieldExtractionIntegrator)
 from .interop import scene_to_arrays, params_to_torch
 from .scene.loader import load_file, load_string
 
@@ -51,6 +55,7 @@ __all__ = [
     "MicrofacetBSDF", "RoughConductorBSDF", "RoughDielectricBSDF",
     "MicrofacetBSDFPerVertex", "NormalMapBSDF", "Bitmap", "Bitmap1f", "Bitmap3f", "AreaLight",
     "EnvironmentMap", "PerspectiveCamera", "OrthographicCamera", "Scene",
-    "SceneData", "Integrator", "PathTracer", "scene_to_arrays",
+    "SceneData", "Integrator", "PathTracer", "Direct",
+    "CollocatedIntegrator", "FieldExtractionIntegrator", "scene_to_arrays",
     "params_to_torch", "load_file", "load_string",
 ]

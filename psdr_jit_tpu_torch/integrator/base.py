@@ -10,12 +10,21 @@ runs under ``torch.utils.checkpoint`` so that one chunk's graph is held at
 a time (the JAX package's ``_remat``), and forward mode
 (``torch.autograd.forward_ad``), which holds no graph. Its derivative
 seams are the JAX package's ``stop_gradient``s: ``.detach()`` on a tensor
-and :func:`core.math.detached` around a block.
+and :func:`core.math.detached` around a block. ``REMAT_MODE`` picks how
+reverse mode bounds its memory.
+
+:meth:`Integrator.render_impl_sharded` is the per-rank body of the
+pixel-sharded render (``parallel/``): the interior term over the rank's
+pixels, each edge pass over its window of the global edge-sample lanes,
+the edge image summed across ranks.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from ..core.sampler import Sampler
@@ -23,6 +32,7 @@ from ..core.math import detached, safe_div, scrub_nonfinite
 from ..ops.image import interior_average, splat_add_derivative_only
 from ..scene.scene import tree_map
 from ..sensor.sensor import sample_primary_edge
+from . import prb
 
 # Sampler stream salts of the three estimators (reference scene.cpp:52).
 STREAM_INTERIOR = 0
@@ -75,6 +85,27 @@ SE_CHUNK_LANES = 1 << 22
 # in forward mode and 2-4% in reverse mode at half its memory.
 DIFF_CHUNK_LANES = 1 << 22
 
+# How reverse mode bounds its memory (the JAX package's PSDR_REMAT):
+#   "chunk"  (default) each chunk of renderD's passes and of renderD's
+#            interior under torch.utils.checkpoint, with the checkpoint
+#            policy: its recompute in the backward sweep replays the
+#            forward's hit payloads and edge radiances (prb.py), so it
+#            launches no hit kernel;
+#   "prb"    path replay of renderD's interior chunks for integrators that
+#            support it (PathTracer): a torch.autograd.Function per chunk
+#            that keeps the payloads and rebuilds the chunk from them in
+#            its backward (prb.replay_chunk); reverse mode only;
+#   "bounce" a checkpoint around each bounce of the attached general Li
+#            instead of each interior chunk (PathTracer);
+#   "none"   no checkpoint: every chunk's graph is held.
+# Integrators without path replay or bounce checkpoints keep the chunk
+# checkpoint under "prb" and "bounce". The training step (fused.py) holds
+# one chunk's graph at a time by construction and reads none of this.
+REMAT_MODES = ("chunk", "prb", "bounce", "none")
+REMAT_MODE = os.environ.get("PSDR_REMAT", "chunk")
+if REMAT_MODE not in REMAT_MODES:
+    raise ValueError(f"PSDR_REMAT={REMAT_MODE!r}: one of {REMAT_MODES}")
+
 
 def interior_chunk_lanes(sd) -> int:
     """Lanes per chunk of renderC: K2's scenes take ``CHUNK_LANES``, all
@@ -110,18 +141,20 @@ def interior_lane_setup(width: int, height: int, spp: int, seed: int,
 
 
 def interior_chunk(integrator, sd, opts, sensor_id: int, seed: int,
-                   spp: int, diff: bool, pix_chunk, vjp_ok: bool = False):
+                   spp: int, diff: bool, pix_chunk, vjp_ok: bool = False,
+                   tape=None):
     """Render one pixel chunk of the interior estimator -> (m, 3); with
     ``diff`` the rows are attached to ``sd`` (the camera pose and every
     table the attached Li reads). ``vjp_ok``: the caller pulls the rows
     back in reverse mode only (the training step), so the attached Li may
-    take K3 and K4 (``PathTracer.Li``)."""
+    take K3 and K4 (``PathTracer.Li``). ``tape``: the path-replay tape the
+    Li's hits are recorded on or replayed from (prb.py)."""
     m, sampler, samples = interior_lane_setup(opts.width, opts.height, spp,
                                               seed, pix_chunk)
     ray = sd.sensors[sensor_id].sample_primary_ray(samples, diff=diff)
     active = torch.ones(m * spp, dtype=torch.bool, device=pix_chunk.device)
     value = scrub_nonfinite(integrator.Li(sd, sampler, ray, active, diff,
-                                          vjp_ok=vjp_ok))
+                                          vjp_ok=vjp_ok, tape=tape))
     return interior_average(value, m, spp)
 
 
@@ -158,32 +191,72 @@ def builds_graph(sd) -> bool:
     return any(flags)
 
 
+def _policy_tape():
+    """The tape of one checkpointed chunk (the checkpoint policy); a test
+    patches this to return None to run the checkpoints without it."""
+    return prb.IntersectTape()
+
+
+def _checkpoint(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint``: its graph is dropped
+    after the forward and rebuilt when the backward sweep reaches it. The
+    rebuild replays the first run's hit payloads and edge radiances from
+    the chunk's tape (the JAX package's ``CHECKPOINT_POLICY``): no hit
+    kernel is launched again, and the rebuilt values are the first run's
+    bit for bit."""
+    tape = _policy_tape()
+    if tape is None:
+        run = fn
+    else:
+        def run(*a):
+            with prb.recording(tape):
+                return fn(*a)
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 def _run_chunk(fn, arg, graph: bool):
-    """``fn(arg)``, under ``torch.utils.checkpoint`` where it records a
-    graph: the chunk's graph is dropped after the forward and rebuilt, its
-    kernels launched again, when the backward sweep reaches it."""
-    if not graph:
+    """``fn(arg)``, checkpointed (:func:`_checkpoint`) where it records a
+    graph, unless ``REMAT_MODE`` is "none"."""
+    if not graph or REMAT_MODE == "none":
         return fn(arg)
-    return checkpoint(fn, arg, use_reentrant=False, preserve_rng_state=False)
+    return _checkpoint(fn, arg)
 
 
-def edge_lane_chunks(n_samples: int, chunk_lanes: int, device):
+def shard_lane_window(total: int, n_dev: int, idx: int):
+    """``(lane_offset, lane_count)`` of rank ``idx`` of ``n_dev`` in a
+    global lane space of ``total`` lanes (ceil-divided windows; the last
+    may run past ``total``, and its lanes there are dropped): the one
+    partition of the sharded render and of the sharded training step."""
+    per = -(-total // n_dev)
+    return idx * per, per
+
+
+def edge_lane_chunks(n_samples: int, chunk_lanes: int, device,
+                     window=None):
     """The lanes of an edge pass, ``chunk_lanes`` at a time: the one chunk
     geometry of its pullback (:func:`chunked_splat_pullback`, the training
-    step) and of its image (:func:`chunked_splat_image`, ``renderD``)."""
-    for s in range(0, n_samples, chunk_lanes):
-        yield torch.arange(s, min(s + chunk_lanes, n_samples),
-                           dtype=torch.int64, device=device)
+    step) and of its image (:func:`chunked_splat_image`, ``renderD``).
+    ``window = (offset, count)``: only the global lanes ``[offset, offset
+    + count)`` below ``n_samples`` (a rank's share, ``shard_lane_window``);
+    the sampler is keyed on the global lane, so the windows' union is the
+    whole pass."""
+    lo, hi = 0, n_samples
+    if window is not None:
+        lo, hi = window[0], min(window[0] + window[1], n_samples)
+    for s in range(lo, hi, chunk_lanes):
+        yield torch.arange(s, min(s + chunk_lanes, hi), dtype=torch.int64,
+                           device=device)
 
 
 def chunked_splat_pullback(chunk_vals, n_samples: int, n_pix: int,
-                           chunk_lanes: int, device, ct):
+                           chunk_lanes: int, device, ct, window=None):
     """Pull the image cotangent ``ct`` (n_pix, 3) back through the splat
     of edge-sample chunks into a derivative-only image, chunk by chunk as
     each is built, so one chunk's graph is held at a time.
     ``chunk_vals(lane)`` -> ``(values (chunk, 3), idx (chunk,))`` with
-    ``idx = -1`` for dropped lanes."""
-    for lane in edge_lane_chunks(n_samples, chunk_lanes, device):
+    ``idx = -1`` for dropped lanes; ``window`` as :func:`edge_lane_chunks`."""
+    for lane in edge_lane_chunks(n_samples, chunk_lanes, device, window):
         values, idx = chunk_vals(lane)
         part = splat_add_derivative_only(values, idx, n_pix)
         if part.requires_grad:
@@ -191,7 +264,7 @@ def chunked_splat_pullback(chunk_vals, n_samples: int, n_pix: int,
 
 
 def chunked_splat_image(chunk_vals, n_samples: int, n_pix: int,
-                        chunk_lanes: int, device, graph: bool):
+                        chunk_lanes: int, device, graph: bool, window=None):
     """The derivative-only image (n_pix, 3) of the edge-sample chunks of
     ``chunk_vals`` (as :func:`chunked_splat_pullback`'s): zero in value,
     the sum of the chunks' splats in derivative. With ``graph`` each chunk
@@ -201,16 +274,66 @@ def chunked_splat_image(chunk_vals, n_samples: int, n_pix: int,
     def part(lane):
         return splat_add_derivative_only(*chunk_vals(lane), n_pix)
 
-    for lane in edge_lane_chunks(n_samples, chunk_lanes, device):
+    for lane in edge_lane_chunks(n_samples, chunk_lanes, device, window):
         img = img + _run_chunk(part, lane, graph)
     return img
+
+
+class _SumAcrossRanks(torch.autograd.Function):
+    """``all_reduce`` (sum) of a tensor over a process group, in both
+    modes: its adjoint and its tangent are the same sum."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+    @staticmethod
+    def jvp(ctx, t, _):
+        t = t.clone()
+        dist.all_reduce(t, group=ctx.group)
+        return t
+
+
+def sum_across_ranks(x, group):
+    """Differentiable sum of ``x`` over the ranks of ``group``."""
+    return _SumAcrossRanks.apply(x, group)
+
+
+def sum_each_across_ranks(tensors, group) -> list:
+    """Each of ``tensors`` summed over the ranks of ``group``, in one
+    ``all_reduce`` of their concatenation."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    return [p.reshape(t.shape) for p, t in
+            zip(flat.split([t.numel() for t in tensors]), tensors)]
+
+
+def pixel_block(n_pix: int, mesh, device):
+    """Rank ``mesh.rank``'s contiguous block of ``n_pix`` pixels (the
+    blocks in rank order are the frame); the rank count must divide the
+    pixel count."""
+    if n_pix % mesh.size:
+        raise ValueError(f"{n_pix} pixels do not divide among {mesh.size} "
+                         "ranks")
+    per = n_pix // mesh.size
+    return torch.arange(mesh.rank * per, (mesh.rank + 1) * per,
+                        dtype=torch.int64, device=device)
 
 
 class Integrator:
     """Base class; subclasses implement ``Li``."""
 
     def Li(self, sd, sampler, ray, active, diff: bool = False,
-           vjp_ok: bool = False):
+           vjp_ok: bool = False, tape=None):
         raise NotImplementedError
 
     def Li_pair(self, sd, sampler, ray_n, ray_p, active):
@@ -265,10 +388,23 @@ class Integrator:
         seed, pix_id = self._norm_args(scene, seed, pix_id, batch_pix)
         sd = scene.configure_data()
         opts = scene.opts
-        graph = builds_graph(sd)
         img = self._render_interior(sd, opts, sensor_id, seed, pix_id,
                                     diff=True)
-        dev = sd.tri.p0.device
+        edge_img = self._edge_image(sd, opts, sensor_id, seed)
+        if edge_img is None:
+            return img
+        if pix_id is not None:
+            edge_img = edge_img[_pixels(pix_id, sd.tri.p0.device)]
+        return img + edge_img
+
+    def _edge_image(self, sd, opts, sensor_id: int, seed: int,
+                    shard=None):
+        """The derivative-only edge images of renderD (primary edges where
+        ``sppe > 0``, secondary edges where ``sppse > 0`` and the
+        integrator has the term), summed over the full grid, or None.
+        ``shard = (rank, n_ranks)``: each pass only over the rank's window
+        of its lanes (:func:`shard_lane_window`)."""
+        graph = builds_graph(sd)
         n_pix = opts.num_pixels
         edges = []
         if opts.sppe > 0 and sd.sensors[sensor_id].edge_info is not None:
@@ -278,13 +414,34 @@ class Integrator:
             vals = self.secondary_edge_vals(sd, opts, sensor_id, seed)
             if vals is not None:
                 edges.append((vals, n_pix * opts.sppse, SE_CHUNK_LANES))
+        img = None
         for vals, n_samples, chunk_lanes in edges:
-            edge_img = chunked_splat_image(vals, n_samples, n_pix,
-                                           chunk_lanes, dev, graph)
-            if pix_id is not None:
-                edge_img = edge_img[_pixels(pix_id, dev)]
-            img = img + edge_img
+            window = (None if shard is None
+                      else shard_lane_window(n_samples, shard[1], shard[0]))
+            part = chunked_splat_image(vals, n_samples, n_pix, chunk_lanes,
+                                       sd.tri.p0.device, graph, window)
+            img = part if img is None else img + part
         return img
+
+    def render_impl_sharded(self, sd, opts, sensor_id: int, seed: int,
+                            pix_shard, mesh):
+        """renderD's rows of ``pix_shard``, this rank's contiguous pixel
+        block, on the ranks of ``mesh`` (``parallel.mesh.ProcessMesh``):
+        the interior term over the block; each edge pass over the rank's
+        window of its global lanes, the full-grid edge image summed across
+        the ranks (differentiably, in both modes) and its block's rows
+        taken. Every rank must call it, in the same order. The interior
+        rows are the unsharded render's bit for bit; the edge images
+        differ from it only in the order of their float sums."""
+        rows = self._render_interior(sd, opts, sensor_id, seed, pix_shard,
+                                     diff=True)
+        edge_img = self._edge_image(sd, opts, sensor_id, seed,
+                                    shard=(mesh.rank, mesh.size))
+        if edge_img is None:
+            edge_img = torch.zeros((opts.num_pixels, 3), dtype=torch.float32,
+                                   device=rows.device)
+        edge_img = sum_across_ranks(edge_img, mesh.group)
+        return rows + edge_img[_pixels(pix_shard, rows.device)]
 
     def secondary_edge_vals(self, sd, opts, sensor_id: int, seed: int):
         """``chunk_vals(lane)`` of the secondary-edge term (as
@@ -294,15 +451,16 @@ class Integrator:
         return None
 
     def render_secondary_edges(self, sd, opts, sensor_id: int, seed: int,
-                               ct):
+                               ct, window=None):
         """Pull the image cotangent ``ct`` (n_pix, 3) through the
         derivative-only secondary-edge image (path.cpp:274-294) into
-        ``sd``'s attached tables, ``SE_CHUNK_LANES`` lanes at a time."""
+        ``sd``'s attached tables, ``SE_CHUNK_LANES`` lanes at a time;
+        ``window``: only those lanes (:func:`edge_lane_chunks`)."""
         vals = self.secondary_edge_vals(sd, opts, sensor_id, seed)
         if vals is not None:
             chunked_splat_pullback(vals, opts.num_pixels * opts.sppse,
                                    opts.num_pixels, SE_CHUNK_LANES,
-                                   sd.tri.p0.device, ct)
+                                   sd.tri.p0.device, ct, window)
 
     def loss_and_grad(self, scene, params, apply_params, pixel_loss,
                       sensor_id: int = 0, seed: int = -1, **kwargs):
@@ -322,7 +480,9 @@ class Integrator:
         """The interior term over ``pix_id`` (all pixels when None):
         detached in ``CHUNK_LANES``/``GENERAL_CHUNK_LANES``-lane chunks,
         or (``diff``) attached in ``DIFF_CHUNK_LANES``-lane chunks, each
-        checkpointed where the render records a graph."""
+        checkpointed where the render records a graph, replayed under
+        ``REMAT_MODE`` "prb" where the integrator supports it, or left to
+        the Li's own bounce checkpoints under "bounce"."""
         dev = sd.tri.p0.device
         pix = (torch.arange(opts.num_pixels, dtype=torch.int64, device=dev)
                if pix_id is None else _pixels(pix_id, dev))
@@ -332,14 +492,24 @@ class Integrator:
             return torch.zeros((n_pix, 3), dtype=torch.float32, device=dev)
         lanes = DIFF_CHUNK_LANES if diff else interior_chunk_lanes(sd)
         step = max(lanes // spp, 1)
-        graph = diff and builds_graph(sd)
+        pieces = [pix[s:s + step] for s in range(0, n_pix, step)]
+        if diff and REMAT_MODE == "prb" and getattr(self, "supports_prb",
+                                                    False):
+            def render(sd_, pix_chunk, tape):
+                return interior_chunk(self, sd_, opts, sensor_id, seed, spp,
+                                      True, pix_chunk, tape=tape)
+
+            return torch.cat([prb.replay_chunk(render, sd, p)
+                              for p in pieces])
+        graph = diff and builds_graph(sd) and not (
+            REMAT_MODE == "bounce"
+            and getattr(self, "supports_bounce_remat", False))
 
         def chunk(pix_chunk):
             return interior_chunk(self, sd, opts, sensor_id, seed, spp, diff,
                                   pix_chunk)
 
-        return torch.cat([_run_chunk(chunk, pix[s:s + step], graph)
-                          for s in range(0, n_pix, step)])
+        return torch.cat([_run_chunk(chunk, p, graph) for p in pieces])
 
     # primary-edge boundary term (integrator.cpp:179-198)
     def _primary_edge_vals(self, sd, opts, sensor_id: int, seed: int):
@@ -347,7 +517,8 @@ class Integrator:
         :func:`chunked_splat_pullback` takes it), attached to ``sd``'s
         edge endpoints. Stream ``seed + STREAM_PRIMARY``: one draw for the
         edge sample (two where the table takes an alias coin), then
-        ``Li_pair`` from ``sampler.cnt``."""
+        ``Li_pair`` from ``sampler.cnt``, whose detached value a
+        checkpointed chunk tapes (``prb.taped_value``)."""
         sensor = sd.sensors[sensor_id]
         if sensor.edge_info is None:
             raise ValueError("no primary edges configured: set sppe > 0 "
@@ -361,7 +532,8 @@ class Integrator:
             es = sample_primary_edge(sensor, u1, coin)
             valid = es.idx >= 0
             with detached():
-                delta = self.Li_pair(sd, sampler, es.ray_n, es.ray_p, valid)
+                delta = prb.taped_value(lambda: self.Li_pair(
+                    sd, sampler, es.ray_n, es.ray_p, valid), sampler)
             value = es.x_dot_n[..., None] * safe_div(delta, es.pdf[..., None])
             value = scrub_nonfinite(value)
             if opts.sppe > 1:
@@ -371,14 +543,16 @@ class Integrator:
 
         return chunk_vals
 
-    def _render_primary_edges(self, sd, opts, sensor_id: int, seed: int, ct):
+    def _render_primary_edges(self, sd, opts, sensor_id: int, seed: int, ct,
+                              window=None):
         """Pull the image cotangent ``ct`` through the derivative-only
         primary-edge image into ``sd``'s attached tables (the edge
-        endpoints), ``TRAIN_CHUNK_LANES`` lanes at a time."""
+        endpoints), ``TRAIN_CHUNK_LANES`` lanes at a time; ``window``: only
+        those lanes (:func:`edge_lane_chunks`)."""
         chunked_splat_pullback(
             self._primary_edge_vals(sd, opts, sensor_id, seed),
             opts.num_pixels * opts.sppe, opts.num_pixels, TRAIN_CHUNK_LANES,
-            sd.tri.p0.device, ct)
+            sd.tri.p0.device, ct, window)
 
 
 def _pixels(pix_id, device):

@@ -20,14 +20,22 @@ cotangent of a chunk comes from that chunk's own rows. The step:
 
 Steps 1 and 4 are the JAX package's ``vjp(to_sd)`` / ``pull_cfg(sd_bar)``
 (fused.py:288-305).
+
+Sharded over the pixels of several ranks (:func:`fused_loss_grad_sharded`,
+``parallel.shard.make_fused_train_step``), each rank runs step 2 over its
+contiguous pixel block, builds the full-frame cotangent from every rank's
+rows, runs step 3 over its window of each edge pass's lanes, and the loss
+and the leaves' gradients are summed across the ranks before step 4.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from . import base as _base
-from .base import interior_chunk, pad_pixel_chunks
+from .base import (interior_chunk, pad_pixel_chunks, pixel_block,
+                   shard_lane_window, sum_each_across_ranks)
 from ..scene.scene import tree_map
 
 
@@ -78,15 +86,25 @@ def _interior_scan(integrator, sd, opts, sensor_id: int, seed: int,
     return loss, torch.cat(images)[:n], torch.cat(gs)[:n]
 
 
-def _edge_pullbacks(integrator, sd, opts, sensor_id: int, seed: int, g_img):
+def _edge_pullbacks(integrator, sd, opts, sensor_id: int, seed: int, g_img,
+                    shard=None):
     """Pull the image cotangent through the derivative-only edge passes
     into ``sd``'s leaves (integrator.cpp:179-198, path.cpp:274-294); an
     integrator without the secondary-edge term has no
-    ``secondary_edge_vals``, and the step leaves the term out."""
+    ``secondary_edge_vals``, and the step leaves the term out. ``shard =
+    (rank, n_ranks)``: only the rank's window of each pass's lanes."""
+    n_pix = opts.num_pixels
+
+    def window(n_samples):
+        return (None if shard is None
+                else shard_lane_window(n_samples, shard[1], shard[0]))
+
     if opts.sppe > 0 and sd.sensors[sensor_id].edge_info is not None:
-        integrator._render_primary_edges(sd, opts, sensor_id, seed, ct=g_img)
+        integrator._render_primary_edges(sd, opts, sensor_id, seed, g_img,
+                                         window(n_pix * opts.sppe))
     if opts.sppse > 0 and sd.sec_edge is not None:
-        integrator.render_secondary_edges(sd, opts, sensor_id, seed, g_img)
+        integrator.render_secondary_edges(sd, opts, sensor_id, seed, g_img,
+                                          window(n_pix * opts.sppse))
 
 
 def fused_loss_grad(integrator, sd, opts, sensor_id: int, seed: int,
@@ -102,11 +120,42 @@ def fused_loss_grad(integrator, sd, opts, sensor_id: int, seed: int,
     return loss, image
 
 
+def _full_frame(rows, pix, n_pix: int, group):
+    """The (n_pix, 3) frame whose ``pix`` rows are each rank's ``rows``:
+    zeros elsewhere, summed across the ranks (adding zeros is exact)."""
+    full = rows.new_zeros((n_pix, 3))
+    full[pix] = rows
+    dist.all_reduce(full, group=group)
+    return full
+
+
+def fused_loss_grad_sharded(integrator, sd, opts, sensor_id: int, seed: int,
+                            pixel_loss, pix_shard, mesh):
+    """:func:`fused_loss_grad` on one rank of ``mesh``
+    (``parallel.mesh.ProcessMesh``; the JAX package's per-device body):
+    the interior over ``pix_shard``, this rank's contiguous pixel block;
+    the full-frame loss cotangent from every rank's rows; the edge passes
+    over this rank's window of their lanes. Returns ``(loss, image)``,
+    both summed across the ranks (every rank holds the full frame); the
+    leaves' gradients are this rank's share, to be summed by the caller.
+    Every rank must call it, in the same order."""
+    n_pix = opts.num_pixels
+    loss, rows, g = _interior_scan(integrator, sd, opts, sensor_id, seed,
+                                   pixel_loss, pix_shard)
+    g_img = _full_frame(g, pix_shard, n_pix, mesh.group)
+    _edge_pullbacks(integrator, sd, opts, sensor_id, seed, g_img,
+                    shard=(mesh.rank, mesh.size))
+    loss = loss.clone()
+    dist.all_reduce(loss, group=mesh.group)
+    return loss, _full_frame(rows, pix_shard, n_pix, mesh.group)
+
+
 _WARP_AUTO = object()  # "warp not passed": the integrator's own table
 
 
 def loss_and_grad(integrator, scene, params, apply_params, pixel_loss,
-                  sensor_id: int = 0, seed: int = -1, warp=_WARP_AUTO):
+                  sensor_id: int = 0, seed: int = -1, warp=_WARP_AUTO,
+                  mesh=None):
     """One training step: ``(loss, grads, image)``.
 
     ``params`` is a dict of float tensors; ``apply_params(params)`` sets
@@ -121,7 +170,12 @@ def loss_and_grad(integrator, scene, params, apply_params, pixel_loss,
     ``preprocess_secondary_edges``; ``None`` samples unguided. (The JAX
     package raises when an outer ``jax.jit`` would bake an unset table into
     its trace; a PyTorch step is not traced, so it reads the table
-    afresh each call.)"""
+    afresh each call.)
+
+    ``mesh`` (``parallel.mesh.ProcessMesh``): the step sharded over its
+    ranks' pixel blocks (:func:`fused_loss_grad_sharded`); every rank
+    calls it with the same arguments, and every rank gets the summed
+    loss, the summed gradients and the full image."""
     seed, _ = integrator._norm_args(scene, seed, None, None)
     has_warpper = hasattr(integrator, "warpper")
     if warp is _WARP_AUTO:
@@ -135,8 +189,20 @@ def loss_and_grad(integrator, scene, params, apply_params, pixel_loss,
     try:
         sd = scene.configure_data()
         sd_leaf, originals, leaves = _leaves(sd)
-        loss, image = fused_loss_grad(integrator, sd_leaf, scene.opts,
-                                      sensor_id, seed, pixel_loss)
+        if mesh is None:
+            loss, image = fused_loss_grad(integrator, sd_leaf, scene.opts,
+                                          sensor_id, seed, pixel_loss)
+        else:
+            pix = pixel_block(scene.opts.num_pixels, mesh, sd.tri.p0.device)
+            loss, image = fused_loss_grad_sharded(
+                integrator, sd_leaf, scene.opts, sensor_id, seed,
+                pixel_loss, pix, mesh)
+            # a leaf a rank left without a gradient counts zeros
+            summed = sum_each_across_ranks(
+                [l.grad if l.grad is not None else torch.zeros_like(l)
+                 for l in leaves], mesh.group) if leaves else []
+            for l, g in zip(leaves, summed):
+                l.grad = g
         pairs = [(o, l.grad) for o, l in zip(originals, leaves)
                  if l.grad is not None]
         if pairs:

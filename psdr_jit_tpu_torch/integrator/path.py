@@ -11,7 +11,9 @@ for the training step on the megakernel's scene class (K4 serves reverse
 mode only), and through :meth:`PathTracer._li_general` with ``diff`` for
 every other caller and scene: ``renderD`` in forward and reverse mode, and
 the training step outside that class. The secondary-edge term and its
-guiding table come from :class:`edge.SecondaryEdgeMixin`.
+guiding table come from :class:`edge.SecondaryEdgeMixin`. The ``tape``
+arguments are path replay's (``prb.py``): each intersection records its
+payload on it or replays it.
 """
 
 from __future__ import annotations
@@ -22,12 +24,13 @@ from ..core.math import dot, mis_weight, safe_div, safe_sqrt
 from ..core.types import EPSILON, SHADOW_EPSILON, Ray
 from ..ops import megakernel as mega
 from ..ops import shade_mega
-from .base import Integrator
+from . import base
+from .base import Integrator, builds_graph
 from .edge import SecondaryEdgeMixin
 
 
 def nee_contribution(sd, its, sampler, active, throughput,
-                     diff: bool = False):
+                     diff: bool = False, tape=None):
     """Next-event estimation (path.cpp:47-83): the light sample draws one
     counter (``next_2d``), then, where ``sd.emitter_coin_needed`` (an
     environment map's table with alias rows), the alias coin. With
@@ -41,7 +44,7 @@ def nee_contribution(sd, its, sampler, active, throughput,
     dist_sqr = dot(wod, wod)
     dist = safe_sqrt(dist_sqr)
     wod = wod * safe_div(torch.ones_like(dist), dist)[..., None]
-    its1 = sd.ray_intersect(Ray(its.p, wod), active_direct)
+    its1 = sd.ray_intersect(Ray(its.p, wod), active_direct, tape=tape)
     active_direct = (active_direct & its1.valid
                      & (its1.t > dist - SHADOW_EPSILON)
                      & sd.is_emitter(its1, active_direct))
@@ -58,7 +61,7 @@ def nee_contribution(sd, its, sampler, active, throughput,
     return torch.where(active_direct[..., None], contrib, 0.0)
 
 
-def bsdf_bounce(sd, its, sampler, active, diff: bool = False):
+def bsdf_bounce(sd, its, sampler, active, diff: bool = False, tape=None):
     """BSDF-sampled bounce (path.cpp:85-123): one counter
     (``next_nd(3)``). Returns ``(its1, active, bsdf weight (..., 3), MIS
     weight)``. With ``diff`` the weight is the path-space form, attached:
@@ -66,7 +69,7 @@ def bsdf_bounce(sd, its, sampler, active, diff: bool = False):
     the material-form Jacobian over the detached solid-angle pdf."""
     bs = sd.sample_bsdf(its, sampler.next_nd(3), active)
     ray = Ray(its.p, its.sh_frame.to_world(bs.wo))
-    its1 = sd.ray_intersect(ray, active)
+    its1 = sd.ray_intersect(ray, active, tape=tape)
     active = active & bs.is_valid & its1.valid
     if diff:
         wo = (its1.p - its.p) * safe_div(torch.ones_like(its1.t),
@@ -92,6 +95,9 @@ class PathTracer(SecondaryEdgeMixin, Integrator):
     """PathTracer(max_depth) with next-event estimation and MIS, and the
     guided secondary-edge term (``preprocess_secondary_edges``)."""
 
+    supports_prb = True  # path replay under REMAT_MODE "prb" (prb.py)
+    supports_bounce_remat = True  # its Li checkpoints bounces ("bounce")
+
     def __init__(self, max_depth: int = 1, hide_emitters: bool = False):
         if max_depth < 0:
             raise ValueError("max_depth must be >= 0")
@@ -100,7 +106,7 @@ class PathTracer(SecondaryEdgeMixin, Integrator):
         self.hide_emitters = bool(hide_emitters)
 
     def Li(self, sd, sampler, ray, active, diff: bool = False,
-           vjp_ok: bool = False):
+           vjp_ok: bool = False, tape=None):
         """Radiance along ``ray``; advances ``sampler.cnt`` by
         ``2 * max_depth`` (``3 * max_depth`` where the emitters take an
         alias coin) like the JAX package's draw schedule.
@@ -110,7 +116,10 @@ class PathTracer(SecondaryEdgeMixin, Integrator):
         (``diff=True``): :func:`shade_mega.li_interior` (K2 stash, K3, K4)
         where the caller pulls back in reverse mode only (``vjp_ok``, the
         training step) and ``shade_mega.applicable(sd)``, else
-        :meth:`_li_general`, which forward mode can differentiate too."""
+        :meth:`_li_general`, which forward mode can differentiate too.
+        With a path-replay ``tape``: :meth:`_li_general`."""
+        if tape is not None:
+            return self._li_general(sd, sampler, ray, active, diff, tape)
         if diff and vjp_ok and shade_mega.applicable(sd):
             out = shade_mega.li_interior(
                 sd, ray, active, sampler.lane, sampler.seed_value,
@@ -129,29 +138,48 @@ class PathTracer(SecondaryEdgeMixin, Integrator):
         sampler.cnt += 2 * self.max_depth
         return out
 
-    def _li_general(self, sd, sampler, ray, active, diff: bool = False):
+    def _li_general(self, sd, sampler, ray, active, diff: bool = False,
+                    tape=None):
         """The Li of any scene the port holds (``_li_xla`` of the JAX
         package); draws as K2 does, so it is lane for lane the
         megakernel's estimator. Detached: the ray is detached and every
         intersection is rebuilt in the path formulation. Attached
         (``diff``): the camera ray's hit in the solid-angle formulation,
-        every later one in the path formulation."""
+        every later one in the path formulation; under ``REMAT_MODE``
+        "bounce" each bounce is checkpointed where the render records a
+        graph."""
         if not diff:
             ray = Ray(ray.o.detach(), ray.d.detach())
-        its = sd.ray_intersect(ray, active, mode="solid" if diff else "path")
+        its = sd.ray_intersect(ray, active, mode="solid" if diff else "path",
+                               tape=tape)
         active = active & its.valid
         throughput = torch.ones(its.t.shape + (3,), dtype=torch.float32,
                                 device=its.t.device)
         result = (torch.zeros_like(throughput) if self.hide_emitters
                   else sd.Le(its, active))
-        for _ in range(self.max_depth):
-            r = nee_contribution(sd, its, sampler, active, throughput, diff)
+
+        def bounce(its, active, throughput, cnt):
+            sampler.cnt = cnt  # a recompute draws the same counters
+            r = nee_contribution(sd, its, sampler, active, throughput, diff,
+                                 tape)
             its, active, bsdf_val, weight2 = bsdf_bounce(sd, its, sampler,
-                                                         active, diff)
+                                                         active, diff, tape)
             throughput = throughput * bsdf_val
             contrib = sd.Le(its, active) * throughput * weight2[..., None]
-            result = result + (r + torch.where(active[..., None], contrib,
-                                               0.0))
+            r = r + torch.where(active[..., None], contrib, 0.0)
+            return r, its, active, throughput
+
+        per_bounce = (diff and tape is None and base.REMAT_MODE == "bounce"
+                      and builds_graph(sd))
+        for _ in range(self.max_depth):
+            cnt = sampler.cnt
+            if per_bounce:
+                r, its, active, throughput = base._checkpoint(
+                    bounce, its, active, throughput, cnt)
+            else:
+                r, its, active, throughput = bounce(its, active, throughput,
+                                                    cnt)
+            result = result + r
         return result
 
     def Li_pair(self, sd, sampler, ray_n, ray_p, active):

@@ -149,9 +149,12 @@ class SceneData:
     # some BSDF (or a normal map's nested BSDF) is per-vertex, so hits
     # gather their face's vertex ids
     has_pv: bool = False
+    # each mesh's static ``Mesh.id`` string, in mesh order (the bounding
+    # mesh's is ""): the field integrator's per-object filter
+    mesh_ids: tuple = ()
 
-    def ray_intersect(self, ray: Ray, active=None,
-                      mode: str = "path") -> Intersection:
+    def ray_intersect(self, ray: Ray, active=None, mode: str = "path",
+                      tape=None) -> Intersection:
         """Closest hit (scene.cpp:736-806). The kernel's payload is
         detached; ``mode`` says how the hit is rebuilt from it:
 
@@ -173,12 +176,29 @@ class SceneData:
         package's expression order); elsewhere the frame is
         ``Frame.from_normal`` of the shading normal, and ``uv`` and the
         tangents are 0. ``face_indices`` are the hit face's vertex ids in
-        its mesh (the per-vertex BSDFs' rows) where ``has_pv``, else 0."""
+        its mesh (the per-vertex BSDFs' rows) where ``has_pv``, else 0.
+
+        ``tape`` (:class:`integrator.prb.IntersectTape`; where None, the
+        tape of the enclosing checkpointed chunk, if any): recording, the
+        kernel's detached payload ``(tri_id, valid, uv)`` is appended to
+        it; replaying, the next payload is taken from it and no kernel is
+        launched, so a chunk rebuilt in the backward sweep traces no ray
+        again."""
+        from ..integrator.prb import current_tape
+
         tri = self.tri
-        tree = (self.bvh if intersect.needs_tree(tri.p0.shape[0],
-                                                 tri.p0.device) else None)
-        tri_id, valid, uv, _ = intersect.ray_intersect_detached(
-            tri.p0, tri.e1, tri.e2, ray, active, tree)
+        if tape is None:
+            tape = current_tape()
+        if tape is not None and tape.replaying:
+            tri_id, valid, uv = tape.pop()
+        else:
+            tree = (self.bvh if intersect.needs_tree(tri.p0.shape[0],
+                                                     tri.p0.device)
+                    else None)
+            tri_id, valid, uv, _ = intersect.ray_intersect_detached(
+                tri.p0, tri.e1, tri.e2, ray, active, tree)
+            if tape is not None:
+                tape.append((tri_id, valid, uv))
         idx = torch.clamp(tri_id, min=0).long()  # cast once for the rows
 
         def rows(x):
@@ -634,6 +654,7 @@ class Scene:
             has_pv=any(isinstance(getattr(b, "bsdf", b),
                                   MicrofacetBSDFPerVertex)
                        for b in self.bsdfs),
+            mesh_ids=tuple(getattr(m, "id", "") for m in mesh_list),
         )
         return tree_map(lambda x: x.to(self.device), sd)
 

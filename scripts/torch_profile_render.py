@@ -43,9 +43,9 @@ in reverse mode (``torch.autograd.grad`` of ``sum(w * renderD)`` for the
 four parameters of ``chip_smoke.train_setup``): host time and peak
 device memory of each at each interior chunk size (``DIFF_CHUNK_LANES``,
 2^20..2^23 lanes); K1's launches and device time in the reverse render's
-forward sweep and in its backward sweep (which launches the checkpointed
-chunks' K1 and K2 pair again), beside the bytes that saving the interior's
-hit payloads across the checkpoints would hold; the device's busy time
+forward sweep and in its backward sweep (none under the checkpoint
+policy, which replays the checkpointed chunks' hits), beside the bytes
+of the interior's hit payloads that the policy holds; the device's busy time
 per render of each mode with the kernels by device time; and whether
 ``torch.func.jvp`` runs the forward mode in place of
 ``torch.autograd.forward_ad``.
@@ -301,16 +301,17 @@ def renderd(dev) -> int:
             ms = sum(cuda_ms(lambda: fn(*args), 3) for fn, args, _ in calls)
             print(f"reverse render, {sweep}: {k} {len(calls)} launches "
                   f"{ms:.4f} ms")
-    # the forward sweep launches the interior's chunks first; the backward
-    # sweep launches the same K1 calls again when it recomputes them
+    # the forward sweep launches the interior's chunks first; a backward
+    # sweep without the checkpoint policy (base._policy_tape patched to
+    # None) would launch the same K1 calls again, the policy replays them
     interior = fwd_calls.calls["K1"][:n_int * (1 + 2 * DEPTH)]
     ms_int = sum(cuda_ms(lambda: fn(*args), 3) for fn, args, _ in interior)
-    print(f"re-launching the interior's K1 in the backward sweep: "
+    print(f"the interior's K1, which the policy spares the backward sweep: "
           f"{len(interior)} launches {ms_int:.4f} ms a render")
     lanes = w_ * h_ * spp
-    saved = lanes * (1 + 2 * DEPTH) * 16
-    print(f"saving the interior's hit payloads instead (tri id, valid, u, "
-          f"v: 16 B a lane an intersection): {lanes} lanes x "
+    saved = lanes * (1 + 2 * DEPTH) * 13
+    print(f"the interior's hit payloads the policy holds (tri id, valid, "
+          f"u, v: 13 B a lane an intersection): {lanes} lanes x "
           f"{1 + 2 * DEPTH} = {saved / 1e9:.3f} GB held to the backward")
 
     for name, fn in (("forward", fwd), ("reverse", rev)):

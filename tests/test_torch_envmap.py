@@ -47,7 +47,6 @@ from psdr_jit_tpu_torch.core import transform as txf
 from psdr_jit_tpu_torch.core.math import ray_intersect_scene_aabb
 from psdr_jit_tpu_torch.core.sampler import Sampler
 from psdr_jit_tpu_torch.core.types import Ray
-from psdr_jit_tpu_torch.integrator.path import bsdf_bounce, nee_contribution
 from psdr_jit_tpu_torch.utils.image import write_image
 from torch_threads import _one_thread  # noqa: F401 (autouse)
 
@@ -476,55 +475,6 @@ def _plane_under_sky(L=1.0, rho=0.6, w=32, envres=(8, 16)):
     return sc
 
 
-def _direct(mis: int):
-    """The JAX package's ``Direct(mis)`` (0 NEE only, 1 BSDF sampling
-    only, 2 MIS) on the port's shading functions."""
-
-    class Direct(pt.PathTracer):
-        def Li(self, sd, sampler, ray, active, diff=False, vjp_ok=False):
-            its = sd.ray_intersect(ray, active)
-            active = active & its.valid
-            ones = torch.ones(its.t.shape + (3,))
-            result = sd.Le(its, active)
-            if mis == 2:
-                result = result + nee_contribution(sd, its, sampler, active,
-                                                   ones)
-            if mis == 0:
-                result = result + _nee_no_mis(sd, its, sampler, active)
-            if mis != 0:
-                its1, act1, bsdf_val, w2 = bsdf_bounce(sd, its, sampler,
-                                                       active)
-                if mis == 1:
-                    w2 = torch.ones_like(w2)
-                contrib = sd.Le(its1, act1) * bsdf_val * w2[..., None]
-                result = result + torch.where(act1[..., None], contrib, 0.0)
-            return result
-
-    return Direct(1)
-
-
-def _nee_no_mis(sd, its, sampler, active):
-    """Next-event estimation with its MIS weight 1 (direct.cpp:80-82)."""
-    from psdr_jit_tpu_torch.core.math import dot, safe_div, safe_sqrt
-    from psdr_jit_tpu_torch.core.types import SHADOW_EPSILON
-
-    u2 = sampler.next_2d()
-    coin = sampler.next_1d() if sd.emitter_coin_needed else None
-    ps = sd.sample_emitter_position(its.p, u2, active, coin)
-    act = active & ps.is_valid & ~sd.is_emitter(its, active)
-    wod = ps.p - its.p
-    dist_sqr = dot(wod, wod)
-    dist = safe_sqrt(dist_sqr)
-    wod = wod * safe_div(1.0, dist)[..., None]
-    its1 = sd.ray_intersect(Ray(its.p, wod), act)
-    act = (act & its1.valid & (its1.t > dist - SHADOW_EPSILON)
-           & sd.is_emitter(its1, act))
-    g_val = safe_div(torch.abs(dot(its1.n, -wod)), dist_sqr)
-    val = sd.eval_bsdf(its, its.sh_frame.to_local(wod), act) * (
-        g_val * ps.J * safe_div(1.0, ps.pdf))[..., None]
-    return torch.where(act[..., None], sd.Le(its1, active) * val, 0.0)
-
-
 def test_uniform_sky_diffuse_plane():
     """A diffuse plane under a uniform sky L has radiance rho L
     (``tests/test_envmap.py:49``, rtol 0.03)."""
@@ -555,7 +505,7 @@ def test_envmap_nee_vs_bsdf_sampling():
     sc = _plane_under_sky()
     sc.emitters[0].radiance = pt.Bitmap3f(tex)
     sc.configure()
-    means = [np.mean([float(_direct(mis).renderC(sc, 0, seed).mean())
+    means = [np.mean([float(pt.Direct(mis).renderC(sc, 0, seed).mean())
                       for seed in range(4)]) for mis in (0, 1)]
     assert abs(means[0] - means[1]) < 0.15 * max(means), means
 
@@ -657,7 +607,7 @@ def test_multi_emitter_mis_partitions_unity():
                 "black", pt.AreaLight([6.0, 6.0, 6.0]))
     sc.configure()
     assert len(sc.data.emitters) == 2
-    means = [float(_direct(mis).renderC(sc, 0, seed=mis + 1).mean())
+    means = [float(pt.Direct(mis).renderC(sc, 0, seed=mis + 1).mean())
              for mis in (0, 1, 2)]
     assert abs(means[2] - means[0]) < 0.05 * means[0], means
     assert abs(means[2] - means[1]) < 0.08 * means[1], means
