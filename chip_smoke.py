@@ -69,7 +69,13 @@ just before it and read just after:
   of the last two; and the room's guided training step sharded over two
   gloo ranks spawned on the one card and over one NCCL rank
   (``parallel.make_fused_train_step``, ``render_sharded``), against the
-  unsharded step.
+  unsharded step;
+* the reference-compatible surface: the smoke checks (``optix_jit_test``
+  through K1), ``unit_ray_intersectAD``, renderD along a
+  ``set_transform`` translation, ``configure(active_sensors)`` on
+  BASELINE config #4's four-sensor box; then every example of
+  ``examples/torch_*.py`` at its default size, the two multi-process ones
+  as gloo ranks sharing the card.
 
 64x64 training steps of the box (sppse 0, sppse 8, and sppse 8 guided by
 one table on both sides), a 64x64 renderD of the box (forward and reverse
@@ -4887,6 +4893,238 @@ def sharded_phase(dev):
                 f"sharded {name}: gradients off by >= 1e-5 rel L1")
 
 
+# ---- the reference-compatible surface and the examples ([api], [examples])
+API_SMALL = (64, 64, 4)  # width, height, spp (= sppe = sppse) of [api]
+# examples/torch_*.py run in-process at their default sizes, then the two
+# multi-process ones, each as its own launcher with ranks of their own
+EXAMPLES = ("batch_render", "field_aovs", "forward_ad", "forward_ad_envmap",
+            "inverse_albedo", "secondary_edge_guiding", "fused_training",
+            "checkpointed_optimization", "room_optimization")
+MULTI_EXAMPLES = ("sharded_render", "multihost_training")
+EXAMPLE_RANK_TIMEOUT = 300  # seconds a rank of an example may take
+# the launches each example makes at its default size: chunks of 2^21
+# (general) to 2^23 (K2) lanes, each Li 1 + 2 depth hits, a secondary-edge
+# chunk 3, a primary-edge chunk 2 Li (K2 pair on the box)
+EXAMPLE_LAUNCHES = {
+    "batch_render": {"K2": 2},
+    "field_aovs": {"K1": 7},
+    "forward_ad": {"K1": 10, "K2": 1, "K2-pair": 1},
+    "forward_ad_envmap": {"K1": 12},
+    "inverse_albedo": {"K1": 500, "K2": 1},
+    "secondary_edge_guiding": {"K1": 27},  # 3 of them the guiding pass
+    "fused_training": {"K1": 120, "K2": 1, "K2-pair": 40, "K2-stash": 40,
+                       "K3": 40, "K4": 40},
+    "checkpointed_optimization": {"K1": 120, "K2": 1},
+    "room_optimization": {"K1": 1445},
+    "sharded_render": {"K2": 3},
+    "multihost_training": {"K1": 150, "K2": 2, "K2-pair": 50,
+                           "K2-stash": 50, "K3": 50, "K4": 50},
+}
+
+
+def api_phase(dev) -> dict:
+    """[api]: the reference-compatible surface on the card. The smoke
+    checks ``drjit_test``, ``drjit_memory`` and ``optix_jit_test`` (K1
+    once, no plain version); ``unit_ray_intersectAD`` on the box's pixel
+    centres (every hit and id as ``unit_ray_intersect``'s, ``t`` within
+    1e-4 rel); a forward-mode renderD of the 64x64 box along a
+    ``set_transform`` translation of the tall block against the same
+    translation on ``to_world_raw`` (the same matrix product: the primal
+    bitwise, the tangent within 1e-5, ``index_add_``'s float atomics) and
+    against the CPU plain path (1e-4); and ``configure(active_sensors)``
+    on BASELINE config #4's four-sensor textured box
+    (:func:`textured_cbox_arrays`, 512x512, spp, sppe, sppse 32): primary-
+    edge tables for sensor 0 only, and sensor 0's step the same (loss and
+    image bitwise, gradients within 1e-5: float atomics), with the ms of
+    ``configure`` and of a step with four active sensors and with one.
+    Returns the phase's launches."""
+    import numpy as np
+    import torch
+    import psdr_jit_tpu_torch as pt
+    from psdr_jit_tpu_torch.ops import _cuda
+
+    launches = {k: 0 for k in _cuda.LAUNCHES}
+
+    def counted(fn):
+        _cuda.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        for k, v in _cuda.LAUNCHES.items():
+            launches[k] += v
+        return out, dict(_cuda.LAUNCHES)
+
+    torch.cuda.synchronize()
+    with PlainCalls() as plain:
+        oks, smoke = counted(lambda: (pt.drjit_test(dev),
+                                      pt.drjit_memory(dev),
+                                      pt.optix_jit_test(dev)))
+    require(all(oks), "api: a smoke check failed")
+    require(smoke["K1"] == 1 and sum(smoke.values()) == 1,
+            "api: optix_jit_test did not launch K1 (only) once")
+    require(plain.count == 0, "api: optix_jit_test ran a plain version")
+
+    arrays = np.load(SCENE_NPZ)
+    box = pt.Scene.from_arrays(arrays, device=dev)
+    sd = box.configure()
+    rays = pixel_center_rays(sd, *FRAME[:2], dev)
+    (its, its_ad), picks = counted(lambda: (
+        box.unit_ray_intersect(rays.o, rays.d),
+        box.unit_ray_intersectAD(rays.o, rays.d)))
+    hit = its.valid
+    t_rel = float(((its_ad.t - its.t).abs() / its.t.abs())[hit].max())
+    require(bool(torch.equal(its.valid, its_ad.valid))
+            and bool(torch.equal(its.tri_id, its_ad.tri_id)),
+            "api: unit_ray_intersectAD hits differ from unit_ray_intersect")
+    require(t_rel < 1e-4, "api: unit_ray_intersectAD t off by >= 1e-4 rel")
+
+    e03 = torch.zeros(4, 4)
+    e03[0, 3] = 1.0
+    w, h, spp = API_SMALL
+    out = {}
+    for name, device in (("kernels", dev), ("plain", torch.device("cpu"))):
+        sc = pt.Scene.from_arrays(arrays, device=device)
+        sc.opts = pt.RenderOption(w, h, spp, spp, spp)
+        sc.configure()
+        block = sc.meshes[2]
+        base = block.to_world_raw.clone()
+        integ = pt.PathTracer(DEPTH)
+        zero = torch.zeros(())
+
+        def via_left(x):
+            block.set_transform(torch.eye(4) + e03 * x)
+
+        def via_raw(x):
+            block.to_world_raw = base + e03 * x
+
+        out[name, "left"], _ = counted(
+            lambda: forward_mode(integ, sc, via_left, zero, 1.0))
+        if name == "kernels":
+            out[name, "raw"], _ = counted(
+                lambda: forward_mode(integ, sc, via_raw, zero, 1.0))
+    (p_l, t_l), (p_r, t_r) = out["kernels", "left"], out["kernels", "raw"]
+    p_c, t_c = out["plain", "left"]
+    rels = {"left_vs_raw_tangent": rel_l1(t_l, t_r),
+            "primal_vs_plain": rel_l1(p_l.cpu(), p_c),
+            "tangent_vs_plain": rel_l1(t_l.cpu(), t_c)}
+    require(bool(torch.equal(p_l, p_r)), "api: renderD's primal along "
+            "set_transform differs from the one along to_world_raw")
+    require(rels["left_vs_raw_tangent"] < 1e-5, "api: the set_transform "
+            "tangent differs from the to_world_raw one by >= 1e-5")
+    require(rels["primal_vs_plain"] < 1e-4 and rels["tangent_vs_plain"]
+            < 1e-4, "api: set_transform renderD differs from the CPU plain "
+            "path by >= 1e-4")
+    require(float(t_l.abs().sum()) > 0, "api: the set_transform tangent "
+            "is zero")
+
+    tex = pt.Scene.from_arrays(textured_cbox_arrays(), device=dev)
+    params, apply_params = textured_setup(tex)
+    loss = l2_loss(torch.zeros((tex.opts.num_pixels, 3), device=dev))
+    integ = pt.PathTracer(TEXTURED_DEPTH)
+
+    def step():
+        return integ.loss_and_grad(tex, params, apply_params, loss, 0, SEED)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    runs = {}
+    for name, active in (("all", None), ("one", [0])):
+        _, cfg_ms = _synced_ms(lambda: tex.configure(active_sensors=active))
+        tables = [s.edge_info is not None for s in tex.data.sensors]
+        (res, got), step_ms = _synced_ms(lambda: counted(step))
+        runs[name] = dict(res=res, tables=tables, configure_ms=cfg_ms,
+                          step_ms=step_ms, launches=got)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    (l_a, g_a, i_a), (l_o, g_o, i_o) = runs["all"]["res"], runs["one"]["res"]
+    require(runs["all"]["tables"] == [True] * 4
+            and runs["one"]["tables"] == [True, False, False, False],
+            "api: configure(active_sensors=[0]) did not build the primary-"
+            "edge tables of sensor 0 alone")
+    require(bool(torch.equal(l_a, l_o)) and bool(torch.equal(i_a, i_o)),
+            "api: sensor 0's loss or image changed with one active sensor")
+    g_rel = {k: rel_l1(g_o[k], g_a[k]) for k in g_a}
+    require(all(v < 1e-5 for v in g_rel.values()), "api: sensor 0's "
+            "gradients changed with one active sensor by >= 1e-5")
+    log("api", smoke_launches=",".join(f"{k}:{v}" for k, v in smoke.items()
+                                       if v),
+        plain_calls=plain.count, picks=int(hit.numel()),
+        picks_hit=f"{float(hit.float().mean()):.4f}",
+        intersectAD_t_max_rel=f"{t_rel:.3e}",
+        set_transform=f"{w}x{h}spp{spp}",
+        primal_bitwise_vs_raw=True,
+        rel_l1=",".join(f"{k}:{x:.3e}" for k, x in rels.items()),
+        textured=f"{tex.opts.width}x{tex.opts.height}spp{tex.opts.spp}",
+        configure_ms=",".join(f"{k}:{r['configure_ms']:.1f}"
+                              for k, r in runs.items()),
+        step_ms=",".join(f"{k}:{r['step_ms']:.1f}" for k, r in runs.items()),
+        step_K1=",".join(f"{k}:{r['launches']['K1']}"
+                         for k, r in runs.items()),
+        grads_bitwise=all(bool(torch.equal(g_o[k], g_a[k])) for k in g_a),
+        grad_rel_l1=",".join(f"{k}:{x:.3e}" for k, x in g_rel.items()),
+        peak_gb=f"{peak_gb:.3f}")
+    return launches
+
+
+def examples_phase(dev) -> dict:
+    """[examples]: every ``examples/torch_*.py`` ``main()`` at its default
+    size on the card, each with its own check: the in-process ones with
+    the launch counts set to 0 before and read after, the two
+    multi-process ones as launchers of rank processes (gloo, the ranks
+    sharing the card; each rank prints its launches, which are summed).
+    Each example's launches must be :data:`EXAMPLE_LAUNCHES`'s. Returns
+    the launches of all."""
+    import importlib
+    import inspect
+    import re
+    import tempfile
+    import torch
+    from psdr_jit_tpu_torch.ops import _cuda
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    total = {k: 0 for k in _cuda.LAUNCHES}
+    with tempfile.TemporaryDirectory() as d:
+        for name in EXAMPLES + MULTI_EXAMPLES:
+            mod = importlib.import_module(f"torch_{name}")
+            kwargs = {"device": "cuda"}
+            if "outdir" in inspect.signature(mod.main).parameters:
+                kwargs["outdir"] = d
+            log_path = Path(d) / f"{name}.log"
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            _cuda.reset_launches()
+            t0 = time.perf_counter()
+            if name in MULTI_EXAMPLES:
+                with open(log_path, "w") as f:
+                    ok = mod.main(timeout=EXAMPLE_RANK_TIMEOUT, stdout=f,
+                                  **kwargs)
+                text = log_path.read_text()
+                print(text, end="")
+                require(ok, f"examples: {name} failed")
+                got = {k: 0 for k in _cuda.LAUNCHES}
+                for m in re.finditer(r"kernel launches: (\{.*\})", text):
+                    for k, v in json.loads(m.group(1)).items():
+                        got[k] += v
+            else:
+                result = mod.main(**kwargs)
+                torch.cuda.synchronize()
+                got = dict(_cuda.LAUNCHES)
+                flat = [x for x in (result if isinstance(result, (tuple,
+                        list)) else [result]) if isinstance(x, torch.Tensor)]
+                require(all(bool(torch.isfinite(x).all()) for x in flat),
+                        f"examples: {name} returned non-finite values")
+            seconds = time.perf_counter() - t0
+            peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+            want = EXAMPLE_LAUNCHES[name]
+            log("examples", example=name, seconds=f"{seconds:.2f}",
+                peak_gb=f"{peak_gb:.3f}" if name not in MULTI_EXAMPLES
+                else "in-ranks",
+                **{f"{k}_LAUNCHES": v for k, v in got.items() if v},
+                expected=",".join(f"{k}:{v}" for k, v in want.items()))
+            require({k: v for k, v in got.items() if v} == want,
+                    f"examples: {name}'s launches are not the predicted")
+            for k, v in got.items():
+                total[k] += v
+    return total
+
+
 def main() -> int:
     try:
         import torch
@@ -5238,6 +5476,14 @@ def main() -> int:
     sharded_phase(dev)
     int_s = time.perf_counter() - t_int
 
+    # ---- 16. the reference-compatible surface, the examples ------------------
+    t_api = time.perf_counter()
+    launches_a = api_phase(dev)
+    api_s = time.perf_counter() - t_api
+    t_ex = time.perf_counter()
+    launches_x2 = examples_phase(dev)
+    ex_s = time.perf_counter() - t_ex
+
     kernels["K1"]["launches_step"] = launches_t["K1"]
     kernels["K1"]["launches_renderD"] = launches_d["K1"]
     kernels["K1"]["launches_texture"] = launches_x["K1"]
@@ -5254,8 +5500,12 @@ def main() -> int:
     kernels["K2-pair"]["launches_prb"] = launches_p.get("K2-pair", 0)
     kernels["K5"]["launches_fields"] = launches_n.get("K5", 0)
     kernels["K6"]["launches_fields"] = launches_n.get("K6", 0)
+    for k in kernels:
+        kernels[k]["launches_api"] = launches_a.get(k, 0)
+        kernels[k]["launches_examples"] = launches_x2.get(k, 0)
     later = {k: launches_lc[k] + launches_le[k] + launches_i[k]
              + launches_n.get(k, 0) + launches_p.get(k, 0)
+             + launches_a.get(k, 0) + launches_x2.get(k, 0)
              for k in launches_lc}
     record = {"kernels": (
         [{**kernels["K1"], "launches": launches["K1"] + launches_t["K1"]
@@ -5273,7 +5523,8 @@ def main() -> int:
     log("total", seconds=f"{time.perf_counter() - t_start:.1f}",
         envmap_seconds=f"{env_s:.1f}", texture_seconds=f"{tex_s:.1f}",
         gallery_step_seconds=f"{gal_s:.1f}", room_seconds=f"{room_s:.1f}",
-        files_seconds=f"{files_s:.1f}", integrators_seconds=f"{int_s:.1f}")
+        files_seconds=f"{files_s:.1f}", integrators_seconds=f"{int_s:.1f}",
+        api_seconds=f"{api_s:.1f}", examples_seconds=f"{ex_s:.1f}")
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -29,6 +29,7 @@ import torch
 
 from ..core.bitmap import Bitmap, BitmapTable
 from ..core.math import detached
+from ..core.object import Object
 from ..core.records import BSDFSample
 
 (DIFFUSE, MICROFACET, ROUGH_CONDUCTOR, ROUGH_DIELECTRIC, MICROFACET_PV,
@@ -45,17 +46,54 @@ _FILL = {DIFFUSE: (0.0,), MICROFACET: (0.0, 0.0, 0.5),
          ROUGH_DIELECTRIC: (0.5, 0.5, 1.5), NORMALMAP: ((0.5, 0.5, 1.0),)}
 
 
-class BSDF:
+class BSDF(Object):
     """Interface of a material: ``eval`` (f cos theta_o, differentiable),
     ``sample`` (a detached :class:`BSDFSample`) and ``pdf`` (detached),
-    all on local-frame directions of an intersection ``its``.
+    all on local-frame directions of an intersection ``its`` (its ``wi``,
+    ``uv``, ``bc``, ``face_indices`` and ``dp_du``; an
+    :class:`~psdr_jit_tpu_torch.core.types.Intersection`).
     ``_tensor_fields`` names the attributes that hold its parameters
-    (tensors, bitmaps or a nested BSDF), which the scene compile maps."""
+    (tensors, bitmaps or a nested BSDF), which the scene compile maps.
+
+    The methods evaluate this one BSDF on every lane, through the scene's
+    dispatch on a table of one slot: the type's functional form
+    (``diffuse_eval``, ``microfacet_sample``, ...) with the BSDF's
+    parameters read at each lane's ``uv``."""
 
     twoSide: bool = False
     _tensor_fields: tuple = ()
 
-    def __repr__(self) -> str:
+    def _lanes(self, ref, active):
+        """``(the one-slot material table, slot 0 a lane, active)`` on the
+        device of ``ref`` (..., 3)."""
+        shape, device = ref.shape[:-1], ref.device
+        slot = torch.zeros(shape, dtype=torch.int64, device=device)
+        if active is None:
+            active = torch.ones(shape, dtype=torch.bool, device=device)
+        return material_table([self], device), slot, active
+
+    def eval(self, its, wo, active=None):
+        """f(wi, wo) cos(theta_o) at local ``wo`` (..., 3): (..., 3),
+        attached to the parameters and the directions."""
+        table, slot, active = self._lanes(wo, active)
+        return eval_dispatch(table, slot, its, wo, active)
+
+    def sample(self, its, rnd3, active=None) -> BSDFSample:
+        """A direction from the uniforms ``rnd3`` (..., 3); detached."""
+        with detached():
+            table, slot, active = self._lanes(rnd3, active)
+            return sample_dispatch(table, slot, its, rnd3, active)
+
+    def pdf(self, its, wo, active=None):
+        """The solid-angle density of ``wo``; detached."""
+        with detached():
+            table, slot, active = self._lanes(wo, active)
+            return pdf_dispatch(table, slot, its, wo, active)
+
+    def anisotropic(self) -> bool:
+        return False
+
+    def to_string(self) -> str:
         return type(self).__name__
 
 

@@ -74,5 +74,5 @@ class DiffuseBSDF(BSDF):
         else:
             self._reflectance = Bitmap3f(value)
 
-    def __repr__(self) -> str:
+    def to_string(self) -> str:
         return f"DiffuseBSDF[reflectance={self.reflectance.resolution}]"

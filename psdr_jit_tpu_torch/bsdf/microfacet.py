@@ -119,5 +119,5 @@ class MicrofacetBSDF(BSDF):
         self.roughness = _bitmap(roughness, 1)
         self.twoSide = bool(twoSide)
 
-    def __repr__(self) -> str:
+    def to_string(self) -> str:
         return "MicrofacetBSDF[]"

@@ -82,5 +82,5 @@ class MicrofacetBSDFPerVertex(BSDF):
                                          dtype=torch.float32).reshape(-1, 1)
         self.twoSide = bool(twoSide)
 
-    def __repr__(self) -> str:
+    def to_string(self) -> str:
         return f"MicrofacetBSDFPerVertex[{self.roughness.shape[0]}]"

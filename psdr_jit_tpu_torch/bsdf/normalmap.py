@@ -162,5 +162,5 @@ class NormalMapBSDF(BSDF):
         self.bsdf = bsdf
         self.twoSide = bool(twoSide)
 
-    def __repr__(self) -> str:
+    def to_string(self) -> str:
         return f"NormalMapBSDF[{self.bsdf!r}]"

@@ -58,5 +58,8 @@ class RoughConductorBSDF(BSDF):
         self.specular_reflectance = _bitmap(specular_reflectance, 3)
         self.twoSide = bool(twoSide)
 
-    def __repr__(self) -> str:
+    def anisotropic(self) -> bool:
+        return True
+
+    def to_string(self) -> str:
         return "RoughConductorBSDF[]"

@@ -130,5 +130,8 @@ class RoughDielectricBSDF(BSDF):
                                       dtype=torch.float32)
         self.twoSide = bool(twoSide)
 
-    def __repr__(self) -> str:
+    def anisotropic(self) -> bool:
+        return True
+
+    def to_string(self) -> str:
         return "RoughDielectricBSDF[]"

@@ -135,6 +135,28 @@ class Bitmap:
         arr = _f32(array)
         return Bitmap(arr[..., None] if arr.dim() == 2 else arr)
 
+    def fill(self, value):
+        """Make the bitmap the constant ``value`` (a 1x1 bitmap of its
+        channels)."""
+        self.data = _f32(value).reshape(1, 1, -1)
+
+    # the reference's attribute names (psdr.cpp:204-206)
+    @property
+    def translate(self):
+        return self.trans
+
+    @translate.setter
+    def translate(self, v):
+        self.trans = _f32(v).reshape(2)
+
+    @property
+    def rotate(self):
+        return self.rot
+
+    @rotate.setter
+    def rotate(self, v):
+        self.rot = _f32(v).reshape(())
+
     def load_openexr(self, path: str) -> "Bitmap":
         """Set ``data`` from an image file, keeping the bitmap's channel
         count: the first channel of many for one, the first three of four
@@ -170,6 +192,10 @@ class Bitmap:
         """The texture at ``uv`` (..., 2): (..., C)."""
         return eval_bitmap(self.data, self.scale, self.rot, self.trans, uv,
                            flip_v, envmap_mode)
+
+    def eval1(self, uv, flip_v: bool = True):
+        """The first channel at ``uv`` (..., 2): (...,)."""
+        return self.eval(uv, flip_v)[..., 0]
 
 
 @dataclasses.dataclass

@@ -107,6 +107,15 @@ class DiscreteDistribution:
     def total(self):
         return self.cdf[-1]
 
+    # the reference's accessors (psdr.cpp:187-192)
+    @property
+    def sum(self):
+        return self.total
+
+    def pmf_normalized(self):
+        """The normalized masses (the reference's ``pmf()``)."""
+        return self.pmf / self.total
+
     def _sample_alias(self, u, u_coin=None):
         """``(idx, pmf[idx], u')`` by one row gather. With ``u_coin`` the
         coin is exact and ``u'`` the fraction of ``u * N`` in its cell;

@@ -9,6 +9,15 @@ import torch
 
 
 @dataclasses.dataclass
+class SampleRecord:
+    """Base record (records.h:39-44): a pdf and a validity mask, the
+    reference's ``SampleRecordC/D`` (psdr.cpp:252-258)."""
+
+    pdf: torch.Tensor       # (...,)
+    is_valid: torch.Tensor  # (...,) bool
+
+
+@dataclasses.dataclass
 class PositionSample:
     """Emitter surface position sample (records.h:39-47)."""
 

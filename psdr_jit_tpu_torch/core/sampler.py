@@ -68,6 +68,16 @@ class Sampler:
                      else torch.as_tensor(lane).to(torch.int64) & _MASK)
         self.cnt = 0
 
+    def seed(self, seed_values):
+        """The reference's re-seeding (Sampler::seed, psdr.cpp:183): one
+        independent stream for each entry of ``seed_values``."""
+        self.lane = torch.as_tensor(seed_values).to(torch.int64) & _MASK
+        self.cnt = 0
+        return self
+
+    # the JAX package's first spelling
+    seed_ = seed
+
     def _draw(self, n_dims: int):
         outs = []
         while len(outs) < n_dims:

@@ -2,7 +2,8 @@
 ``psdr_jit_tpu/core/transform.py``).
 
 Row convention: ``transform_pos(M, v) = (M @ [v, 1]).xyz / w``. Matrices
-are float32 tensors.
+are float32 tensors. :class:`TransformStack` is the pose of meshes and
+cameras, ``to_world_left @ to_world_raw @ to_world_right``.
 """
 
 from __future__ import annotations
@@ -103,3 +104,35 @@ def transform_dir(m, v):
     rot = m[..., :3, :3]
     return (v[..., 0:1] * rot[..., :, 0] + v[..., 1:2] * rot[..., :, 1]
             + v[..., 2:3] * rot[..., :, 2])
+
+
+class TransformStack:
+    """The ``to_world_left @ to_world_raw @ to_world_right`` stack of a mesh
+    or a camera (the reference's ``set_transform``/``append_transform``).
+    A tensor set here keeps its autograd graph and forward-mode tangent."""
+
+    @property
+    def to_world(self):
+        return self.to_world_raw
+
+    @to_world.setter
+    def to_world(self, m):
+        self.to_world_raw = torch.as_tensor(m, dtype=torch.float32)
+
+    def set_transform(self, m, left: bool = True):
+        """Set ``to_world_left`` (or, with ``left`` off, ``to_world_right``)."""
+        m = torch.as_tensor(m, dtype=torch.float32)
+        if left:
+            self.to_world_left = m
+        else:
+            self.to_world_right = m
+
+    def append_transform(self, m, left: bool = True):
+        """Compose ``m`` onto the stack: ``m @ left``, or ``right @ m``."""
+        m = torch.as_tensor(m, dtype=torch.float32)
+        if left:
+            self.to_world_left = m @ torch.as_tensor(
+                self.to_world_left, dtype=torch.float32)
+        else:
+            self.to_world_right = torch.as_tensor(
+                self.to_world_right, dtype=torch.float32) @ m

@@ -54,6 +54,13 @@ class Ray:
     o: torch.Tensor
     d: torch.Tensor
 
+    def __call__(self, t):
+        """The points at distances ``t`` (...,) along the rays."""
+        return self.o + self.d * t[..., None]
+
+    def reversed(self) -> "Ray":
+        return Ray(self.o, -self.d)
+
 
 def coordinate_system(n):
     """Duff et al. orthonormal basis around unit normals ``n`` (..., 3)
@@ -136,3 +143,6 @@ class Intersection:
     dp_dv: torch.Tensor    # (..., 3) dp/dv
     face_indices: torch.Tensor  # (..., 3) int32 the hit face's vertex ids,
     #                             local to its mesh
+
+    def is_valid(self):
+        return self.valid

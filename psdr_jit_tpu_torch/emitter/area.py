@@ -31,7 +31,7 @@ class AreaLight(Emitter):
     def radiance(self, value):
         self._radiance = torch.as_tensor(value, dtype=torch.float32).reshape(3)
 
-    def __repr__(self) -> str:
+    def to_string(self) -> str:
         return f"AreaLight[radiance={self.radiance.tolist()}]"
 
 

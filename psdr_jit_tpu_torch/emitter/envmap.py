@@ -62,7 +62,12 @@ class EnvironmentMap(Emitter):
     def scale(self, value):
         self._scale = torch.as_tensor(value, dtype=torch.float32).reshape(())
 
-    def __repr__(self) -> str:
+    def set_transform(self, m):
+        """Set ``to_world_left`` of the map's ``left @ raw`` pose; a tensor
+        keeps its autograd graph, so the orientation can be optimised."""
+        self.to_world_left = torch.as_tensor(m, dtype=torch.float32)
+
+    def to_string(self) -> str:
         return "EnvironmentMap[]"
 
 

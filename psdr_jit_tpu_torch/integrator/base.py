@@ -27,6 +27,7 @@ import torch
 import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
+from ..core.object import Object
 from ..core.sampler import Sampler
 from ..core.math import detached, safe_div, scrub_nonfinite
 from ..ops.image import interior_average, splat_add_derivative_only
@@ -329,7 +330,7 @@ def pixel_block(n_pix: int, mesh, device):
                         dtype=torch.int64, device=device)
 
 
-class Integrator:
+class Integrator(Object):
     """Base class; subclasses implement ``Li``."""
 
     def Li(self, sd, sampler, ray, active, diff: bool = False,
@@ -362,17 +363,26 @@ class Integrator:
                 pix_id=None, batch_pix=None):
         """Primal render (reference Integrator::renderC): ``(n_pix, 3)``
         float32 on the scene's device, pixel-major; ``pix_id`` renders
-        only those pixels, bitwise equal to the full frame's rows."""
+        only those pixels, bitwise equal to the full frame's rows. With
+        ``scene.opts.log_level > 0`` it prints "Rendered in X seconds.",
+        the device synchronised."""
+        from ..utils.profiling import log_time
+
         seed, pix_id = self._norm_args(scene, seed, pix_id, batch_pix)
-        return self._render_interior(scene.data, scene.opts, sensor_id,
-                                     seed, pix_id)
+        with log_time("Rendered", scene.opts.log_level > 0,
+                      device=scene.device):
+            return self._render_interior(scene.data, scene.opts, sensor_id,
+                                         seed, pix_id)
 
     def renderD(self, scene, sensor_id: int = 0, seed: int = -1,
                 pix_id=None, batch_pix=None):
         """Differentiable render (reference Integrator::renderD):
         ``(n_pix, 3)`` float32 on the scene's device, with ``renderC``'s
         argument conventions. The scene compile runs again
-        (``scene.configure_data()``), so the image is attached to every
+        (``scene.configure_data``, with the primary-edge tables of the
+        sensors of the last ``configure(active_sensors)``: an inactive
+        sensor renders without its primary-edge term, as in the JAX
+        package), so the image is attached to every
         parameter set on the scene objects as a tensor that requires grad
         or carries a forward-mode tangent.
 
@@ -384,18 +394,23 @@ class Integrator:
         rows. Reverse mode: ``torch.autograd.grad`` of any scalar of the
         image. Forward mode: parameters set as dual tensors inside
         ``torch.autograd.forward_ad.dual_level()``; the image's tangent
-        (``unpack_dual(img).tangent``) is the gradient image."""
+        (``unpack_dual(img).tangent``) is the gradient image. It logs as
+        ``renderC`` does."""
+        from ..utils.profiling import log_time
+
         seed, pix_id = self._norm_args(scene, seed, pix_id, batch_pix)
-        sd = scene.configure_data()
-        opts = scene.opts
-        img = self._render_interior(sd, opts, sensor_id, seed, pix_id,
-                                    diff=True)
-        edge_img = self._edge_image(sd, opts, sensor_id, seed)
-        if edge_img is None:
-            return img
-        if pix_id is not None:
-            edge_img = edge_img[_pixels(pix_id, sd.tri.p0.device)]
-        return img + edge_img
+        with log_time("Rendered", scene.opts.log_level > 0,
+                      device=scene.device):
+            sd = scene.configure_data(scene._active_sensors)
+            opts = scene.opts
+            img = self._render_interior(sd, opts, sensor_id, seed, pix_id,
+                                        diff=True)
+            edge_img = self._edge_image(sd, opts, sensor_id, seed)
+            if edge_img is None:
+                return img
+            if pix_id is not None:
+                edge_img = edge_img[_pixels(pix_id, sd.tri.p0.device)]
+            return img + edge_img
 
     def _edge_image(self, sd, opts, sensor_id: int, seed: int,
                     shard=None):

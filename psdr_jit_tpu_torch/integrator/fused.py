@@ -187,7 +187,7 @@ def loss_and_grad(integrator, scene, params, apply_params, pixel_loss,
     if has_warpper:
         integrator.warpper = {**prev, sensor_id: warp}
     try:
-        sd = scene.configure_data()
+        sd = scene.configure_data(scene._active_sensors)
         sd_leaf, originals, leaves = _leaves(sd)
         if mesh is None:
             loss, image = fused_loss_grad(integrator, sd_leaf, scene.opts,

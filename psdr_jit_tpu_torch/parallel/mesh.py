@@ -73,7 +73,7 @@ def render_sharded(integrator, scene, mesh: ProcessMesh, sensor_id: int = 0,
         sync_guiding(integrator, mesh, sensor_id)
         seed, _ = integrator._norm_args(scene, seed, None, None)
         rows = integrator.render_impl_sharded(
-            scene.configure_data(), scene.opts, sensor_id, seed, pix, mesh)
+            scene.configure_data(scene._active_sensors), scene.opts, sensor_id, seed, pix, mesh)
     lo, hi = int(pix[0]), int(pix[-1]) + 1
     full = torch.cat([rows.new_zeros((lo, 3)), rows,
                       rows.new_zeros((n_pix - hi, 3))])

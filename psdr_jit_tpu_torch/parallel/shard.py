@@ -109,7 +109,7 @@ def train_step_example(scene, integrator, mesh: ProcessMesh, param_get,
 
     def loss_fn(params, pix, target_rows):
         param_set(params)
-        sd = scene.configure_data()
+        sd = scene.configure_data(scene._active_sensors)
         if opts.sppe > 0 or opts.sppse > 0:
             img = integrator.render_impl_sharded(sd, opts, 0, seed, pix,
                                                  mesh)

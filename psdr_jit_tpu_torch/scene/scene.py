@@ -52,6 +52,7 @@ from ..core.types import (EDGE_EPSILON, EPSILON, RenderOption, Ray, Frame,
 from ..core.math import (bilinear, cross, detached, dot, norm, normalize,
                          ray_intersect_triangle, safe_div, safe_sqrt,
                          sign_eps, squared_norm)
+from ..core.object import Object
 from ..core.distribution import (SEARCHSORTED_DENSE_MAX,
                                  DiscreteDistribution)
 from ..core.records import BoundarySegSample, PositionSample
@@ -410,7 +411,7 @@ class SceneData:
                                  n=ps2.n, pdf=pdf, is_valid=is_valid)
 
 
-class Scene:
+class Scene(Object):
     """Mutable scene container mirroring the reference Python API, with
     the device its data lives on."""
 
@@ -429,6 +430,9 @@ class Scene:
         self._tri_perm = None
         self._sec_edge_distrb_cache: Optional[DiscreteDistribution] = None
         self._pe_distrb_caches: dict = {}
+        # the sensors of the last configure() that get primary-edge tables;
+        # None: all of them
+        self._active_sensors = None
 
     @classmethod
     def from_arrays(cls, arrays, device="cuda") -> "Scene":
@@ -440,8 +444,15 @@ class Scene:
 
     # -- builders (psdr.cpp:406-418) ---------------------------------------
     @property
+    def num_sensors(self) -> int:
+        return len(self.sensors)
+
+    @property
     def num_meshes(self) -> int:
         return len(self.meshes)
+
+    def get_num_emitters(self) -> int:
+        return len(self.emitters)
 
     def add_Sensor(self, sensor):
         self.sensors.append(sensor)
@@ -492,6 +503,17 @@ class Scene:
         self._rebuild_param_map()
         return mesh
 
+    def add_normalmap_BSDF(self, nmap_bsdf, nested_bsdf, bsdf_id: str = "",
+                           twoSide: bool = False):
+        """Add a :class:`NormalMapBSDF` of the normal map ``nmap_bsdf`` (a
+        bitmap, or a normal-map BSDF whose map is taken) over
+        ``nested_bsdf`` (psdr.cpp add_normalmap_BSDF); its slot."""
+        from ..bsdf.normalmap import NormalMapBSDF
+
+        nm = NormalMapBSDF(getattr(nmap_bsdf, "nmap", nmap_bsdf),
+                           nested_bsdf, twoSide=twoSide)
+        return self.add_BSDF(nm, bsdf_id, twoSide)
+
     # -- loading (reference Scene.load_file/load_string, psdr.cpp:407-408)
     def load_file(self, file_name: str, auto_configure: bool = True):
         """Take the scene of an XML file (``scene.loader``), built on this
@@ -530,7 +552,12 @@ class Scene:
         self.param_map = pm
 
     # -- scene compile (scene.cpp:311-600) -----------------------------------
-    def configure_data(self) -> SceneData:
+    def configure_data(self, active_sensors=None) -> SceneData:
+        """The scene data of the current parameters, attached to them;
+        where ``sppe > 0``, the sensors of ``active_sensors`` (all when
+        None) get primary-edge tables, the others none (JAX
+        scene.py:747-752). The renders pass the last ``configure()``'s
+        list (``_active_sensors``)."""
         if not self.meshes:
             raise ValueError("Missing meshes!")
         if not self.sensors:
@@ -623,10 +650,13 @@ class Scene:
 
         # large primary-edge tables: the floored alias table of the last
         # configure(), while its size holds (JAX scene.py:749-762)
+        if active_sensors is None:
+            active_sensors = range(len(self.sensors))
         sensors = []
         for i, s in enumerate(self.sensors):
-            sdat = s.configure_data(opts.width, opts.height, mesh_list,
-                                    mesh_datas, with_edges=opts.sppe > 0)
+            sdat = s.configure_data(
+                opts.width, opts.height, mesh_list, mesh_datas,
+                with_edges=opts.sppe > 0 and i in active_sensors)
             cache = self._pe_distrb_caches.get(i)
             ei = sdat.edge_info
             if (cache is not None and ei is not None
@@ -707,14 +737,27 @@ class Scene:
             lower=lower, upper=upper, sampling_weight=weight,
             mesh_index=em.mesh_index)
 
-    def configure(self) -> SceneData:
+    def configure(self, active_sensors=None) -> SceneData:
         """(Re)build and cache the scene data (reference sc.configure()),
         with the Morton permutation of the current geometry, the
         environment map's importance table with its alias rows, and, for
         edge tables above ``SEARCHSORTED_DENSE_MAX`` entries, the
         secondary-edge table's alias rows and each camera's floored
         primary-edge table (``sensor.floored_edge_distrb``); later scene
-        compiles reuse them all (JAX scene.py:795-852)."""
+        compiles reuse them all (JAX scene.py:795-852).
+        ``active_sensors``: the sensors that get primary-edge tables, in
+        this compile and in the renders' and training steps' until the
+        next ``configure()``; None: all. With ``opts.log_level > 0`` it
+        prints "Configured in X seconds.", the device synchronised."""
+        from ..utils.profiling import log_time
+
+        with log_time("Configured", self.opts.log_level > 0,
+                      device=self.device):
+            return self._configure(active_sensors)
+
+    def _configure(self, active_sensors) -> SceneData:
+        self._active_sensors = (None if active_sensors is None
+                                else [int(i) for i in active_sensors])
         self._tri_perm = self._compute_tri_perm()
         env = self.emitter_env
         if env is not None:
@@ -724,7 +767,7 @@ class Scene:
                                               cells)
         self._sec_edge_distrb_cache = None
         self._pe_distrb_caches = {}
-        self._data = self.configure_data()
+        self._data = self.configure_data(self._active_sensors)
         sed = self._data.sec_edge_distrb
         if sed is not None and sed.size > SEARCHSORTED_DENSE_MAX:
             self._sec_edge_distrb_cache = sed = sed.with_alias()
@@ -762,19 +805,90 @@ class Scene:
             return None
         return morton_order(self._world_tri_centroids())
 
+    def _cluster_quality(self, perm, cents) -> float:
+        """The summed surface area of the boxes of ``CLUSTER``-triangle
+        runs of ``cents`` (the world centroids) in the order ``perm``: what
+        the intersection kernels' cluster culling depends on (JAX
+        scene.py:895-918, at the port's cluster size)."""
+        c = cents[np.asarray(perm)]
+        n_pad = -(-c.shape[0] // intersect.CLUSTER) * intersect.CLUSTER
+        if n_pad != c.shape[0]:
+            c = np.concatenate([c, np.tile(c[-1:], (n_pad - c.shape[0], 1))])
+        c = c.reshape(-1, intersect.CLUSTER, 3)
+        ext = c.max(axis=1) - c.min(axis=1)
+        return float(2.0 * (ext[:, 0] * ext[:, 1] + ext[:, 1] * ext[:, 2]
+                            + ext[:, 0] * ext[:, 2]).sum())
+
+    def _staleness_and_fresh_perm(self):
+        """``(staleness, fresh permutation)`` in one pass; a permutation
+        that no longer addresses the faces (meshes replaced since
+        ``configure()``) is infinitely stale (JAX scene.py:929-949)."""
+        perm = self._tri_perm
+        if perm is None:
+            return 1.0, None
+        fresh = self._compute_tri_perm()
+        if fresh is None:
+            return float("inf"), None
+        cents = self._world_tri_centroids()
+        if np.asarray(perm).max(initial=-1) >= cents.shape[0]:
+            return float("inf"), fresh
+        q_fresh = self._cluster_quality(fresh, cents)
+        if q_fresh <= 0.0:
+            return 1.0, fresh
+        return self._cluster_quality(perm, cents) / q_fresh, fresh
+
+    def tri_perm_staleness(self) -> float:
+        """How far the Morton order of the last ``configure()`` has
+        degraded under the current transforms: the cluster quality of the
+        cached order over that of a fresh one (1: still the best)."""
+        return self._staleness_and_fresh_perm()[0]
+
+    def refresh_tri_perm(self, threshold: float = 1.25) -> bool:
+        """Replace the Morton order where :meth:`tri_perm_staleness`
+        exceeds ``threshold`` (or drop it where the scene fell below
+        ``MORTON_MIN_FACES`` faces); True where it changed. The renders
+        and training steps compile the scene at each call, so they take
+        the new order at once; the cached ``data`` is rebuilt."""
+        if self._tri_perm is None:
+            return False
+        ratio, fresh = self._staleness_and_fresh_perm()
+        if ratio == float("inf") and fresh is None:
+            self._tri_perm = None
+            self._data = None
+            return True
+        if ratio <= threshold or fresh is None:
+            return False
+        self._tri_perm = fresh
+        self._data = None
+        return True
+
     @property
     def data(self) -> SceneData:
         if self._data is None:
-            self.configure()
+            self.configure(self._active_sensors)
         return self._data
+
+    def is_ready(self) -> bool:
+        return self._data is not None
+
+    def _user_rays(self, ray_o, ray_d) -> Ray:
+        def f32(x):
+            return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+
+        return Ray(f32(ray_o), f32(ray_d))
 
     def unit_ray_intersect(self, ray_o, ray_d) -> Intersection:
         """Detached intersection of user rays (reference
         unit_ray_intersect, psdr.cpp:404)."""
-        def f32(x):
-            return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        return self.data.ray_intersect(self._user_rays(ray_o, ray_d))
 
-        return self.data.ray_intersect(Ray(f32(ray_o), f32(ray_d)))
+    def unit_ray_intersectAD(self, ray_o, ray_d) -> Intersection:
+        """The attached intersection of user rays (psdr.cpp:405): the
+        scene compiled again from its current parameters and the hit
+        rebuilt in the solid-angle form, so ``t``, ``p`` and the frame
+        carry the gradients of the geometry and of the rays."""
+        sd = self.configure_data(self._active_sensors)
+        return sd.ray_intersect(self._user_rays(ray_o, ray_d), mode="solid")
 
 
 def _make_bound_mesh(lower, upper) -> Mesh:

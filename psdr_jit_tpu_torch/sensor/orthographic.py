@@ -21,14 +21,6 @@ class OrthographicCamera(Sensor):
         self.to_world_right = torch.eye(4, dtype=torch.float32)
         self.id = ""
 
-    @property
-    def to_world(self):
-        return self.to_world_raw
-
-    @to_world.setter
-    def to_world(self, m):
-        self.to_world_raw = torch.as_tensor(m, dtype=torch.float32)
-
     def configure_data(self, width: int, height: int, mesh_list=(),
                        mesh_datas=(), with_edges: bool = False) -> SensorData:
         """Camera compile on the CPU (orthographic.cpp:10-150): parallel
@@ -72,5 +64,5 @@ class OrthographicCamera(Sensor):
             ortho=True,
         )
 
-    def __repr__(self) -> str:
+    def to_string(self) -> str:
         return "OrthographicCamera"

@@ -44,14 +44,6 @@ class PerspectiveCamera(Sensor):
         point ``cx``, ``cy``, in units of the film's width and height."""
         return PerspectiveCamera(fx, fy, cx, cy, near, far)
 
-    @property
-    def to_world(self):
-        return self.to_world_raw
-
-    @to_world.setter
-    def to_world(self, m):
-        self.to_world_raw = torch.as_tensor(m, dtype=torch.float32)
-
     def _camera_to_sample(self, aspect: float):
         """perspective.cpp:13-26."""
         if self.use_intrinsic:
@@ -98,5 +90,5 @@ class PerspectiveCamera(Sensor):
             height=height,
         )
 
-    def __repr__(self) -> str:
+    def to_string(self) -> str:
         return "PerspectiveCamera"

@@ -18,13 +18,15 @@ from ..core.types import Ray, EPSILON, EDGE_EPSILON
 from ..core.math import (detached, dot, normalize, safe_div, safe_sqrt,
                          squared_norm)
 from ..core.distribution import DiscreteDistribution
+from ..core.object import Object
 from ..core.records import SensorDirectSample
 from ..core import transform as xf
 from ..ops.gather import gather_rows
 
 
-class Sensor:
-    """User-facing camera base."""
+class Sensor(Object, xf.TransformStack):
+    """User-facing camera base: the pose is the stack
+    ``to_world_left @ to_world_raw @ to_world_right``."""
 
 
 @dataclasses.dataclass

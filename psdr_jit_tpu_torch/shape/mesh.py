@@ -26,6 +26,7 @@ from ..core import transform as xf
 from ..core import warp
 from ..core.math import bilinear, cross, norm, normalize, safe_div
 from ..core.distribution import DiscreteDistribution
+from ..core.object import Object
 from ..core.records import PositionSample
 from ..ops.gather import gather_rows
 
@@ -132,7 +133,7 @@ def process_mesh(vertex_positions, face_indices):
     return tri, vertex_normals
 
 
-class Mesh:
+class Mesh(Object, xf.TransformStack):
     """User-facing mesh: vertex positions, faces, edge topology and the
     transform stack."""
 
@@ -142,6 +143,8 @@ class Mesh:
         self.vertex_uv = None        # (T, 2) float32, or None
         self.face_uv_indices = None  # (F, 3) int32 rows of vertex_uv
         self._edge_rows = np.zeros((0, 5), np.int32)
+        # the reference's user-writable attribute; nothing reads it
+        self.valid_edge_indices = np.zeros((0, 2), np.int32)
         self.to_world_raw = torch.eye(4, dtype=torch.float32)
         self.to_world_left = torch.eye(4, dtype=torch.float32)
         self.to_world_right = torch.eye(4, dtype=torch.float32)
@@ -151,13 +154,43 @@ class Mesh:
         self.emitter_id = -1
         self.id = ""
 
-    @property
-    def to_world(self):
-        return self.to_world_raw
+    # -- the reference's attributes (psdr.cpp:320-338) ---------------------
+    def edge_indices(self) -> np.ndarray:
+        """``(E, 4)`` int32 rows ``(v0, v1, face0, face1)`` (face1 -1 on a
+        boundary): the reference's ``head<4>`` of its edge rows
+        (psdr.cpp:337)."""
+        return np.ascontiguousarray(self._edge_rows[:, :4])
 
-    @to_world.setter
-    def to_world(self, m):
-        self.to_world_raw = torch.as_tensor(m, dtype=torch.float32)
+    @property
+    def use_face_normal(self) -> bool:
+        return self.use_face_normals
+
+    @use_face_normal.setter
+    def use_face_normal(self, v):
+        self.use_face_normals = bool(v)
+
+    @property
+    def vertex_positions(self):
+        """The object-space positions, ``vertex_positions_raw``."""
+        return self.vertex_positions_raw
+
+    @vertex_positions.setter
+    def vertex_positions(self, v):
+        self.vertex_positions_raw = torch.as_tensor(v, dtype=torch.float32)
+
+    @property
+    def vertex_normals(self) -> torch.Tensor:
+        """Object-space area-weighted vertex normals (mesh.cpp:23-62)."""
+        return process_mesh(cpu_f32(self.vertex_positions_raw),
+                            self.face_indices)[1]
+
+    def sample_position(self, sample2, active=None) -> PositionSample:
+        """A world-space point uniform by area from the uniforms
+        ``sample2`` (..., 2) (the reference's Mesh.sample_position)."""
+        ps = sample_position(self.configure_data(), cpu_f32(sample2))
+        if active is not None:
+            ps.is_valid = ps.is_valid & torch.as_tensor(active).cpu()
+        return ps
 
     @property
     def num_vertices(self) -> int:
@@ -262,8 +295,11 @@ class Mesh:
             sec_edge=sec_edge,
         )
 
-    def __repr__(self) -> str:
-        return f"Mesh[nv={self.num_vertices}, nf={self.num_faces}]"
+    def to_string(self) -> str:
+        s = f"Mesh[nv={self.num_vertices}, nf={self.num_faces}"
+        if self.id:
+            s += f", id={self.id}"
+        return s + "]"
 
 
 def sample_position(mesh_data: MeshData, sample2) -> PositionSample:

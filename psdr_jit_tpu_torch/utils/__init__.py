@@ -1,1 +1,2 @@
-"""File input and output: OBJ meshes (``obj``) and images (``image``)."""
+"""File input and output: OBJ meshes (``obj``) and images (``image``);
+timing and ``torch.profiler`` traces (``profiling``)."""
