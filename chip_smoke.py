@@ -1550,31 +1550,10 @@ class KernelCalls:
             setattr(m, n, self.saved[k])
 
 
-def se_pass_ms(integrator, step, reps: int) -> float:
+def se_pass_ms(step, reps: int) -> float:
     """Median span of the step's secondary-edge pass on the card's stream
-    (CUDA events around ``render_secondary_edges``) over ``reps`` steps."""
-    import torch
-
-    spans = []
-    inner = integrator.render_secondary_edges
-
-    def timed(*args, **kwargs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = inner(*args, **kwargs)
-        end.record()
-        spans.append((start, end))
-        return out
-
-    integrator.render_secondary_edges = timed
-    try:
-        for _ in range(reps):
-            step()
-        torch.cuda.synchronize()
-    finally:
-        del integrator.render_secondary_edges
-    return statistics.median(a.elapsed_time(b) for a, b in spans)
+    (the program's span ``secondary_edge``) over ``reps`` steps."""
+    return step_split(step, reps)["secondary_edges"]
 
 
 def _synced_ms(fn):
@@ -2824,44 +2803,25 @@ def measured(fn, n_rays, dev) -> dict:
     return out
 
 
-def step_split(integrator, step, reps: int = 3) -> dict:
-    """Median spans (CUDA events on the card's stream) of the training
-    step's parts over ``reps`` steps: the scene compile, the interior
-    pass, the primary-edge pass and the secondary-edge pass."""
-    import torch
-    from psdr_jit_tpu_torch.integrator import fused
-    from psdr_jit_tpu_torch.scene.scene import Scene
+def step_split(step, reps: int = 3) -> dict:
+    """Median spans of the training step's parts over ``reps`` steps, from
+    the program's own recorder (CUDA events on the card's stream): the
+    scene compile, the interior pass, the primary-edge pass and the
+    secondary-edge pass."""
+    from psdr_jit_tpu_torch.utils import profiling
 
-    sites = {"compile": (Scene, "configure_data"),
-             "interior": (fused, "_interior_scan"),
-             "primary_edges": (type(integrator), "_render_primary_edges"),
-             "secondary_edges": (type(integrator),
-                                 "render_secondary_edges")}
-    spans = {k: [] for k in sites}
-    saved = {k: getattr(m, n) for k, (m, n) in sites.items()}
-
-    def timed(name, fn):
-        def wrapper(*args, **kwargs):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*args, **kwargs)
-            end.record()
-            spans[name].append((start, end))
-            return out
-        return wrapper
-
-    for k, (m, n) in sites.items():
-        setattr(m, n, timed(k, saved[k]))
-    try:
-        for _ in range(reps):
+    spans = {"compile": "compile", "interior": "interior",
+             "primary_edges": "primary_edge",
+             "secondary_edges": "secondary_edge"}
+    ms = {k: [] for k in spans}
+    for _ in range(reps):
+        with profiling.recorder() as rec:
             step()
-        torch.cuda.synchronize()
-    finally:
-        for k, (m, n) in sites.items():
-            setattr(m, n, saved[k])
-    return {k: statistics.median(a.elapsed_time(b) for a, b in v)
-            for k, v in spans.items()}
+            found = rec.totals()["spans"]
+        for k, name in spans.items():
+            if name in found:
+                ms[k].append(found[name]["device_ms"])
+    return {k: statistics.median(v) for k, v in ms.items() if v}
 
 
 def _compare_paths(phase, arrays, run, dev):
@@ -3089,7 +3049,7 @@ def envmap_phases(dev, kernels) -> dict:
     step_ms = wall_ms(step, 3)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     step_busy = device_busy_ms(step)
-    split = step_split(integ, step)
+    split = step_split(step)
     term_ms = {n: wall_ms(runs[n], 3) for n in tangents}
     rays = n_pix * (S * (1 + 2 * ENVMAP_DEPTH)
                     + S * 2 * (1 + 2 * ENVMAP_DEPTH) + S * 3)
@@ -3428,7 +3388,7 @@ def textured_phases(dev) -> dict:
     step_ms = wall_ms(step, 3)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     step_busy = device_busy_ms(step)
-    split = step_split(integ, step)
+    split = step_split(step)
     apply_params(truth)
     fwd_ms = wall_ms(forward, 3)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3806,7 +3766,7 @@ def room_phases(dev, kernels) -> dict:
              "step": measured(step, rays, dev),
              "renderD_forward": measured(forward, rays, dev),
              "renderD_reverse": measured(reverse, rays, dev)}
-    split = step_split(integ, step)
+    split = step_split(step)
     spans["timing"] = time.perf_counter() - t_timing
     log("room", size=f"{W}x{H}", spp=S, sppe=S, sppse=S, depth=d,
         triangles=sd.tri.p0.shape[0], frame_rays=frame_rays, rays=rays,
@@ -5378,7 +5338,7 @@ def main() -> int:
     step_ms = wall_ms(step, 3)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     step0_ms = wall_ms(step0, 3)
-    se_ms = se_pass_ms(integrator, step, 3)
+    se_ms = se_pass_ms(step, 3)
     # bench.py:46-49: spp (1 + 2d) + sppe 2 (1 + 2d) + sppse 3 rays a pixel
     rays = n_pix * (SPP * (1 + 2 * DEPTH) + SPPE * 2 * (1 + 2 * DEPTH)
                     + SPPSE * 3)

@@ -17,6 +17,11 @@ reverse mode bounds its memory.
 pixel-sharded render (``parallel/``): the interior term over the rank's
 pixels, each edge pass over its window of the global edge-sample lanes,
 the edge image summed across ranks.
+
+``renderC`` and ``renderD`` are the entry span ``render``
+(``utils.profiling``); its parts are the spans ``compile`` (renderD),
+``interior``, and ``primary_edge`` and ``secondary_edge`` (renderD's
+edge images, their splats included).
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from ..core.math import detached, safe_div, scrub_nonfinite
 from ..ops.image import interior_average, splat_add_derivative_only
 from ..scene.scene import tree_map
 from ..sensor.sensor import sample_primary_edge
+from ..utils import profiling
 from . import prb
 
 # Sampler stream salts of the three estimators (reference scene.cpp:52).
@@ -261,7 +267,8 @@ def chunked_splat_pullback(chunk_vals, n_samples: int, n_pix: int,
         values, idx = chunk_vals(lane)
         part = splat_add_derivative_only(values, idx, n_pix)
         if part.requires_grad:
-            part.backward(ct)
+            with profiling.span("pullback"):
+                part.backward(ct)
 
 
 def chunked_splat_image(chunk_vals, n_samples: int, n_pix: int,
@@ -366,11 +373,10 @@ class Integrator(Object):
         only those pixels, bitwise equal to the full frame's rows. With
         ``scene.opts.log_level > 0`` it prints "Rendered in X seconds.",
         the device synchronised."""
-        from ..utils.profiling import log_time
-
         seed, pix_id = self._norm_args(scene, seed, pix_id, batch_pix)
-        with log_time("Rendered", scene.opts.log_level > 0,
-                      device=scene.device):
+        with profiling.log_time("Rendered", scene.opts.log_level > 0,
+                                device=scene.device), \
+                profiling.span("render", entry=True):
             return self._render_interior(scene.data, scene.opts, sensor_id,
                                          seed, pix_id)
 
@@ -396,12 +402,12 @@ class Integrator(Object):
         ``torch.autograd.forward_ad.dual_level()``; the image's tangent
         (``unpack_dual(img).tangent``) is the gradient image. It logs as
         ``renderC`` does."""
-        from ..utils.profiling import log_time
-
         seed, pix_id = self._norm_args(scene, seed, pix_id, batch_pix)
-        with log_time("Rendered", scene.opts.log_level > 0,
-                      device=scene.device):
-            sd = scene.configure_data(scene._active_sensors)
+        with profiling.log_time("Rendered", scene.opts.log_level > 0,
+                                device=scene.device), \
+                profiling.span("render", entry=True):
+            with profiling.span("compile"):
+                sd = scene.configure_data(scene._active_sensors)
             opts = scene.opts
             img = self._render_interior(sd, opts, sensor_id, seed, pix_id,
                                         diff=True)
@@ -423,18 +429,22 @@ class Integrator(Object):
         n_pix = opts.num_pixels
         edges = []
         if opts.sppe > 0 and sd.sensors[sensor_id].edge_info is not None:
-            edges.append((self._primary_edge_vals(sd, opts, sensor_id, seed),
+            edges.append(("primary_edge",
+                          self._primary_edge_vals(sd, opts, sensor_id, seed),
                           n_pix * opts.sppe, TRAIN_CHUNK_LANES))
         if opts.sppse > 0 and sd.sec_edge is not None:
             vals = self.secondary_edge_vals(sd, opts, sensor_id, seed)
             if vals is not None:
-                edges.append((vals, n_pix * opts.sppse, SE_CHUNK_LANES))
+                edges.append(("secondary_edge", vals, n_pix * opts.sppse,
+                              SE_CHUNK_LANES))
         img = None
-        for vals, n_samples, chunk_lanes in edges:
+        for name, vals, n_samples, chunk_lanes in edges:
             window = (None if shard is None
                       else shard_lane_window(n_samples, shard[1], shard[0]))
-            part = chunked_splat_image(vals, n_samples, n_pix, chunk_lanes,
-                                       sd.tri.p0.device, graph, window)
+            with profiling.span(name):
+                part = chunked_splat_image(vals, n_samples, n_pix,
+                                           chunk_lanes, sd.tri.p0.device,
+                                           graph, window)
             img = part if img is None else img + part
         return img
 
@@ -490,6 +500,7 @@ class Integrator(Object):
         return _fused(self, scene, params, apply_params, pixel_loss,
                       sensor_id, seed, **kwargs)
 
+    @profiling.spanned("interior")
     def _render_interior(self, sd, opts, sensor_id, seed, pix_id,
                          diff: bool = False):
         """The interior term over ``pix_id`` (all pixels when None):
@@ -497,7 +508,8 @@ class Integrator(Object):
         or (``diff``) attached in ``DIFF_CHUNK_LANES``-lane chunks, each
         checkpointed where the render records a graph, replayed under
         ``REMAT_MODE`` "prb" where the integrator supports it, or left to
-        the Li's own bounce checkpoints under "bounce"."""
+        the Li's own bounce checkpoints under "bounce". It is the span
+        ``interior`` (``utils.profiling``)."""
         dev = sd.tri.p0.device
         pix = (torch.arange(opts.num_pixels, dtype=torch.int64, device=dev)
                if pix_id is None else _pixels(pix_id, dev))

@@ -18,6 +18,11 @@ cotangent of a chunk comes from that chunk's own rows. The step:
 4. pushes the leaves' gradients back through the scene compile once, to
    the parameters.
 
+The step is the entry span ``step`` (``utils.profiling``); its parts are
+the spans ``compile`` (1), ``interior`` (2, with ``interior.pullback``),
+``primary_edge`` and ``secondary_edge`` (3, each with its ``pullback``)
+and ``compile.pullback`` (4).
+
 Steps 1 and 4 are the JAX package's ``vjp(to_sd)`` / ``pull_cfg(sd_bar)``
 (fused.py:288-305).
 
@@ -37,6 +42,7 @@ from . import base as _base
 from .base import (interior_chunk, pad_pixel_chunks, pixel_block,
                    shard_lane_window, sum_each_across_ranks)
 from ..scene.scene import tree_map
+from ..utils import profiling
 
 
 def _leaves(sd):
@@ -56,6 +62,7 @@ def _leaves(sd):
     return sd_leaf, originals, [leaves[id(t)] for t in originals]
 
 
+@profiling.spanned("interior")
 def _interior_scan(integrator, sd, opts, sensor_id: int, seed: int,
                    pixel_loss, pix):
     """Forward and adjoint of the interior term over the pixels ``pix``:
@@ -79,7 +86,8 @@ def _interior_scan(integrator, sd, opts, sensor_id: int, seed: int,
         loss_c = torch.where(valid, pixel_loss(rows, pix_chunk), 0.0).sum()
         (g,) = torch.autograd.grad(loss_c, rows)
         if out.requires_grad:
-            out.backward(g)
+            with profiling.span("pullback"):
+                out.backward(g)
         loss = loss + loss_c.detach()
         images.append(out.detach())
         gs.append(g)
@@ -100,11 +108,14 @@ def _edge_pullbacks(integrator, sd, opts, sensor_id: int, seed: int, g_img,
                 else shard_lane_window(n_samples, shard[1], shard[0]))
 
     if opts.sppe > 0 and sd.sensors[sensor_id].edge_info is not None:
-        integrator._render_primary_edges(sd, opts, sensor_id, seed, g_img,
-                                         window(n_pix * opts.sppe))
+        with profiling.span("primary_edge"):
+            integrator._render_primary_edges(sd, opts, sensor_id, seed,
+                                             g_img, window(n_pix * opts.sppe))
     if opts.sppse > 0 and sd.sec_edge is not None:
-        integrator.render_secondary_edges(sd, opts, sensor_id, seed, g_img,
-                                          window(n_pix * opts.sppse))
+        with profiling.span("secondary_edge"):
+            integrator.render_secondary_edges(sd, opts, sensor_id, seed,
+                                              g_img,
+                                              window(n_pix * opts.sppse))
 
 
 def fused_loss_grad(integrator, sd, opts, sensor_id: int, seed: int,
@@ -153,6 +164,7 @@ def fused_loss_grad_sharded(integrator, sd, opts, sensor_id: int, seed: int,
 _WARP_AUTO = object()  # "warp not passed": the integrator's own table
 
 
+@profiling.spanned("step", entry=True)
 def loss_and_grad(integrator, scene, params, apply_params, pixel_loss,
                   sensor_id: int = 0, seed: int = -1, warp=_WARP_AUTO,
                   mesh=None):
@@ -187,7 +199,8 @@ def loss_and_grad(integrator, scene, params, apply_params, pixel_loss,
     if has_warpper:
         integrator.warpper = {**prev, sensor_id: warp}
     try:
-        sd = scene.configure_data(scene._active_sensors)
+        with profiling.span("compile"):
+            sd = scene.configure_data(scene._active_sensors)
         sd_leaf, originals, leaves = _leaves(sd)
         if mesh is None:
             loss, image = fused_loss_grad(integrator, sd_leaf, scene.opts,
@@ -206,8 +219,9 @@ def loss_and_grad(integrator, scene, params, apply_params, pixel_loss,
         pairs = [(o, l.grad) for o, l in zip(originals, leaves)
                  if l.grad is not None]
         if pairs:
-            torch.autograd.backward([o for o, _ in pairs],
-                                    [g for _, g in pairs])
+            with profiling.span("compile.pullback"):
+                torch.autograd.backward([o for o, _ in pairs],
+                                        [g for _, g in pairs])
     finally:
         if has_warpper:
             integrator.warpper = prev

@@ -67,6 +67,7 @@ from ..emitter.envmap import (EnvironmentMap, EnvironmentMapData,
 from ..core.bitmap import Bitmap
 from ..ops import intersect
 from ..ops.gather import gather_rows
+from ..utils import profiling
 
 # Scenes above this many faces get the Morton triangle order (the JAX
 # package's threshold, scene.py _compute_tri_perm).
@@ -154,6 +155,7 @@ class SceneData:
     # mesh's is ""): the field integrator's per-object filter
     mesh_ids: tuple = ()
 
+    @profiling.spanned("hits")
     def ray_intersect(self, ray: Ray, active=None, mode: str = "path",
                       tape=None) -> Intersection:
         """Closest hit (scene.cpp:736-806). The kernel's payload is
@@ -184,7 +186,11 @@ class SceneData:
         kernel's detached payload ``(tri_id, valid, uv)`` is appended to
         it; replaying, the next payload is taken from it and no kernel is
         launched, so a chunk rebuilt in the backward sweep traces no ray
-        again."""
+        again.
+
+        The whole hit, kernel and rebuild, is the span ``hits``
+        (``utils.profiling``), which counts the ``rays`` it takes and the
+        ``active`` ones among them."""
         from ..integrator.prb import current_tape
 
         tri = self.tri
@@ -200,6 +206,10 @@ class SceneData:
                 tri.p0, tri.e1, tri.e2, ray, active, tree)
             if tape is not None:
                 tape.append((tri_id, valid, uv))
+        if profiling.counting():
+            n = tri_id.numel()
+            profiling.count("rays", n)
+            profiling.count("active", n if active is None else active.sum())
         idx = torch.clamp(tri_id, min=0).long()  # cast once for the rows
 
         def rows(x):

@@ -152,7 +152,7 @@ def train(dev) -> int:
     sweep(base, "SE_CHUNK_LANES", (1 << 21, 1 << 22, 1 << 23),
           "secondary-edge")
 
-    span = se_pass_ms(integ, step, 3)
+    span = se_pass_ms(step, 3)
     with KernelCalls({"K1": (ix, "sweep_cuda")}) as rec:
         step()
         torch.cuda.synchronize()
@@ -389,7 +389,7 @@ def texture(dev) -> int:
         print(f"textured {name}: host ms median {med:.3f} min {lo:.3f} max "
               f"{hi:.3f}; device busy {busy:.3f} ms, idle share "
               f"{1 - busy / med:.3f}")
-    split = step_split(integ, step)
+    split = step_split(step)
     print("textured step split (ms): " + ", ".join(
         f"{k} {v:.2f}" for k, v in split.items()))
     # the texture lookups' own device time, under a profiler range
