@@ -11,7 +11,8 @@ its single, pair and stash modes, also at the 172 triangles of a small
 gallery and on exact ties through both of its sweeps; K3, the attached
 shade; K4, its adjoint; K5, the same walk at 513 to 4,096 triangles, also
 at the top of its range and on exact ties; K6, the same walk on a tree
-split at the middle), checks a
+split at the middle; K7, the hit rebuilt from K1's payload in path and
+solid mode, bit for bit, with its tangent and adjoint), checks a
 32x32 render against ``tests/golden_cbox32.npy``, then drives the main
 paths at full size as a user would, each with the launch counts set to 0
 just before it and read just after:
@@ -1344,7 +1345,9 @@ def swapped_children(tree):
 class PlainCalls:
     """Counts calls of the plain versions while active (by wrapping the
     module globals their dispatchers call), so a run can show that it
-    reached none of them."""
+    reached none of them; and, as ``hits``, the closest hits rebuilt on the
+    card (``SceneData.ray_intersect`` calls), each of which K7 must
+    rebuild once (:func:`rebuilds`)."""
 
     def __init__(self):
         from psdr_jit_tpu_torch.ops import intersect as ix
@@ -1352,16 +1355,28 @@ class PlainCalls:
         from psdr_jit_tpu_torch.ops import shade_mega as sm
 
         from psdr_jit_tpu_torch.ops import bvh
+        from psdr_jit_tpu_torch.scene.scene import SceneData
 
         self.sites = [(ix, "ray_intersect_brute"), (mk, "_li_plain"),
                       (sm, "li_attached_plain"),
-                      (bvh, "ray_intersect_bvh_plain")]
+                      (bvh, "ray_intersect_bvh_plain"),
+                      (SceneData, "_rebuild_plain")]
+        self.scene_data = SceneData
         self.count = 0
+        self.hits = 0
 
     def __enter__(self):
         self.saved = [getattr(m, n) for m, n in self.sites]
         for (m, n), fn in zip(self.sites, self.saved):
             setattr(m, n, self._counted(fn))
+        hit = self.hit = self.scene_data.ray_intersect
+
+        def counted_hit(*args, **kwargs):
+            its = hit(*args, **kwargs)
+            self.hits += int(its.tri_id.is_cuda)
+            return its
+
+        self.scene_data.ray_intersect = counted_hit
         return self
 
     def _counted(self, fn):
@@ -1373,6 +1388,7 @@ class PlainCalls:
     def __exit__(self, *exc):
         for (m, n), fn in zip(self.sites, self.saved):
             setattr(m, n, fn)
+        self.scene_data.ray_intersect = self.hit
 
 
 def train_kernel_phases(sd, sd_edges, tables, dev, gen, kernels):
@@ -1773,6 +1789,285 @@ def mixed_rays(sd, n: int, gen, device):
     return o, d, active
 
 
+# [K7]: the lanes of each timed set (the secondary-edge pass's and the
+# general Li's sets are 2^22 lanes a chunk) and the rows of its checks
+K7_LANES = 1 << 22
+K7_TABLE = ("p0", "e1", "e2", "n0", "n1", "n2", "face_normal", "face_area")
+K7_KEYS = ("K7", "K7-jvp", "K7-vjp")
+# K7's launches summed over the main paths that :func:`rebuilds` checked
+K7_MAIN_PATHS = dict.fromkeys(K7_KEYS, 0)
+
+
+def rebuilds(what: str, launches: dict, hits, jvp=None, vjp=None) -> dict:
+    """Check and log K7's launches in the launches of main path ``what``:
+    one K7 for each ``SceneData.ray_intersect`` on the card (``hits``,
+    :class:`PlainCalls`; None where the calls ran in other processes), and
+    ``jvp`` K7-jvp and ``vjp`` K7-vjp where the path fixes them. Adds them
+    to :data:`K7_MAIN_PATHS` and returns the other kernels' launches."""
+    k7 = {k: launches.get(k, 0) for k in K7_KEYS}
+    log("rebuilds", path=what, hits="-" if hits is None else hits,
+        **{f"{k.replace('-', '_')}_LAUNCHES": v for k, v in k7.items()},
+        jvp_expected="-" if jvp is None else jvp,
+        vjp_expected="-" if vjp is None else vjp)
+    require(hits is None or k7["K7"] == hits,
+            f"{what}: K7 launches != the hits rebuilt")
+    require(jvp is None or k7["K7-jvp"] == jvp,
+            f"{what}: K7-jvp launches != the tangent hit sets")
+    require(vjp is None or k7["K7-vjp"] == vjp,
+            f"{what}: K7-vjp launches != the attached hit sets")
+    for k, v in k7.items():
+        K7_MAIN_PATHS[k] += v
+    return {k: v for k, v in launches.items() if k not in K7_KEYS}
+
+
+def table_scene(sd, table, uvt=None):
+    """``sd`` with its triangle tables the column views of K7's (R, 22)
+    float ``table`` (``ops/hit_rebuild.py face_table``) and, where given,
+    its corner UVs the (R, 6) ``uvt``, so that the plain rebuild's
+    derivatives flow to them."""
+    import dataclasses
+
+    cols = {k: table[:, 3 * j:3 * j + 3] for j, k in enumerate(K7_TABLE[:7])}
+    tri = dataclasses.replace(sd.tri, **cols, face_area=table[:, 21])
+    if uvt is None:
+        return dataclasses.replace(sd, tri=tri)
+    return dataclasses.replace(sd, tri=tri,
+                               tri_uv=uvt.reshape(sd.tri_uv.shape))
+
+
+def k7_fields(its, solid: bool, has_uv: bool):
+    """The 12 fields of ``ops.hit_rebuild.FIELDS`` of an Intersection in
+    K7's layout: lanes flattened, ``bc`` empty in path mode, the texture
+    fields empty without UVs."""
+    t = its.t.reshape(-1)
+    n = t.shape[0]
+    out = [t, its.p, its.n, its.sh_frame.s, its.sh_frame.t, its.sh_frame.n,
+           its.wi, its.J, its.bc, its.uv, its.dp_du, its.dp_dv]
+    keep = [True] * 8 + [solid] + [has_uv] * 3
+    return tuple(x.reshape(n, -1).squeeze(-1) if k else
+                 x.reshape(n, -1)[:0] for x, k in zip(out, keep))
+
+
+def k7_case(sd, n: int, gen, device):
+    """``(ray, active, payload)`` of ``n`` of :func:`mixed_rays` (every
+    seventh lane inactive, so dead lanes) on ``sd``: the closest-hit
+    payload ``(tri_id, valid, uv)`` the rebuild starts from."""
+    from psdr_jit_tpu_torch.core.types import Ray
+    from psdr_jit_tpu_torch.ops import intersect as ix
+
+    o, d, active = mixed_rays(sd, n, gen, device)
+    ray = Ray(o, d)
+    tri = sd.tri
+    tree = sd.bvh if ix.needs_tree(tri.p0.shape[0], device) else None
+    tri_id, valid, uv, _ = ix.ray_intersect_detached(tri.p0, tri.e1, tri.e2,
+                                                     ray, active, tree)
+    return ray, active, (tri_id, valid, uv)
+
+
+def k7_plain_vjp(sd, table, ray, payload, solid: bool, cts, uv_diff=False,
+                 dtype=None):
+    """Autograd of the plain rebuild for the cotangents ``cts`` of its 12
+    fields: ``(d_table (R, 22), d_o, d_d, d_uvt)``, K7-vjp's outputs
+    (``d_uvt``, the corner UVs', with ``uv_diff``); in ``dtype`` (float64:
+    the exact adjoint to which K7-vjp's and autograd's reordered float32
+    row sums are both held)."""
+    import torch
+    from psdr_jit_tpu_torch.core.types import Ray
+
+    dtype = dtype or table.dtype
+    uvt = sd.hit_rows[1]
+    leaves = [x.detach().to(dtype).clone().requires_grad_(k < 3 or uv_diff)
+              for k, x in enumerate((table, ray.o, ray.d, uvt))]
+    its = table_scene(sd, leaves[0], leaves[3] if uv_diff else None
+                      )._rebuild_plain(Ray(leaves[1], leaves[2]), *payload,
+                                       "solid" if solid else "path")
+    outs, gs = [], []
+    for x, g in zip(k7_fields(its, solid, sd.has_uv), cts):
+        if x.requires_grad and g.numel():
+            outs.append(x)
+            gs.append(g.to(dtype))
+    wrt = leaves[:4 if uv_diff else 3]
+    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(
+        wrt, torch.autograd.grad(outs, wrt, gs, allow_unused=True))]
+    return (grads[0], grads[1], grads[2] if solid else grads[2][:0],
+            grads[3] if uv_diff else leaves[3].detach()[:0])
+
+
+def k7_adjoint_errors(got, sd, table, ray, payload, solid: bool, cts,
+                      uv_diff=False) -> dict:
+    """K7-vjp's outputs ``got`` against autograd of the plain rebuild:
+    ``rays``, the worst rel L1 of the rays' cotangents from autograd's in
+    float32 (one per lane, no sums); ``table`` and ``autograd``, the worst
+    rel L1 of K7's and of autograd's table cotangents (and the corner UVs'
+    with ``uv_diff``) from the float64 adjoint, since the float32 row sums
+    of both are reordered; ``sum_floor``, the rounding of a float32 sum of
+    the lanes a row takes on average (2^-23 sqrt(lanes / rows))."""
+    import torch
+
+    exact = k7_plain_vjp(sd, table, ray, payload, solid, cts, uv_diff,
+                         torch.float64)
+    plain = k7_plain_vjp(sd, table, ray, payload, solid, cts, uv_diff)
+    rows = [0, 3] if uv_diff else [0]
+    return {"rays": max(rel_l1(got[k], plain[k]) for k in (1, 2)
+                        if plain[k].numel()),
+            "table": max(rel_l1(got[k].double(), exact[k]) for k in rows),
+            "autograd": max(rel_l1(plain[k].double(), exact[k])
+                            for k in rows),
+            "sum_floor": 2.0 ** -23 * (ray.o.shape[0]
+                                       / table.shape[0]) ** 0.5}
+
+
+def k7_adjoint_ok(err: dict) -> bool:
+    """:func:`k7_adjoint_errors` within K7-vjp's limits: the rays'
+    cotangents 1e-5 from autograd's; the tables' no further from the
+    float64 adjoint than twice autograd's or, where both lie at the
+    rounding of their float32 sums, than ``sum_floor``."""
+    return err["rays"] < 1e-5 and err["table"] <= max(2 * err["autograd"],
+                                                      err["sum_floor"])
+
+
+def k7_plain_jvp(sd, table, table_t, ray, ray_t, payload, solid: bool,
+                 uvt_t=None):
+    """Forward-mode AD of the plain rebuild along ``table_t``, the rays'
+    tangents ``ray_t`` (o_t, d_t) and, where given, the corner UVs'
+    ``uvt_t`` (R, 6): the tangents of its 12 fields, empty where a field
+    has none (K7-jvp's layout)."""
+    import torch.autograd.forward_ad as fwAD
+    from psdr_jit_tpu_torch.core.types import Ray
+
+    with fwAD.dual_level():
+        uvt = (None if uvt_t is None else
+               fwAD.make_dual(sd.hit_rows[1], uvt_t))
+        its = table_scene(sd, fwAD.make_dual(table, table_t), uvt
+                          )._rebuild_plain(
+            Ray(fwAD.make_dual(ray.o, ray_t[0]),
+                fwAD.make_dual(ray.d, ray_t[1])),
+            *payload, "solid" if solid else "path")
+        out = []
+        for x in k7_fields(its, solid, sd.has_uv):
+            t = fwAD.unpack_dual(x).tangent
+            out.append(x.detach()[:0] if t is None else t.clone())
+    return tuple(out)
+
+
+def k7_args(sd, ray, payload, solid: bool):
+    """K7's inputs (``ops/hit_rebuild.py rebuild_cuda``) for ``ray`` and its
+    ``payload`` on ``sd``: the tables, the flat payload and rays."""
+    from psdr_jit_tpu_torch.ops import hit_rebuild
+
+    ints, uvt = sd.hit_rows
+    tri_id, _, uv = payload
+    table = hit_rebuild.face_table(sd.tri).detach().contiguous()
+    d = ray.d if solid else ray.o[:0]
+    return (table, ints, uvt, tri_id.reshape(-1).contiguous(),
+            uv.reshape(-1, 2).contiguous(), ray.o.contiguous(),
+            d.contiguous(), solid, sd.has_uv, sd.has_pv)
+
+
+def k7_jvp_args(args, table_t, ray_t, uvt_t=None):
+    """K7-jvp's inputs (``rebuild_tangent_cuda``) from K7's (:func:`k7_args`)
+    and the tangents of the face table, the rays (o_t, d_t; d_t read in
+    solid mode) and, where given, the corner UVs."""
+    table, ints, uvt, tri_id, uv, o, d, solid, has_uv, _ = args
+    return (table, table_t, ints, uvt, uvt_t, tri_id, uv, o, ray_t[0], d,
+            ray_t[1] if solid else None, solid, has_uv, uvt_t is not None)
+
+
+def nbytes(*tensors) -> int:
+    """The bytes of ``tensors`` (None and nested tuples and lists
+    allowed)."""
+    total = 0
+    for x in tensors:
+        if isinstance(x, (tuple, list)):
+            total += nbytes(*x)
+        elif x is not None:
+            total += x.numel() * x.element_size()
+    return total
+
+
+def k7_phase(dev) -> dict:
+    """[K7]: the hit rebuilt from K1's payload on the box's 2^22
+    :func:`mixed_rays` (every seventh lane dead) in path and solid mode,
+    K7 against the plain rebuild bitwise; K7-jvp against forward-mode AD
+    of the plain rebuild (rel L1) and K7-vjp against autograd of it
+    (:func:`k7_adjoint_ok`), tangents and cotangents dense; each timed on
+    the card beside its plain version, with its bytes bound: the bytes of
+    every tensor it reads (payload, rays, tables, tangents or cotangents)
+    and writes."""
+    import numpy as np
+    import torch
+    import psdr_jit_tpu_torch as pt
+    from psdr_jit_tpu_torch.ops import hit_rebuild
+
+    sc = pt.Scene.from_arrays(np.load(SCENE_NPZ), device=dev)
+    sd = sc.configure()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    ray, _, payload = k7_case(sd, K7_LANES, gen, dev)
+    n = K7_LANES
+    out = {"lanes": n}
+    for solid in (False, True):
+        mode = "solid" if solid else "path"
+        args = k7_args(sd, ray, payload, solid)
+        table = args[0]
+        got = hit_rebuild.rebuild_cuda(*args)
+        with torch.no_grad():
+            want = k7_fields(sd._rebuild_plain(ray, *payload, mode), solid,
+                             False)
+        bitwise = all(torch.equal(a, b) for a, b in zip(got[:12], want))
+        require(bitwise, f"K7 {mode}: not the plain rebuild bit for bit")
+        table_t = torch.randn(table.shape, generator=gen, device=dev)
+        ray_t = (torch.randn(ray.o.shape, generator=gen, device=dev),
+                 torch.randn(ray.d.shape, generator=gen, device=dev))
+        jvp_args = k7_jvp_args(args, table_t, ray_t)
+        tan = hit_rebuild.rebuild_tangent_cuda(*jvp_args)
+        tan_p = k7_plain_jvp(sd, table, table_t, ray, ray_t, payload, solid)
+        jvp_err = max(rel_l1(a, b) for a, b in zip(tan, tan_p) if b.numel())
+        cts = [torch.randn(x.shape, generator=gen, device=dev)
+               for x in got[:12]]
+        vjp = hit_rebuild.rebuild_adjoint_cuda(*args[:9], cts)
+        err = k7_adjoint_errors(vjp, sd, table, ray, payload, solid, cts)
+        require(jvp_err < 1e-5 and k7_adjoint_ok(err),
+                f"K7 {mode}: tangent {jvp_err:.3g}, adjoint rays "
+                f"{err['rays']:.3g}, table {err['table']:.3g} (autograd's "
+                f"{err['autograd']:.3g})")
+        reads = args[:7]
+        moved = {"fwd": nbytes(reads, got),
+                 "jvp": nbytes(reads, jvp_args[1], jvp_args[8],
+                               jvp_args[10], tan),
+                 "vjp": nbytes(reads, cts, vjp)}
+
+        def plain_fwd():
+            with torch.no_grad():
+                sd._rebuild_plain(ray, *payload, mode)
+
+        times = {
+            "fwd": (cuda_ms(lambda: hit_rebuild.rebuild_cuda(*args), 20),
+                    cuda_ms(plain_fwd, 5)),
+            "jvp": (cuda_ms(lambda: hit_rebuild.rebuild_tangent_cuda(
+                *jvp_args), 20), cuda_ms(lambda: k7_plain_jvp(
+                    sd, table, table_t, ray, ray_t, payload, solid), 5)),
+            "vjp": (cuda_ms(lambda: hit_rebuild.rebuild_adjoint_cuda(
+                *args[:9], cts), 20), cuda_ms(lambda: k7_plain_vjp(
+                    sd, table, ray, payload, solid, cts), 5)),
+        }
+        for k, (card, plain) in times.items():
+            bound_ms, _ = bound(moved[k], 0.0)
+            out[f"{mode}_{k}"] = {"card_ms": round(card, 4),
+                                  "plain_ms": round(plain, 4),
+                                  "bound_ms": round(bound_ms, 4),
+                                  "bytes_per_lane": round(moved[k] / n, 2)}
+        log("K7", mode=mode, lanes=n, bitwise=bitwise,
+            jvp_rel_l1=f"{jvp_err:.3g}",
+            vjp_rays_rel_l1=f"{err['rays']:.3g}",
+            vjp_table_rel_l1=f"{err['table']:.3g}",
+            autograd_table_rel_l1=f"{err['autograd']:.3g}",
+            sum_floor=f"{err['sum_floor']:.3g}",
+            **{f"{k}_bytes_per_lane": f"{moved[k] / n:.2f}" for k in moved},
+            **{f"{k}_ms": f"{c:.4f}/{p:.4f}(bound {bound(moved[k], 0)[0]:.4f})"
+               for k, (c, p) in times.items()})
+    return out
+
+
 def hit_agreement(k, p) -> dict:
     """A kernel's hits ``k = (t, id, uv)`` against its plain version's
     ``p``: bitwise equality, the id match, and whether every mismatch is an
@@ -2045,7 +2340,8 @@ def large_scene_phases(kernels, dev, gen) -> dict:
         its = big.unit_ray_intersect(picks.o, picks.d)
         img = integ.renderC(big, 0, seed=SEED)
         torch.cuda.synchronize()
-        launches = dict(_cuda.LAUNCHES)
+        launches = rebuilds("main-path-large", _cuda.LAUNCHES, plain.hits,
+                            0, 0)
     log("main-path-large", **{f"{k}_LAUNCHES": v for k, v in
                               launches.items()}, chunks=chunks,
         picks_hit=f"{its.valid.float().mean().item():.4f}",
@@ -2112,7 +2408,7 @@ def large_scene_phases(kernels, dev, gen) -> dict:
         _cuda.reset_launches()
         img5 = integ.renderC(mid, 0, seed=SEED)
         torch.cuda.synchronize()
-        launches5 = dict(_cuda.LAUNCHES)
+        launches5 = rebuilds("K5-frame", _cuda.LAUNCHES, plain.hits, 0, 0)
     with PlainRoute():
         img5_plain = integ.renderC(mid, 0, seed=SEED)
     k5_calls = rec_calls.calls["K5"]
@@ -2298,7 +2594,7 @@ def k1_frame_phase(dev) -> int:
         _cuda.reset_launches()
         img = integ.renderC(sc, 0, seed=SEED)
         torch.cuda.synchronize()
-        launches = dict(_cuda.LAUNCHES)
+        launches = rebuilds("K1-frame", _cuda.LAUNCHES, plain.hits, 0, 0)
     with PlainRoute():
         img_plain = integ.renderC(sc, 0, seed=SEED)
     calls = rec_calls.calls["K1"]
@@ -2557,7 +2853,12 @@ def renderd_phase(arrays, dev, frame) -> dict:
         _cuda.reset_launches()
         primal, t_tx = renderd_tangent(integ, sc, setup, "tx", 1.0)
         torch.cuda.synchronize()
-        launches = dict(_cuda.LAUNCHES)
+        # every hit set has a tangent but the secondary-edge pass's two
+        # detached ones
+        launches = rebuilds("main-path-renderD", _cuda.LAUNCHES, plain.hits,
+                            n_int * (1 + 2 * DEPTH) + n_se, 0)
+    require(plain.hits == k1_want, "renderD: hit sets rebuilt != 7 an "
+            "interior chunk + 3 a secondary-edge chunk")
     log("main-path-renderD", **{f"{k}_LAUNCHES": v for k, v in
                                 launches.items()},
         K1_expected=k1_want, K2_pair_expected=n_pe, interior_chunks=n_int,
@@ -2672,7 +2973,8 @@ def renderd_k5_phase(dev) -> dict:
         _cuda.reset_launches()
         primal, tangent = run()
         torch.cuda.synchronize()
-        launches = dict(_cuda.LAUNCHES)
+        launches = rebuilds("renderD-K5", _cuda.LAUNCHES, plain.hits,
+                            vjp=0)
     _, run_cpu = sphere_tangent(torch.device("cpu"), 64, 4)
     p_cpu, t_cpu = run_cpu()
     n_lanes = 64 * 64 * 4
@@ -3007,9 +3309,11 @@ def envmap_phases(dev, kernels) -> dict:
     with PlainCalls() as plain:
         for name, fn in runs.items():
             _cuda.reset_launches()
+            plain.hits = 0
             outs[name] = fn()
             torch.cuda.synchronize()
-            got[name] = dict(_cuda.LAUNCHES)
+            got[name] = rebuilds(f"main-path-envmap-{name}", _cuda.LAUNCHES,
+                                 plain.hits)
         plain_count = plain.count
     k6 = {n: g["K6"] for n, g in got.items()}
     log("main-path-envmap", triangles=f, K6_LAUNCHES=sum(k6.values()),
@@ -3141,7 +3445,9 @@ def func_jvp_phase(arrays, dev):
     p_j, t_j = func_jvp(integ, sc, lambda v: apply_params(
         {**params, "tx": v}), params["tx"], 1.0)
     torch.cuda.synchronize()
-    launches = dict(_cuda.LAUNCHES)
+    require(_cuda.LAUNCHES["K7-jvp"] > 0,
+            "func-jvp: the hits' tangents did not come from K7-jvp")
+    launches = rebuilds("func-jvp", _cuda.LAUNCHES, None, vjp=0)
     rels = {"primal": rel_l1(p_j, p_f), "tangent": rel_l1(t_j, t_f)}
     log("func-jvp", size="64x64", spp=8, sppe=8, sppse=8, depth=DEPTH,
         K1_LAUNCHES=launches["K1"], K2_pair_LAUNCHES=launches["K2-pair"],
@@ -3331,9 +3637,11 @@ def textured_phases(dev) -> dict:
     with PlainCalls() as plain:
         for name, fn in runs.items():
             _cuda.reset_launches()
+            plain.hits = 0
             outs[name] = fn()
             torch.cuda.synchronize()
-            got[name] = dict(_cuda.LAUNCHES)
+            got[name] = rebuilds(f"main-path-texture-{name}", _cuda.LAUNCHES,
+                                 plain.hits)
             if name == "targets":
                 state["targets"] = outs[name]
         plain_count = plain.count
@@ -3480,7 +3788,8 @@ def gallery_step_phases(dev) -> dict:
         _cuda.reset_launches()
         loss, grads, img = step()
         torch.cuda.synchronize()
-        got = dict(_cuda.LAUNCHES)
+        got = rebuilds("main-path-gallery-step", _cuda.LAUNCHES, plain.hits,
+                       0)
         plain_count = plain.count
     want = general_launches(W * H, S, S, S, GALLERY_STEP_DEPTH,
                             base.TRAIN_CHUNK_LANES)
@@ -3715,9 +4024,11 @@ def room_phases(dev, kernels) -> dict:
     with PlainCalls() as plain:
         for name, fn in runs.items():
             _cuda.reset_launches()
+            plain.hits = 0
             outs[name] = fn()
             torch.cuda.synchronize()
-            got[name] = dict(_cuda.LAUNCHES)
+            got[name] = rebuilds(f"main-path-room-{name}", _cuda.LAUNCHES,
+                                 plain.hits)
             if name == "target":
                 state["target"] = outs[name]
         plain_count = plain.count
@@ -4033,9 +4344,12 @@ def _loaded_runs(phase, scenes, runs_of, expected):
         for side, scene in scenes.items():
             for name, fn in runs_of(scene).items():
                 _cuda.reset_launches()
+                plain.hits = 0
                 outs[side, name] = fn()
                 torch.cuda.synchronize()
-                got[side, name] = dict(_cuda.LAUNCHES)
+                got[side, name] = rebuilds(
+                    f"main-path-{phase}-{side}-{name}", _cuda.LAUNCHES,
+                    plain.hits)
         plain_count = plain.count
     log(f"main-path-{phase}", **{
         f"{side}_{name}": ",".join(f"{k}:{v}" for k, v in g.items() if v)
@@ -4459,9 +4773,12 @@ def integrator_phases(dev) -> dict:
     with PlainCalls() as plain:
         for name, (fn, _) in runs.items():
             _cuda.reset_launches()
+            plain.hits = 0
             outs[name] = fn()
             torch.cuda.synchronize()
-            got[name] = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+            got[name] = {k: v for k, v in rebuilds(
+                f"main-path-integrators-{name}", _cuda.LAUNCHES,
+                plain.hits).items() if v}
         plain_count = plain.count
     want = {n: e for n, (_, e) in runs.items()}
     log("main-path-integrators",
@@ -4560,17 +4877,20 @@ def _reverse_counted(integ, scene, params, apply_params, weight):
     prb.IntersectTape.append = counted
     try:
         torch.cuda.synchronize()
-        _cuda.reset_launches()
-        t0 = time.perf_counter()
-        img = integ.renderD(scene, 0, seed=SEED)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        fwd = dict(_cuda.LAUNCHES)
-        _cuda.reset_launches()
-        grads = torch.autograd.grad((img * weight).sum(), list(p.values()))
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        bwd = dict(_cuda.LAUNCHES)
+        with PlainCalls() as plain:
+            _cuda.reset_launches()
+            t0 = time.perf_counter()
+            img = integ.renderD(scene, 0, seed=SEED)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fwd = rebuilds("prb-forward", _cuda.LAUNCHES, plain.hits, 0)
+            _cuda.reset_launches()
+            plain.hits = 0
+            grads = torch.autograd.grad((img * weight).sum(),
+                                        list(p.values()))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            bwd = rebuilds("prb-backward", _cuda.LAUNCHES, plain.hits, 0)
     finally:
         prb.IntersectTape.append = append
         apply_params(params)
@@ -4903,15 +5223,17 @@ def api_phase(dev) -> dict:
     import psdr_jit_tpu_torch as pt
     from psdr_jit_tpu_torch.ops import _cuda
 
-    launches = {k: 0 for k in _cuda.LAUNCHES}
+    launches = {k: 0 for k in _cuda.LAUNCHES if k not in K7_KEYS}
 
     def counted(fn):
-        _cuda.reset_launches()
-        out = fn()
-        torch.cuda.synchronize()
-        for k, v in _cuda.LAUNCHES.items():
+        with PlainCalls() as calls:
+            _cuda.reset_launches()
+            out = fn()
+            torch.cuda.synchronize()
+        got = rebuilds("api", _cuda.LAUNCHES, calls.hits)
+        for k, v in got.items():
             launches[k] += v
-        return out, dict(_cuda.LAUNCHES)
+        return out, got
 
     torch.cuda.synchronize()
     with PlainCalls() as plain:
@@ -5039,7 +5361,7 @@ def examples_phase(dev) -> dict:
     from psdr_jit_tpu_torch.ops import _cuda
 
     sys.path.insert(0, str(ROOT / "examples"))
-    total = {k: 0 for k in _cuda.LAUNCHES}
+    total = {k: 0 for k in _cuda.LAUNCHES if k not in K7_KEYS}
     with tempfile.TemporaryDirectory() as d:
         for name in EXAMPLES + MULTI_EXAMPLES:
             mod = importlib.import_module(f"torch_{name}")
@@ -5058,14 +5380,16 @@ def examples_phase(dev) -> dict:
                 text = log_path.read_text()
                 print(text, end="")
                 require(ok, f"examples: {name} failed")
-                got = {k: 0 for k in _cuda.LAUNCHES}
+                ranks = dict.fromkeys(_cuda.LAUNCHES, 0)
                 for m in re.finditer(r"kernel launches: (\{.*\})", text):
                     for k, v in json.loads(m.group(1)).items():
-                        got[k] += v
+                        ranks[k] += v
+                got = rebuilds(f"examples-{name}", ranks, None)
             else:
-                result = mod.main(**kwargs)
-                torch.cuda.synchronize()
-                got = dict(_cuda.LAUNCHES)
+                with PlainCalls() as calls:
+                    result = mod.main(**kwargs)
+                    torch.cuda.synchronize()
+                got = rebuilds(f"examples-{name}", _cuda.LAUNCHES, calls.hits)
                 flat = [x for x in (result if isinstance(result, (tuple,
                         list)) else [result]) if isinstance(x, torch.Tensor)]
                 require(all(bool(torch.isfinite(x).all()) for x in flat),
@@ -5146,6 +5470,7 @@ def main() -> int:
     k1_gallery = pt.Scene.from_arrays(gallery_arrays(**K1_GALLERY),
                                       device=dev)
     k1_phase("K1-492", k1_gallery.configure(), dev, gen, False)
+    kernels["K7"] = {"kernel": "K7", **k7_phase(dev)}
 
     # ---- 3. K2 vs plain on a 4096-pixel crop of the frame ------------------
     crop = torch.arange(H // 2 * W, (H // 2 + 8) * W, device=dev)
@@ -5245,7 +5570,8 @@ def main() -> int:
         its = scene.unit_ray_intersect(picks.o, picks.d)
         img = integrator.renderC(scene, 0, seed=SEED)
         torch.cuda.synchronize()
-        launches = dict(_cuda.LAUNCHES)
+        launches = rebuilds("main-path", _cuda.LAUNCHES, plain.hits, 0, 0)
+    require(plain.hits == 1, "main path: the picks are not the one hit set")
     log("main-path", K1_LAUNCHES=launches["K1"], K2_LAUNCHES=launches["K2"],
         chunks=n_chunks, picks_hit=f"{its.valid.float().mean().item():.4f}",
         plain_calls=plain.count)
@@ -5305,8 +5631,12 @@ def main() -> int:
         _cuda.reset_launches()
         loss, grads, img_t = step()
         torch.cuda.synchronize()
-        launches_t = dict(_cuda.LAUNCHES)
-    k1_step = se_k1_launches(n_pix, SPPSE)
+        k1_step = se_k1_launches(n_pix, SPPSE)
+        # one attached hit set of the three a secondary-edge chunk
+        launches_t = rebuilds("main-path-train", _cuda.LAUNCHES, plain.hits,
+                              0, k1_step // 3)
+    require(plain.hits == k1_step, "training main path: hit sets rebuilt "
+            "!= SE chunks x hit sets a chunk")
     log("main-path-train", **{f"{k}_LAUNCHES": v for k, v in
                               launches_t.items()},
         K1_expected=k1_step, plain_calls=plain.count)
@@ -5461,8 +5791,9 @@ def main() -> int:
     kernels["K5"]["launches_fields"] = launches_n.get("K5", 0)
     kernels["K6"]["launches_fields"] = launches_n.get("K6", 0)
     for k in kernels:
-        kernels[k]["launches_api"] = launches_a.get(k, 0)
-        kernels[k]["launches_examples"] = launches_x2.get(k, 0)
+        if k != "K7":  # K7's launches are summed apart (K7_MAIN_PATHS)
+            kernels[k]["launches_api"] = launches_a.get(k, 0)
+            kernels[k]["launches_examples"] = launches_x2.get(k, 0)
     later = {k: launches_lc[k] + launches_le[k] + launches_i[k]
              + launches_n.get(k, 0) + launches_p.get(k, 0)
              + launches_a.get(k, 0) + launches_x2.get(k, 0)
@@ -5479,7 +5810,10 @@ def main() -> int:
         + [{**kernels["K5"], "launches": launches_l["K5"]
             + launches_dk5["K5"] + later["K5"]},
            {**kernels["K6"], "launches": launches_l["K6"]
-            + launches_e["K6"] + launches_g["K6"] + later["K6"]}])}
+            + launches_e["K6"] + launches_g["K6"] + later["K6"]},
+           {**kernels["K7"], "launches": K7_MAIN_PATHS["K7"],
+            "jvp_launches": K7_MAIN_PATHS["K7-jvp"],
+            "vjp_launches": K7_MAIN_PATHS["K7-vjp"]}])}
     log("total", seconds=f"{time.perf_counter() - t_start:.1f}",
         envmap_seconds=f"{env_s:.1f}", texture_seconds=f"{tex_s:.1f}",
         gallery_step_seconds=f"{gal_s:.1f}", room_seconds=f"{room_s:.1f}",

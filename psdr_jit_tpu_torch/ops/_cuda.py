@@ -23,7 +23,9 @@ for F <= 512 triangles, the sweep of ``intersect.cu`` up to 192, the walk
 of ``bvh.cu`` above; ``K5`` and ``K6``: the same walk for 512 < F <= 4096
 on a tree split by surface area and above on one split at the middle;
 ``K2``, ``K2-pair``, ``K2-stash``: the detached Li in its three modes;
-``K3``: the attached shade; ``K4``: its adjoint); each wrapper adds one
+``K3``: the attached shade; ``K4``: its adjoint; ``K7``, ``K7-jvp``,
+``K7-vjp``: the closest hit rebuilt from K1's, K5's or K6's payload, its
+tangent and its adjoint); each wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that it
 went through the kernels.
 
@@ -51,15 +53,16 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "build"
-SOURCES = ("common.cuh", "sweep.cuh", "shade.cuh", "intersect.cu",
-           "megakernel.cu", "shade.cu", "bvh.cu")
+SOURCES = ("common.cuh", "sweep.cuh", "shade.cuh", "hit_rebuild.cuh",
+           "intersect.cu", "megakernel.cu", "shade.cu", "bvh.cu",
+           "hit_rebuild.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libpsdr_kernels.so"
 
 OPS = "psdr_jit_tpu_torch"  # the kernels' operator namespace
 LAUNCHES = {"K1": 0, "K2": 0, "K2-pair": 0, "K2-stash": 0, "K3": 0,
-            "K4": 0, "K5": 0, "K6": 0}
+            "K4": 0, "K5": 0, "K6": 0, "K7": 0, "K7-jvp": 0, "K7-vjp": 0}
 
 
 def reset_launches():
@@ -172,6 +175,16 @@ def library(csrc: Path = CSRC) -> ctypes.CDLL:
     lib.psdr_sah_build.argtypes = [_P, _I, _I, _I, ctypes.c_double, _P, _P,
                                    _P, _P]
     lib.psdr_sah_build.restype = _I
+    ptrs = ctypes.POINTER(ctypes.c_void_p)  # a C array of pointers
+    lib.psdr_k7.argtypes = [_P, _P, _P, _I, _P, _P, _P, _P, _LL, _I, _I, _I,
+                            ptrs, _P]
+    lib.psdr_k7.restype = _I
+    lib.psdr_k7_jvp.argtypes = [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+                                _P, _LL, _I, _I, ptrs, _P]
+    lib.psdr_k7_jvp.restype = _I
+    lib.psdr_k7_vjp.argtypes = [_P, _P, _P, _I, _P, _P, _P, _P, _LL, _I, _I,
+                                ptrs, _P, _P, _P, _P, _P]
+    lib.psdr_k7_vjp.restype = _I
     lib.psdr_error_string.argtypes = [_I]
     lib.psdr_error_string.restype = ctypes.c_char_p
     return lib

@@ -46,6 +46,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from ..core.types import (EDGE_EPSILON, EPSILON, RenderOption, Ray, Frame,
                           Intersection)
@@ -65,7 +66,7 @@ from ..emitter.area import AreaLight, AreaLightData, area_light_weight
 from ..emitter.envmap import (EnvironmentMap, EnvironmentMapData,
                               build_envmap_distribution)
 from ..core.bitmap import Bitmap
-from ..ops import intersect
+from ..ops import hit_rebuild, intersect
 from ..ops.gather import gather_rows
 from ..utils import profiling
 
@@ -188,9 +189,15 @@ class SceneData:
         launched, so a chunk rebuilt in the backward sweep traces no ray
         again.
 
+        On CUDA tensors the rebuild is one launch of K7
+        (``ops/hit_rebuild.py``; its tangent and adjoint are kernels too),
+        equal to the plain rebuild (:meth:`_rebuild_plain`, the CPU path)
+        bit for bit.
+
         The whole hit, kernel and rebuild, is the span ``hits``
-        (``utils.profiling``), which counts the ``rays`` it takes and the
-        ``active`` ones among them."""
+        (``utils.profiling``), which counts the ``rays`` it takes, the
+        ``active`` ones among them and the ``fused`` ones, which K7
+        rebuilt (all of them on the card, none on the CPU)."""
         from ..integrator.prb import current_tape
 
         tri = self.tri
@@ -206,10 +213,63 @@ class SceneData:
                 tri.p0, tri.e1, tri.e2, ray, active, tree)
             if tape is not None:
                 tape.append((tri_id, valid, uv))
+        if mode not in ("path", "solid"):
+            raise ValueError(f"mode {mode!r}: 'path' or 'solid'")
+        fused = tri_id.is_cuda
         if profiling.counting():
             n = tri_id.numel()
             profiling.count("rays", n)
             profiling.count("active", n if active is None else active.sum())
+            profiling.count("fused", n if fused else 0)
+        if fused:
+            return self._rebuild_k7(ray, tri_id, valid, uv, mode == "solid")
+        return self._rebuild_plain(ray, tri_id, valid, uv, mode)
+
+    def _rebuild_k7(self, ray: Ray, tri_id, valid, uv,
+                    solid: bool) -> Intersection:
+        """The hit of :meth:`ray_intersect` from its payload by one launch of
+        K7 (``ops/hit_rebuild.py``), differentiable through its tangent
+        and adjoint kernels; the fields equal :meth:`_rebuild_plain`'s."""
+        shape = tri_id.shape
+        ints, uvt = self.hit_rows
+        # the corner UVs attached where they carry a derivative
+        uv_diff = self.has_uv and (
+            self.tri_uv.requires_grad
+            or fwAD.unpack_dual(self.tri_uv).tangent is not None)
+        if uv_diff:
+            uvt = self.tri_uv.reshape(-1, 6).contiguous()
+        o = torch.broadcast_to(ray.o, shape + (3,)).reshape(-1, 3)
+        d = (torch.broadcast_to(ray.d, shape + (3,)).reshape(-1, 3)
+             if solid else o.new_empty((0, 3)))
+        (t, p, n, s, tf, sn, wi, jac, bc, its_uv, dp_du, dp_dv, mesh_id,
+         face_indices) = hit_rebuild.rebuild(
+            hit_rebuild.face_table(self.tri), ints, uvt,
+            tri_id.reshape(-1).contiguous(), uv.reshape(-1, 2).contiguous(),
+            o.contiguous(), d.contiguous(), solid, self.has_uv, self.has_pv,
+            uv_diff)
+
+        def lanes(x, *tail):
+            return x.reshape(shape + tail)
+
+        zero = t.new_zeros(())
+        return Intersection(
+            valid=valid, t=lanes(t), p=lanes(p, 3), n=lanes(n, 3),
+            sh_frame=Frame(lanes(s, 3), lanes(tf, 3), lanes(sn, 3)),
+            wi=lanes(wi, 3), J=lanes(jac), bc=lanes(bc, 2) if solid else uv,
+            tri_id=tri_id, mesh_id=lanes(mesh_id),
+            uv=lanes(its_uv, 2) if self.has_uv else zero.expand(shape + (2,)),
+            dp_du=(lanes(dp_du, 3) if self.has_uv
+                   else zero.expand(shape + (3,))),
+            dp_dv=(lanes(dp_dv, 3) if self.has_uv
+                   else zero.expand(shape + (3,))),
+            face_indices=(lanes(face_indices, 3) if self.has_pv else
+                          mesh_id.new_zeros(()).expand(shape + (3,))))
+
+    def _rebuild_plain(self, ray: Ray, tri_id, valid, uv,
+                       mode: str) -> Intersection:
+        """The hit of :meth:`ray_intersect` from its payload in PyTorch: the
+        CPU path, and the plain version of K7 on any device."""
+        tri = self.tri
         idx = torch.clamp(tri_id, min=0).long()  # cast once for the rows
 
         def rows(x):
@@ -295,6 +355,20 @@ class SceneData:
         tri = self.tri
         return intersect.routing_tree(tri.p0.detach(), tri.e1.detach(),
                                       tri.e2.detach())
+
+    @functools.cached_property
+    def hit_rows(self):
+        """K7's constant face tables on the scene's device
+        (``ops/hit_rebuild.py``), built at first use: ``(ints (F, 5) int32:
+        face-normal mask, mesh id, the face's vertex ids; corner UVs (F, 6),
+        or (0, 6) without UVs)``."""
+        tri = self.tri
+        ints = torch.cat([self.face_normal_mask[:, None].to(torch.int32),
+                          self.face_mesh_id[:, None].to(torch.int32),
+                          tri.face_indices.to(torch.int32)], 1).contiguous()
+        uvt = (self.tri_uv.detach().reshape(-1, 6).contiguous()
+               if self.has_uv else tri.p0.new_empty((0, 6)))
+        return ints, uvt
 
     @functools.cached_property
     def materials(self):

@@ -22,6 +22,7 @@ version that gives its wrapper's shapes and types; on the card,
 renderD runs through them.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -29,14 +30,17 @@ import pytest
 import torch
 
 import psdr_jit_tpu_torch as pt
-from chip_smoke import (K1_GALLERY, edge_rays, envmap_arrays, envmap_setup,
-                        func_jvp, gallery_arrays, mixed_rays,
-                        renderd_tangent, swapped_children, tie_case,
-                        train_setup)
+from chip_smoke import (K1_GALLERY, K7_KEYS, PlainCalls, edge_rays,
+                        envmap_arrays, envmap_setup, func_jvp, gallery_arrays,
+                        k7_args, k7_case, k7_fields, k7_jvp_args,
+                        k7_plain_jvp, k7_plain_vjp, mixed_rays,
+                        renderd_tangent, swapped_children,
+                        textured_cbox_arrays, tie_case, train_setup)
 from psdr_jit_tpu_torch.integrator import base
 from psdr_jit_tpu_torch.integrator.base import interior_lane_setup
 from psdr_jit_tpu_torch.ops import _cuda
 from psdr_jit_tpu_torch.ops import bvh
+from psdr_jit_tpu_torch.ops import hit_rebuild
 from psdr_jit_tpu_torch.ops import intersect as ix
 from psdr_jit_tpu_torch.ops import megakernel as mk
 from psdr_jit_tpu_torch.ops import shade_mega as sm
@@ -104,7 +108,8 @@ def test_cpu_path_is_plain_and_launches_nothing():
     assert torch.isfinite(loss) and all(g.abs().sum() > 0
                                         for g in grads.values())
     assert set(_cuda.LAUNCHES) == {"K1", "K2", "K2-pair", "K2-stash", "K3",
-                                   "K4", "K5", "K6"}
+                                   "K4", "K5", "K6", "K7", "K7-jvp",
+                                   "K7-vjp"}
     assert not any(_cuda.LAUNCHES.values())
 
 
@@ -160,7 +165,48 @@ def test_large_scene_launchers_refuse_cpu_tensors():
         bvh.walk_cuda(small, o, d, act, kernel="K5")
 
 
-OPS = ("k1_sweep", "walk", "k2", "k2_pair", "k2_stash", "k3", "k4")
+OPS = ("k1_sweep", "walk", "k2", "k2_pair", "k2_stash", "k3", "k4", "k7",
+       "k7_jvp", "k7_vjp", "k7_jvp_uv", "k7_vjp_uv")
+
+
+def _k7_op_case(name, sd):
+    """K7's operators in solid mode with per-vertex ids (so that every
+    output but the texture fields has lanes) on 4,096 of
+    ``chip_smoke.mixed_rays`` of ``sd``; the ``_uv`` cases in path mode on
+    a UV-mapped box whose corner UVs carry a derivative; ``plain()`` from
+    the plain rebuild, forward-mode AD and autograd of it."""
+    dev = sd.tri.p0.device
+    uv_diff = name.endswith("_uv")
+    if uv_diff:
+        sd = pt.Scene.from_arrays(textured_cbox_arrays(8, 8, 1, 0, 0,
+                                                       tex=(4, 4)),
+                                  device=dev).configure()
+    solid = not uv_diff
+    sd = dataclasses.replace(sd, has_pv=True)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    ray, _, payload = k7_case(sd, 4096, gen, dev)
+    args = k7_args(sd, ray, payload, solid)
+    table, uvt, ones = args[0], args[2], torch.ones_like
+    mode = "solid" if solid else "path"
+    if name == "k7":
+        def plain():
+            its = sd._rebuild_plain(ray, *payload, mode)
+            return (*k7_fields(its, solid, False), its.mesh_id,
+                    its.face_indices)
+
+        return hit_rebuild.k7_op, args, plain
+    if name.startswith("k7_jvp"):
+        uvt_t = ones(uvt) if uv_diff else uvt[:0]
+        return hit_rebuild.k7_jvp_op, (
+            *k7_jvp_args(args, ones(table), (ones(ray.o), ones(ray.d)),
+                         uvt_t)[:10], ones(ray.d) if solid else ray.d[:0],
+            solid, sd.has_uv, uv_diff), lambda: k7_plain_jvp(
+                sd, table, ones(table), ray, (ones(ray.o), ones(ray.d)),
+                payload, solid, uvt_t if uv_diff else None)
+    cts = [ones(x) for x in k7_fields(sd._rebuild_plain(
+        ray, *payload, mode), solid, sd.has_uv)]
+    return hit_rebuild.k7_vjp_op, (*args[:9], uv_diff, cts), (
+        lambda: k7_plain_vjp(sd, table, ray, payload, solid, cts, uv_diff))
 
 
 def _op_case(name, sd):
@@ -168,6 +214,8 @@ def _op_case(name, sd):
     box's 32x32 camera rays (spp 4, depth 2) on ``sd``'s device;
     ``plain()`` gives what its wrapper returns on these inputs, from the
     plain versions (CPU tensors)."""
+    if name.startswith("k7"):
+        return _k7_op_case(name, sd)
     tri = sd.tri
     o, d, sampler = _camera_rays(sd, 4, 3, torch.arange(
         32 * 32, device=tri.p0.device))
@@ -573,18 +621,22 @@ def test_envmap_step_on_card(cuda):
     ``exp2`` differ between the two (``[envmap-64]`` of chip_smoke.py
     measured 3.6e-7 in the loss and 3.5e-5 in a gradient); K6 launched 12
     times (3 an interior chunk, 6 a primary-edge chunk, 3 a
-    secondary-edge chunk)."""
+    secondary-edge chunk) and no other tracing kernel; K7 rebuilt each
+    hit once (those and the ones a chunk's backward replays)."""
     steps = []
     for device in (cuda, "cpu"):
         sc = pt.Scene.from_arrays(envmap_arrays(32, 32, 4, 4, 4),
                                   device=device)
         sc.configure()
         _cuda.reset_launches()
-        steps.append(pt.PathTracer(1).loss_and_grad(sc, *envmap_setup(sc),
-                                                    seed=3))
+        with PlainCalls() as hits:
+            steps.append(pt.PathTracer(1).loss_and_grad(
+                sc, *envmap_setup(sc), seed=3))
         if device == cuda:
             assert _cuda.LAUNCHES["K6"] == 12
-            assert sum(_cuda.LAUNCHES.values()) == 12
+            assert sum(v for k, v in _cuda.LAUNCHES.items()
+                       if k not in K7_KEYS) == 12
+            assert _cuda.LAUNCHES["K7"] == hits.hits >= 12
     (loss, grads, img), (loss_p, grads_p, img_p) = steps
     assert abs(float(loss) - float(loss_p)) < 1e-5 * abs(float(loss_p))
     assert _rel(img.cpu(), img_p) < 1e-5
@@ -742,7 +794,9 @@ def test_gallery_render_on_card(cuda, monkeypatch):
     _cuda.reset_launches()
     img = integ.renderC(sc, 0, seed=0)
     assert _cuda.LAUNCHES["K6"] == 5 * 4
-    assert sum(_cuda.LAUNCHES.values()) == 5 * 4
+    assert sum(v for k, v in _cuda.LAUNCHES.items()
+               if k not in K7_KEYS) == 5 * 4
+    assert _cuda.LAUNCHES["K7"] == 5 * 4
     ref = integ.renderC(_gallery("cpu", 4, 3), 0, seed=0)
     assert torch.isfinite(img).all() and img.abs().sum() > 0
     assert _rel(img.cpu(), ref) < 1e-4
@@ -770,7 +824,8 @@ def test_func_jvp_matches_forward_ad_on_card(cuda):
     sppe 4, sppse 4, depth 2) along the light's translation: the kernels
     are operators, so functorch's tensors never reach a launch, and the
     primal and tangent equal ``torch.autograd.forward_ad``'s to the order
-    of the splats' float atomics (rel L1 1e-6)."""
+    of the splats' float atomics (rel L1 1e-6); the hits' tangents come
+    from K7-jvp."""
     sc = _scene(cuda)
     sc.opts = pt.RenderOption(32, 32, 4, 4, 4)
     setup = train_setup(sc)
@@ -781,5 +836,6 @@ def test_func_jvp_matches_forward_ad_on_card(cuda):
     p_j, t_j = func_jvp(integ, sc, lambda v: apply_params(
         {**params, "tx": v}), params["tx"], 1.0)
     assert _cuda.LAUNCHES["K1"] > 0 and _cuda.LAUNCHES["K2-pair"] > 0
+    assert _cuda.LAUNCHES["K7"] > 0 and _cuda.LAUNCHES["K7-jvp"] > 0
     assert float(t_f.abs().sum()) > 0
     assert _rel(p_j, p_f) < 1e-6 and _rel(t_j, t_f) < 1e-6

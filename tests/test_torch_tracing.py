@@ -6,6 +6,7 @@ nothing listening (no records, the same bits), and a step under
 ``profiling.trace`` (the spans in the Chrome trace, none in the
 recorder)."""
 
+import contextlib
 import json
 import os
 
@@ -119,6 +120,73 @@ def test_secondary_edge_hit_counters(recorded):
     assert c["active"] == sum(a for _, a in hits)
     assert 0 < c["active"] < c["rays"]
     assert set(totals["counters"]) == {"secondary_edge.hits"}
+
+
+def test_closest_hits_fused_nowhere_on_the_cpu(recorded, box):
+    """On the CPU every closest hit is rebuilt in PyTorch: the counter
+    ``fused`` (the lanes K7 rebuilt) reads 0 in each ``hits`` span of the
+    step and of a forward-mode renderD, beside their rays, and the
+    benchmark's ``hits_fused_share`` reads 0%."""
+    _, _, totals, _ = recorded
+    sc, params, apply_params, _, integ = box
+    reader = _reader("hits_fused_share")
+    with profiling.recorder() as rec:
+        with fwAD.dual_level():
+            apply_params({**params, "tx": fwAD.make_dual(
+                params["tx"], torch.ones_like(params["tx"]))})
+            integ.renderD(sc, 0, seed=SEED)
+        apply_params(params)
+        share = reader.read(None)
+        d_totals = rec.totals()
+    for t in (totals, d_totals):
+        hits = {k: c for k, c in t["counters"].items() if k.endswith("hits")}
+        assert hits
+        for c in hits.values():
+            assert c["fused"] == 0 and c["rays"] > 0
+    assert share == 0.0
+
+
+def _reader(name):
+    """The benchmark's reader of per-layer metric ``name``, loaded from
+    ``benchmark/metrics`` as its harness loads it."""
+    import importlib.util
+    import sys
+
+    bench = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "benchmark")
+    if bench not in sys.path:
+        sys.path.insert(0, bench)
+    spec = importlib.util.spec_from_file_location(
+        f"bench_metric_{name}", os.path.join(bench, "metrics", f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    with profiling.recorder():  # loading it switches a recorder on
+        spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("counts, share", [
+    ({"interior.hits": (400, 400), "secondary_edge.hits": (100, 100)},
+     100.0),
+    ({"interior.hits": (300, 300), "secondary_edge.hits": (100, 0),
+      "hits": (100, 0)}, 60.0),
+    ({"secondary_edge.hits": (100, None)}, None),
+    ({}, None)])
+def test_hits_fused_share_reader(counts, share):
+    """``hits_fused_share``: 100 x the ``fused`` over the ``rays`` of every
+    span whose full name ends in ``hits``; nothing where no such span has
+    the counter (a program without it)."""
+    reader = _reader("hits_fused_share")
+    with profiling.recorder():
+        for full, (rays, fused) in counts.items():
+            parts = full.split(".")
+            with contextlib.ExitStack() as stack:
+                for part in parts:
+                    stack.enter_context(profiling.span(part))
+                profiling.count("rays", rays)
+                if fused is not None:
+                    profiling.count("fused", fused)
+        got = reader.read(None)
+    assert got == (None if share is None else pytest.approx(share))
 
 
 def test_step_unrecorded_is_the_same(recorded, box):
